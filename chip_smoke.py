@@ -1,29 +1,42 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every check below
+    python3 chip_smoke.py --profile    # only: where a train step's device time goes
 
-Drives the port's serving path (neural_jacobian_field_torch, never JAX) at the
-flagship configuration with seeded random weights:
+Drives the port's two main paths (neural_jacobian_field_torch, never JAX)
+at the flagship configuration with seeded random weights:
 
   1. card and build: the card's name and power limit, the kernels built from
      csrc/ with nvcc (TF32 off for every float32 reference);
-  2. each hand-written kernel (K9-fwd, K6-fwd, K5, K7-tz-fwd) against its
-     plain PyTorch version at the shapes the main path gives it: error,
-     tolerance, and median CUDA-event times of both;
-  3. the slice: a full 480x640 target view rendered in 2048-ray chunks from
-     a 480x640 context image (launch counters reset just before, read just
+  2. each hand-written kernel against its plain PyTorch version at the
+     shapes the main paths give it, with error, tolerance, and median
+     CUDA-event times of both: the forward kernels (K9-fwd, K6-fwd, K5,
+     K7-tz-fwd) at the serving shapes, the backward kernels (K9-dgrad,
+     K9-wgrad, K6-bwd, K7-tz-bwd) at the training step's;
+  3. serving: a full 480x640 target view rendered in 2048-ray chunks from a
+     480x640 context image (launch counters reset just before, read just
      after), then one chunk again with the plain versions swapped in;
   4. inverse dynamics on 4096 rays: encode_image, a model-realisable target
      flow, 100 Adam steps, and the least-squares solve;
-  5. timings and peak memory.
+  5. training: the stage-1 train step at batch 7 x 256 rays with 480x640
+     context images (bf16, forward + backward + Adam): launch counts of an
+     update step and of a frozen step (counters reset before each), non-zero
+     gradients on every encoder and density-head parameter, update / frozen
+     step times and the rays/s of one 5-frozen + 1-update cycle, peak
+     memory, a loss that falls over 30 steps on one batch, and one step's
+     parameter gradients with the kernels against the plain versions;
+  6. timings and peak memory.
 Any failed phase exits non-zero. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result. The
-last two lines are the kernel table and the device record, each one JSON
-object.
+last three lines are the card line, the kernel table and the device record,
+the last two each one JSON object; the train numbers are on the lines that
+start with "train".
 """
 
+import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -38,6 +51,11 @@ PATCH = 2048
 Z_NEAR, Z_FAR = 0.5, 10.0
 ID_RAYS = 4096
 SEED = 0
+TRAIN_B, TRAIN_RAYS = 7, 256
+TRAIN_LR, TRAIN_WARMUP = 5e-4, 5
+# stride-1 3x3 convs of the encoder per forward: (H, W, C) at a 480x640
+# image -> number of convs (layer1 6, layer2 7, layer3 11)
+K9_SHAPES = ((120, 160, 64, 6), (60, 80, 128, 7), (30, 40, 256, 11))
 
 
 class PhaseError(RuntimeError):
@@ -55,6 +73,12 @@ def card_line() -> str:
                          timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
 
 
 def cuda_time_ms(fn, reps=10, warmup=2):
@@ -77,8 +101,9 @@ def cuda_time_ms(fn, reps=10, warmup=2):
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel wrapper for its plain version where the model looks
-    it up (the wrappers' own modules), so a run goes through the plain
-    PyTorch versions on the card."""
+    it up (the wrappers' own modules; the autograd.Functions look their
+    forward and backward wrappers up there too), so a run goes through the
+    plain PyTorch versions on the card, forward and backward."""
     import importlib
 
     from neural_jacobian_field_torch.ops.kernels import KERNELS
@@ -114,7 +139,7 @@ def kernel_checks(dev):
 
     # K9-fwd: the encoder's stride-1 3x3 convs at B=1
     errs, ms, pms = [], 0.0, 0.0
-    for hh, ww, c in ((120, 160, 64), (60, 80, 128), (30, 40, 256)):
+    for hh, ww, c, count in K9_SHAPES:
         x = torch.randn((1, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
         w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
         got, want = K.conv3x3_s1(x, w), K.conv3x3_s1_plain(x, w)
@@ -128,8 +153,6 @@ def kernel_checks(dev):
         k_ms = cuda_time_ms(lambda: K.conv3x3_s1(x, w))
         p_ms = cuda_time_ms(lambda: K.conv3x3_s1_plain(x, w))
         print(f"  ms kernel {k_ms:.4f} plain {p_ms:.4f}")
-        # per encode: layer1 6 convs, layer2 7, layer3 11
-        count = {64: 6, 128: 7, 256: 11}[c]
         ms += count * k_ms
         pms += count * p_ms
     record("K9-fwd", errs, ms, pms)
@@ -205,6 +228,132 @@ def kernel_checks(dev):
         ms += k_ms
         pms += p_ms
     record("K7-tz-fwd", errs, ms, pms)
+    del tz, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def backward_kernel_checks(dev):
+    """Each backward kernel against its plain version at the train step's
+    shapes (batch 7). Returns its rows of the kernel table; ms are per train
+    step (K7-tz-bwd: per update step, proposal + density trunk)."""
+    import torch
+
+    from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
+    from neural_jacobian_field_torch.ops import kernels as K
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = {}
+    b = TRAIN_B
+
+    # K9-wgrad and K9-dgrad at the three encoder shapes
+    werrs, derrs, wms, wpms, dms, dpms = [], [], 0.0, 0.0, 0.0, 0.0
+    for hh, ww, c, count in K9_SHAPES:
+        x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
+        gy = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
+        # wgrad: the same bf16 products summed in float32 in another order
+        got, want = K.conv3x3_s1_wgrad(x, gy), K.conv3x3_s1_wgrad_plain(x, gy)
+        werr = rel_err(got, want)
+        print(f"K9-wgrad {b}x{hh}x{ww}x{c}: max_abs_err {float((got - want).abs().max()):.3e} "
+              f"rel_to_scale {werr:.3e} (tol 1e-4 of scale: float32 sums reordered)")
+        check(werr <= 1e-4, "K9-wgrad disagrees with its plain version")
+        werrs.append(float((got - want).abs().max()))
+        # dgrad alone: one bf16 rounding of a float32 sum on each side
+        got, want = K.conv3x3_s1_dgrad(gy, w), K.conv3x3_s1_dgrad_plain(gy, w)
+        derr = (got.float() - want.float()).abs()
+        ok = bool((derr <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
+        # the whole Function: autograd.grad through conv_s1 against plain
+        # autograd, which adds the nine taps' bf16 gradients in bf16
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        dx, dw = torch.autograd.grad(K.conv_s1(xr, wr), (xr, wr), gy)
+        px, pw = torch.autograd.grad(K.conv3x3_s1_plain(xr, wr), (xr, wr), gy)
+        fx, fw = rel_err(dx, px), rel_err(dw, pw)
+        print(f"K9-dgrad {b}x{hh}x{ww}x{c}: max_abs_err {float(derr.max()):.3e} (tol 2^-7|ref|"
+              f" + 1e-3 per element) ok={ok}; autograd.grad vs plain autograd: dx "
+              f"{fx:.3e} (tol 3e-2 of scale), dW {fw:.3e} (tol 1e-2 of scale)")
+        check(ok and fx <= 3e-2 and fw <= 1e-2, "K9 backward disagrees with plain autograd")
+        derrs.append(float(derr.max()))
+        del xr, wr, dx, dw, px, pw
+        tw = (cuda_time_ms(lambda: K.conv3x3_s1_wgrad(x, gy)),
+              cuda_time_ms(lambda: K.conv3x3_s1_wgrad_plain(x, gy)))
+        td = (cuda_time_ms(lambda: K.conv3x3_s1_dgrad(gy, w)),
+              cuda_time_ms(lambda: K.conv3x3_s1_dgrad_plain(gy, w)))
+        print(f"  ms wgrad kernel {tw[0]:.4f} plain {tw[1]:.4f}; dgrad kernel {td[0]:.4f} "
+              f"plain {td[1]:.4f}")
+        wms, wpms = wms + count * tw[0], wpms + count * tw[1]
+        dms, dpms = dms + count * td[0], dpms + count * td[1]
+    rows["K9-wgrad"] = dict(max_abs_err=max(werrs), ms=wms, plain_ms=wpms)
+    rows["K9-dgrad"] = dict(max_abs_err=max(derrs), ms=dms, plain_ms=dpms)
+    print(f"K9 backward per train step (24 convs): wgrad kernel {wms:.4f} plain {wpms:.4f} ms;"
+          f" dgrad kernel {dms:.4f} plain {dpms:.4f} ms")
+    torch.cuda.empty_cache()
+
+    # K6-bwd at the fine, mid and coarse levels of batch 7
+    errs, ms, pms = [], 0.0, 0.0
+    for hh, ww, c in ((240, 320, 128), (60, 80, 128), (30, 40, 256)):
+        gp = torch.randn((b, hh * ww, 4 * c), generator=g, device=dev).to(torch.bfloat16)
+        got, want = K.pack_2x2_flat_bwd(gp, hh), K.pack_2x2_flat_bwd_plain(gp, hh)
+        err = float((got.float() - want.float()).abs().max())
+        print(f"K6-bwd {b}x{hh}x{ww}x{c}: max_abs_err {err:.3e} (tol 0: the same bf16 "
+              f"additions in the same order)")
+        check(err == 0.0, "K6-bwd disagrees with its plain version")
+        errs.append(err)
+        k_ms = cuda_time_ms(lambda: K.pack_2x2_flat_bwd(gp, hh))
+        p_ms = cuda_time_ms(lambda: K.pack_2x2_flat_bwd_plain(gp, hh))
+        print(f"  ms kernel {k_ms:.4f} plain {p_ms:.4f}")
+        ms, pms = ms + k_ms, pms + p_ms
+    rows["K6-bwd"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms)
+    del gp
+    torch.cuda.empty_cache()
+
+    # K7-tz-bwd: the proposal (d_out 1) and density (d_out 16) trunks of a
+    # step, N = 7 x 256 rays x 256 samples
+    cfg = MlpCfg(n_blocks=5, d_hidden=128, combine_layer=3)
+    npts = b * TRAIN_RAYS * 256
+    tz = torch.randn((npts, 384), generator=g, device=dev).to(torch.bfloat16)
+    x = (torch.rand((npts, 63), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    errs, ms, pms = [], 0.0, 0.0
+    for d_out in (1, 16):
+        def lin(din, dout):
+            return {"kernel": torch.randn((din, dout), generator=g, device=dev) / math.sqrt(din),
+                    "bias": 0.1 * torch.randn((dout,), generator=g, device=dev)}
+
+        params = {"lin_in": lin(63, 128)}
+        params.update({f"lin_z_{i}": {"bias": lin(1, 128)["bias"]} for i in range(3)})
+        for i in range(5):
+            params[f"blocks_{i}_fc_0"] = lin(128, 128)
+            params[f"blocks_{i}_fc_1"] = lin(128, 128)
+        params["lin_out"] = lin(128, d_out)
+        gy = torch.randn((npts, d_out), generator=g, device=dev)
+        grads, dtz = K.fused_resnet_fc_tz_bwd(params, cfg, tz, x, gy, d_out)
+        pgrads, pdtz = K.fused_resnet_fc_tz_bwd_plain(params, cfg, tz, x, gy, d_out)
+        leaf_max = max(rel_err(grads[k][leaf], v) for k, p in pgrads.items()
+                       for leaf, v in p.items())
+        leaf_l2 = max(float((grads[k][leaf] - v).norm() / v.norm())
+                      for k, p in pgrads.items() for leaf, v in p.items())
+        derr = (dtz.float() - pdtz.float()).abs()
+        dtz_l2 = float(derr.norm() / pdtz.float().norm())
+        dtz_far = float((derr > 2e-2 * pdtz.float().abs().max()).float().mean())
+        err = max(float((grads[k][leaf] - v).abs().max()) for k, p in pgrads.items()
+                  for leaf, v in p.items())
+        print(f"K7-tz-bwd N={npts} d_out={d_out}: dW/db max_abs_err {err:.3e}, worst leaf "
+              f"{leaf_max:.3e} of scale (tol 2e-2), {leaf_l2:.3e} in l2 (tol 1e-2); dtz "
+              f"{dtz_l2:.3e} in l2 (tol 1e-2), share beyond 2e-2 of scale {dtz_far:.2e} "
+              f"(tol 1e-3): bf16 recompute roundings may flip a ReLU mask")
+        check(leaf_max <= 2e-2 and leaf_l2 <= 1e-2 and dtz_l2 <= 1e-2 and dtz_far <= 1e-3,
+              "K7-tz-bwd disagrees with its plain version")
+        errs.append(err)
+        del grads, dtz, pgrads, pdtz
+        k_ms = cuda_time_ms(lambda: K.fused_resnet_fc_tz_bwd(params, cfg, tz, x, gy, d_out),
+                            reps=3, warmup=1)
+        p_ms = cuda_time_ms(lambda: K.fused_resnet_fc_tz_bwd_plain(params, cfg, tz, x, gy,
+                                                                   d_out), reps=3, warmup=1)
+        flops = 2.0 * npts * (64 * 128 + 10 * 128 * 128) * 4
+        print(f"  ms kernel {k_ms:.4f} (~{flops / k_ms / 1e9:.1f} TFLOP/s at 4 trunk passes) "
+              f"plain {p_ms:.4f}")
+        ms, pms = ms + k_ms, pms + p_ms
+    rows["K7-tz-bwd"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms)
     del tz, x
     torch.cuda.empty_cache()
     return rows
@@ -335,7 +484,10 @@ def slice_phase(dev, model, cam, robot, timings):
           f"[{float(out.depth_raw.min()):.4f}, {float(out.depth_raw.max()):.4f}], "
           f"|flow| max {float(out.flow_raw.abs().max()):.4e}")
     n_chunks = H * W // PATCH
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    forward = ("K9-fwd", "K6-fwd", "K5", "K7-tz-fwd")
+    check(all(launches[k] > 0 for k in forward), f"a kernel was not launched: {launches}")
+    check(all(v == 0 for k, v in launches.items() if k not in forward),
+          f"serving launched a backward kernel: {launches}")
     check(launches["K9-fwd"] == 24, f"K9-fwd launched {launches['K9-fwd']} times, not 24")
     check(launches["K7-tz-fwd"] == 3 * n_chunks, "K7-tz-fwd not 3 launches per chunk")
     check(launches["K5"] == n_chunks, "K5 not one launch per chunk")
@@ -428,7 +580,247 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings):
     check(resid < 2e-2, "least-squares residual above its bound")
 
 
+# ------------------------------------------------------------------ phase 5
+
+def train_batch(dev):
+    """A batch-7 training batch of 480x640 images, random as bench.py's
+    _raw_batch makes them (uniform rgb, depth in [1, 4], near 0.5, far 10),
+    with the target camera of `cameras` (rotated 10 degrees about a point
+    2 m ahead) so that every ray's epipolar segment has length."""
+    import torch
+
+    from neural_jacobian_field_torch.training import RawBatch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b = TRAIN_B
+    cam, _ = cameras(dev)
+    return RawBatch(
+        ctxt_rgb=torch.rand((b, H, W, 3), generator=g, device=dev),
+        ctxt_extrinsics=cam.ctxt_extrinsics.expand(b, 4, 4),
+        ctxt_intrinsics=cam.ctxt_intrinsics.expand(b, 3, 3),
+        robot_action=0.1 * torch.randn((b, 8), generator=g, device=dev),
+        trgt_rgb=torch.rand((b, H, W, 3), generator=g, device=dev),
+        trgt_depth=1.0 + 3.0 * torch.rand((b, H, W, 1), generator=g, device=dev),
+        trgt_extrinsics=cam.trgt_extrinsics.expand(b, 4, 4),
+        trgt_intrinsics=cam.trgt_intrinsics.expand(b, 3, 3),
+        near=torch.full((b,), Z_NEAR, device=dev), far=torch.full((b,), Z_FAR, device=dev))
+
+
+def step_draws(dev, g):
+    """Explicit randomness for one step: the pixel set and each sampling
+    level's stratified jitter."""
+    import torch
+
+    from neural_jacobian_field_torch.training.prepare import sample_pixels
+
+    yx = sample_pixels(TRAIN_RAYS, H, W, g, dev)
+    draws = tuple(torch.rand((TRAIN_B, TRAIN_RAYS, 257), generator=g, device=dev)
+                  for _ in range(2))
+    return yx, draws
+
+
+def step_grads(state, batch, yx, draws, updated):
+    """Forward + backward of one train step (no optimizer step); returns the
+    parameter gradients by name."""
+    from neural_jacobian_field_torch.models.model import StepCtx
+    from neural_jacobian_field_torch.training import perception_loss, prepare_training_batch
+
+    model = state.model
+    mi, mt = prepare_training_batch(batch, TRAIN_RAYS, yx=yx)
+    model.zero_grad(set_to_none=True)
+    out = model(mi, train=True, ctx=StepCtx(anneal=1.0, updated=updated, draws=draws))
+    loss, _ = perception_loss(out, mt, state.cfg.loss)
+    loss.backward()
+    return {k: p.grad.detach().float().clone() for k, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def train_setup(dev):
+    """The flagship model with seeded weights, its train state, a batch and a
+    generator, warmed up on both gates (allocator, cuBLAS)."""
+    import torch
+
+    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.training import TrainCfg, create_train_state, train_step
+
+    model = Model(flagship_model_cfg(), compute_dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(SEED)).to(dev)
+    cfg = TrainCfg(lr=TRAIN_LR, warm_up_steps=TRAIN_WARMUP, rays_per_batch=TRAIN_RAYS)
+    state = create_train_state(model, cfg)
+    batch = train_batch(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for updated in (True, True, False, False):
+        train_step(state, batch, g, updated)
+    torch.cuda.synchronize()
+    return model, state, batch, g
+
+
+def train_phase(dev, timings):
+    """The stage-1 train step at batch 7 x 256 rays. Returns the launch
+    counts of one update step and of one frozen step."""
+    import copy
+
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.training import host_step_schedule, train_step
+
+    model, state, batch, g = train_setup(dev)
+
+    # one step's gradients, kernels against plain versions, from the same
+    # state and draws. A random field at bf16 is chaotic end to end (a K5
+    # tie or one bf16 rounding moves a sample, and the 2^9 NeRF frequency
+    # turns that into an O(1) change of its features), so the bound is
+    # loose: per group the two gradients must point the same way (cosine
+    # > 0.5); their relative l2 difference is printed, beside that of the
+    # plain versions on inputs nudged by one bf16 step, which measures the
+    # step's own sensitivity.
+    yx, draws = step_draws(dev, g)
+    saved = copy.deepcopy(model.state_dict())
+    kg = step_grads(state, batch, yx, draws, True)
+    model.load_state_dict(saved)
+    with plain_kernels():
+        pg = step_grads(state, batch, yx, draws, True)
+        model.load_state_dict(saved)
+        # the same sensitivity without any kernel: the plain versions again,
+        # with the context images scaled by 1 + 2^-8 (one bf16 step)
+        nudged = dataclasses.replace(batch, ctxt_rgb=batch.ctxt_rgb * (1 + 2 ** -8))
+        ng = step_grads(state, nudged, yx, draws, True)
+    model.load_state_dict(saved)
+
+    def flat(grads, names):
+        return torch.cat([grads[k].flatten() for k in names]).double()
+
+    for group in ("encoder.", "proposal_networks_", "decoder."):
+        names = [k for k in pg if k.startswith(group) and k in kg]
+        a, b = flat(kg, names), flat(pg, names)
+        cos = float(torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-30))
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        nrel = float((flat(ng, names) - b).norm() / b.norm().clamp_min(1e-30))
+        print(f"train step gradients, kernels vs plain [{group.rstrip('._')}]: "
+              f"{len(names)} tensors, |g| {float(a.norm()):.3e} vs {float(b.norm()):.3e}, "
+              f"relative l2 difference {rel:.3e}, cosine {cos:.4f} (bound: cosine > 0.5); "
+              f"plain vs plain on images nudged by 2^-8: relative l2 {nrel:.3e}")
+        check(bool(b.norm() > 0) and cos > 0.5,
+              f"train gradients of {group} disagree with the plain versions")
+    del kg, pg, ng, saved
+
+    # launch counts of each step type; then the gradients reach the params
+    counts = {}
+    for kind, updated in (("frozen", False), ("update", True)):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        train_step(state, batch, g, updated)
+        torch.cuda.synchronize()
+        counts[kind] = K.launch_counts()
+        print(f"train launches per {kind} step: {counts[kind]}")
+    expect = {"K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K6-fwd": 3, "K6-bwd": 3, "K5": 1,
+              "K7-tz-fwd": 3}
+    for kind, n_bwd in (("update", 2), ("frozen", 1)):
+        want = dict(expect, **{"K7-tz-bwd": n_bwd})
+        check(counts[kind] == want, f"{kind} step launches {counts[kind]} != {want}")
+    dead = [name for name, p in model.named_parameters()
+            if name.startswith(("encoder.", "decoder.density_head.", "decoder.color_head.",
+                                "proposal_networks_"))
+            and (p.grad is None or not bool(p.grad.abs().sum() > 0))]
+    print(f"train gradients: {len(dead)} encoder / density-head / colour-head / proposal "
+          f"parameters without a non-zero gradient after an update step {dead[:4]}")
+    check(not dead, "a parameter the loss reaches got no gradient")
+
+    # step times (host clock around synchronised steps), peak memory
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {True: [], False: []}
+    for updated in (False,) * 5 + (True,) + (False,) * 5 + (True,) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, g, updated)
+        torch.cuda.synchronize()
+        times[updated].append((time.perf_counter() - t0) * 1e3)
+    upd_ms, frz_ms = statistics.median(times[True]), statistics.median(times[False])
+    cycle_s = (5 * frz_ms + upd_ms) / 1e3
+    timings.update(train_update_step_ms=upd_ms, train_frozen_step_ms=frz_ms,
+                   train_cycle_rays_per_s=6 * TRAIN_B * TRAIN_RAYS / cycle_s,
+                   train_peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    print(f"train step (batch {TRAIN_B} x {TRAIN_RAYS} rays, 480x640 context, bf16): update "
+          f"{upd_ms:.2f} ms, frozen {frz_ms:.2f} ms (medians of {len(times[True])} / "
+          f"{len(times[False])}); 5 frozen + 1 update cycle "
+          f"{timings['train_cycle_rays_per_s']:.1f} rays/s; peak "
+          f"{timings['train_peak_mem_gib']:.2f} GiB")
+
+    # the loss falls over 30 steps on this batch at one fixed pixel set (the
+    # schedule's own gate; the stratified draws change every step)
+    fixed_yx, _ = step_draws(dev, g)
+    losses = []
+    for _ in range(30):
+        updated, _ = host_step_schedule(state.step, state.steps_since_update,
+                                        model.cfg.rendering)
+        m = train_step(state, batch, g, updated, yx=fixed_yx)
+        losses.append(float(m["loss/total"]))
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"train loss over 30 steps: {losses[0]:.5f} -> {losses[-1]:.5f}; mean of the first "
+          f"5 {first:.5f}, of the last 5 {last:.5f} (bound: finite, last < first)")
+    check(all(math.isfinite(v) for v in losses) and last < first, "the train loss did not fall")
+    timings["train_loss_first5"], timings["train_loss_last5"] = first, last
+    return counts
+
+
+def profile_train(dev, top=15):
+    """--profile: torch.profiler around one frozen and one update train step
+    (after the warm-up). Per step: the traced wall time (the step's first
+    host event to its last device event), the device's busy time (the union
+    of its kernel, copy and set intervals, so overlapping work counts once), the
+    idle share 1 - busy / wall, the number of device events, the device time
+    under the optimizer step, and the `top` kernels by device time."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from neural_jacobian_field_torch.training import train_step
+
+    _, state, batch, g = train_setup(dev)
+    for kind, updated in (("frozen", False), ("update", True)):
+        train_step(state, batch, g, updated)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_step(state, batch, g, updated)
+            torch.cuda.synchronize()
+        events = prof.events()
+        # a record_function range (the optimizer's, say) is mirrored on the
+        # device timeline under its host name; it is a span, not work
+        host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+        dev_ev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                         and e.name not in host_names), key=lambda e: e.time_range.start)
+        check(dev_ev, "the profiler recorded no device event")
+        busy, end = 0.0, -math.inf
+        for e in dev_ev:  # union of the device intervals, in microseconds
+            s, t = e.time_range.start, e.time_range.end
+            busy += max(0.0, t - max(s, end))
+            end = max(end, t)
+        host_start = min(e.time_range.start for e in events
+                         if e.device_type == DeviceType.CPU)
+        wall = end - host_start
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in dev_ev:
+            by_name[e.name][0] += e.time_range.elapsed_us()
+            by_name[e.name][1] += 1
+        opt_us = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages()
+                     if a.key.startswith("Optimizer.step"))
+        print(f"profile {kind} step: traced wall {wall / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall:.4f}, {len(dev_ev)} device "
+              f"events, optimizer step {opt_us / 1e3:.3f} ms of device time")
+        for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+            print(f"profile {kind}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<5d} "
+                  f"{name[:90]}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="only profile one frozen and one update train step "
+                             "(torch.profiler) and print where the device time goes")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -462,15 +854,27 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+        if args.profile:
+            profile_train(dev)
+            return 0
 
         rows = kernel_checks(dev)
+        rows.update(backward_kernel_checks(dev))
         model = build_model(dev)
         cam, robot = cameras(dev)
         timings = {}
-        launches = slice_phase(dev, model, cam, robot, timings)
+        serve = slice_phase(dev, model, cam, robot, timings)
         inverse_dynamics_phase(dev, model, cam, robot, timings)
         timings["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del model
+        torch.cuda.empty_cache()
+        train = train_phase(dev, timings)
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
+        paths = {"serve": serve, "train_update": train["update"],
+                 "train_frozen": train["frozen"]}
+        print("launches by path: " + json.dumps(paths))
+        unused = [n for n in K.KERNELS if not sum(c[n] for c in paths.values())]
+        check(not unused, f"kernels launched by no main path: {unused}")
     except Exception:  # any failed phase: report and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -478,7 +882,7 @@ def main() -> int:
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **rows[name]}
+         "launches": sum(c[name] for c in paths.values()), **rows[name]}
         for name, (_, _, src, rep) in K.KERNELS.items()]}
     print(card)
     print(json.dumps(table))

@@ -16,14 +16,20 @@
 // operand; cp.async/TMA pipelining and wgmma are left to later work.
 //
 // bf16 in, f32 accumulate, bf16 out. Any B, H, W, C, Cout: a scalar gather path
-// serves C or Cout that are not multiples of 8.
+// serves C or Cout that are not multiples of 8. The same kernel computes K9's
+// input gradient (dgrad): the wrapper hands it the cotangent and the rotated,
+// transposed weights, as conv_suite.py::_conv_s1_b does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "conv3x3_gather.cuh"
+
 using namespace nvcuda;
+using njf_k9::load_x_elem;
+using njf_k9::load_x_vec;
 
 namespace {
 
@@ -34,46 +40,6 @@ constexpr int kLDA = kBK + 8;
 constexpr int kLDB = kBN + 8;
 constexpr int kLDC = kBN + 4;
 constexpr int kThreads = 128;  // 4 warps, 2x2 over the 64x64 tile
-
-__device__ __forceinline__ uint4 load_x_vec(const __nv_bfloat16* __restrict__ x,
-                                            int m, int k, int M, int K, int H,
-                                            int W, int C) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (m >= M || k >= K) return v;
-  const int tap = k / C;
-  const int c = k - tap * C;
-  const int dy = tap / 3;
-  const int dx = tap - dy * 3;
-  const int hw = H * W;
-  const int b = m / hw;
-  const int rem = m - b * hw;
-  const int yy = rem / W;
-  const int xx = rem - yy * W;
-  const int iy = yy + dy - 1;
-  const int ix = xx + dx - 1;
-  if (iy < 0 || iy >= H || ix < 0 || ix >= W) return v;
-  const size_t off = ((static_cast<size_t>(b) * H + iy) * W + ix) * C + c;
-  return *reinterpret_cast<const uint4*>(x + off);
-}
-
-__device__ __forceinline__ __nv_bfloat16 load_x_elem(
-    const __nv_bfloat16* __restrict__ x, int m, int k, int M, int K, int H,
-    int W, int C) {
-  if (m >= M || k >= K) return __float2bfloat16(0.f);
-  const int tap = k / C;
-  const int c = k - tap * C;
-  const int dy = tap / 3;
-  const int dx = tap - dy * 3;
-  const int hw = H * W;
-  const int b = m / hw;
-  const int rem = m - b * hw;
-  const int yy = rem / W;
-  const int xx = rem - yy * W;
-  const int iy = yy + dy - 1;
-  const int ix = xx + dx - 1;
-  if (iy < 0 || iy >= H || ix < 0 || ix >= W) return __float2bfloat16(0.f);
-  return x[((static_cast<size_t>(b) * H + iy) * W + ix) * C + c];
-}
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)

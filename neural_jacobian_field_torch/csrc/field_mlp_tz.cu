@@ -35,7 +35,11 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "field_mlp_common.cuh"
+
 using namespace nvcuda;
+using njf_k7::bf;
+using njf_k7::stage_matrix;
 
 namespace {
 
@@ -56,25 +60,6 @@ struct TrunkArgs {
   int n_lin_z;
   int d_out;
 };
-
-__device__ __forceinline__ float bf(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// Copy a [rows, cols] bf16 matrix (cols % 8 == 0) from global memory into the
-// shared staging buffer with leading dimension ld, 16 bytes per thread-step.
-__device__ __forceinline__ void stage_matrix(__nv_bfloat16* __restrict__ dst,
-                                             const __nv_bfloat16* __restrict__ src,
-                                             int rows, int cols, int ld) {
-  const int vec_per_row = cols / 8;
-  const int total = rows * vec_per_row;
-  for (int v = threadIdx.x; v < total; v += blockDim.x) {
-    const int r = v / vec_per_row;
-    const int c = (v - r * vec_per_row) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * cols + c);
-  }
-}
 
 template <int DH>
 __device__ __forceinline__ void warp_matmul(

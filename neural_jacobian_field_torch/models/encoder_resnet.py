@@ -5,10 +5,13 @@ The stride-1 3x3 convs of the BasicBlocks go through the K9 kernel
 (ops/kernels/conv_suite.py) when conv_impl="pallas"; the stem 7x7/2, the
 stride-2 3x3s and the 1x1 projections are plain PyTorch convolutions, as
 they were plain XLA in JAX. conv_impl="xla" sends every conv through
-PyTorch's own convolution. BatchNorm runs in eval mode with the Flax
-semantics: (y - mean) * rsqrt(var + 1e-5) * scale + bias in float32, one cast
-back to the compute dtype. Training-mode statistics and the group/instance
-norms are not ported.
+PyTorch's own convolution. BatchNorm has the Flax semantics (momentum 0.9,
+biased variance), which torch.nn.BatchNorm2d does not: its momentum weighs
+the batch, not the running value, and its running variance is unbiased. Like
+the JAX `__call__(x, train)`, `forward(rgb, train)` normalises with the
+running statistics in eval mode and with the batch's in training mode,
+updating the running buffers in place. The group/instance norms and the K10
+conv_impl="pallas_fused" are not ported.
 """
 
 from dataclasses import dataclass
@@ -31,7 +34,7 @@ class EncoderResnetCfg:
     use_first_pool: bool = True
     norm_type: str = "group"  # batch | instance | group | none
     feature_layout: str = "pyramid"  # pyramid | concat
-    conv_impl: str = "xla"  # xla | pallas (pallas_fused: training, not ported)
+    conv_impl: str = "xla"  # xla | pallas (pallas_fused, the K10 fold: not ported)
 
 
 _RESNET34_STAGES: Sequence = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -59,9 +62,16 @@ class ConvHWIO(nn.Module):
         return k9.conv_nhwc(x, w, self.stride, (self.ksize - 1) // 2)
 
 
-class BatchNormEval(nn.Module):
-    """Flax nn.BatchNorm in eval mode: params {weight (scale), bias}, buffers
-    {running_mean, running_var} (biased variance, as Flax keeps it)."""
+class BatchNorm(nn.Module):
+    """Flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) over (B, H, W): params
+    {weight (scale), bias}, buffers {running_mean, running_var}. Training mode
+    takes the batch mean and the biased batch variance, E[y^2] - E[y]^2
+    clamped at 0, in float32 (Flax's fast variance), differentiates through
+    them, and moves running = 0.9 running + 0.1 batch. Both modes compute
+    (y - mean) * (rsqrt(var + eps) * scale) + bias in float32 and cast back
+    once."""
+
+    MOMENTUM = 0.9  # Flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -78,18 +88,33 @@ class BatchNormEval(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, y):
+    def forward(self, y, train: bool = False):
         at = torch.promote_types(y.dtype, torch.float32)
-        mul = torch.rsqrt(self.running_var.to(at) + self.eps) * self.weight.to(at)
-        out = (y.to(at) - self.running_mean.to(at)) * mul + self.bias.to(at)
+        if train:
+            yf = y.to(at)
+            mean = yf.mean(dim=(0, 1, 2))
+            var = torch.clamp((yf * yf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.float())
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var.float())
+        else:
+            mean, var = self.running_mean.to(at), self.running_var.to(at)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(at)
+        out = (y.to(at) - mean) * mul + self.bias.to(at)
         return out.to(y.dtype)
+
+
+class _NoNorm(nn.Module):
+    def forward(self, y, train: bool = False):
+        return y
 
 
 def _norm(norm_type: str, c: int):
     if norm_type == "batch":
-        return BatchNormEval(c)
+        return BatchNorm(c)
     if norm_type == "none":
-        return nn.Identity()
+        return _NoNorm()
     raise NotImplementedError(f"norm_type={norm_type!r} is not ported (batch, none are)")
 
 
@@ -117,12 +142,12 @@ class BasicBlock(nn.Module):
         for m in self.children():
             _init(m, g)
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x, train: bool = False):
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
         residual = x
         if self.needs_proj:
-            residual = self.downsample_norm(self.downsample_conv(x))
+            residual = self.downsample_norm(self.downsample_conv(x), train)
         return torch.relu(y + residual)
 
 
@@ -159,10 +184,10 @@ class EncoderResnet(nn.Module):
         for m in self.children():
             _init(m, g)
 
-    def forward(self, rgb: torch.Tensor):
+    def forward(self, rgb: torch.Tensor, train: bool = False):
         cfg, dt = self.cfg, self.compute_dtype
         x = rgb.to(dt) if dt is not None else rgb
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(x), train))
         latents = [x]
         if cfg.use_first_pool and cfg.num_layers > 1:
             x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1)
@@ -172,7 +197,7 @@ class EncoderResnet(nn.Module):
             if stage_idx != stage:
                 latents.append(x)
                 stage = stage_idx
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         if self.block_names:
             latents.append(x)
 

@@ -1,8 +1,10 @@
 """The composed neural-Jacobian-field model (PyTorch counterpart of
-models/model.py), serving path: encode a context image, render views (rgb,
-depth, flow, Jacobian features), and evaluate the field once for inverse
-dynamics. Training (`train=True`, losses, the proposal anneal schedule) is
-not ported yet.
+models/model.py): encode a context image, render views (rgb, depth, flow,
+Jacobian features), evaluate the field once for inverse dynamics, and
+`forward(train=True)` for the training step (stratified sampling, the
+training-mode encoder, and the per-level weights and bin edges the losses
+read). The sampler's per-step state is a StepCtx (anneal exponent,
+proposal gate, randomness) computed on the host by `step_schedules`.
 
 Submodule and parameter names follow the JAX param tree (encoder,
 decoder, proposal_networks_<i>), so utils/from_jax.py maps one onto the
@@ -17,7 +19,9 @@ from torch import nn
 
 from ..ops.pixel_gather import FeaturePyramid, PackedPyramid, pack_pyramid
 from ..rendering.geometry import project_world_coords_to_camera
-from ..rendering.samplers import ProposalSamplerCfg, RayBundle, proposal_sample
+from ..rendering.samplers import (
+    ProposalSamplerCfg, RayBundle, proposal_anneal, proposal_sample, sdist_edges,
+    tdist_edges)
 from .decoders import (
     ActionDecoderFlowMlpCfg,
     ActionDecoderJacobianMlpCfg,
@@ -118,10 +122,21 @@ class ModelInput:
 
 
 @dataclass
+class ModelTarget:
+    rgb: torch.Tensor  # [B, R, 3]
+    depth: torch.Tensor  # [B, R, 1]
+    optical_flow: Optional[torch.Tensor] = None  # [B, R, 2]
+    visible_mask: Optional[torch.Tensor] = None  # [B, R]
+
+
+@dataclass
 class ModelOutput:
     rgb: torch.Tensor  # [B, R, 3]
     depth: torch.Tensor  # [B, R, 1]
     optical_flow: torch.Tensor  # [B, R, 2]
+    weights_list: Optional[tuple] = None  # per level [B, R, S, 1]
+    sdist_list: Optional[tuple] = None  # per level [B, R, S+1] spacing edges
+    tdist_list: Optional[tuple] = None  # per level [B, R, S+1] euclidean edges
     action_features: Optional[torch.Tensor] = None  # [B, R, A*3]
     ray_positions: Optional[torch.Tensor] = None  # [B, R, 3]
     ray_positions_warped: Optional[torch.Tensor] = None  # [B, R, 3]
@@ -137,6 +152,36 @@ class ModelInferenceEncoding:
     action_features: torch.Tensor  # [B, R, S, A*3]
     weights: torch.Tensor  # [B, R, S, 1]
     ray_samples_positions: torch.Tensor  # [B, R, S, 3]
+
+
+@dataclass
+class StepCtx:
+    """Per-step sampler context (the JAX StepCtx): the proposal weights'
+    anneal exponent, the proposal gate `updated` (a host-side bool), and the
+    stratified draws' source: a torch.Generator, or explicit per-level draws
+    in [0, 1) (samplers.proposal_sample)."""
+
+    anneal: float = 1.0
+    updated: bool = True
+    generator: Optional[torch.Generator] = None
+    draws: Optional[Tuple[torch.Tensor, ...]] = None
+
+
+def step_schedules(step: int, steps_since_update: int,
+                   cfg: RenderingCfg) -> Tuple[float, bool, int]:
+    """The reference's anneal and proposal-update schedules on host scalars:
+    anneal (mip-NeRF 360 eq. 18 bias, or 1); updated = steps_since_update >
+    clip(step / warmup * update_every, 1, update_every) or step < 10; and the
+    new steps_since_update. Returns (anneal, updated, new_steps_since_update)."""
+    if cfg.use_proposal_weight_anneal:
+        anneal = proposal_anneal(step, cfg.proposal_weights_anneal_max_num_iters,
+                                 cfg.proposal_weights_anneal_slope)
+    else:
+        anneal = 1.0
+    sched = min(max(step / cfg.proposal_warmup * cfg.proposal_update_every, 1.0),
+                float(cfg.proposal_update_every))
+    updated = bool(steps_since_update > sched or step < 10)
+    return anneal, updated, (0 if updated else steps_since_update) + 1
 
 
 class Model(nn.Module):
@@ -188,10 +233,11 @@ class Model(nn.Module):
                          fars=ones * rendering_input.z_far[:, None, None])
 
     def compute_pixel_encoding(self, camera_input: CameraInput,
-                               robot_input: RobotInput) -> PixelEncoding:
-        """Encode the context image; in the pyramid layout the levels are
-        packed here (K6) for the knot gathers."""
-        features = self.encoder(camera_input.input_image)
+                               robot_input: RobotInput, train: bool = False) -> PixelEncoding:
+        """Encode the context image (the encoder in training mode with
+        `train`); in the pyramid layout the levels are packed here (K6) for
+        the knot gathers."""
+        features = self.encoder(camera_input.input_image, train)
         if self.compute_dtype is not None:
             features = features.to(self.compute_dtype)
         if isinstance(features, FeaturePyramid):
@@ -216,13 +262,18 @@ class Model(nn.Module):
                                 num_knots=tuple(self.cfg.rendering.epipolar_knots))
         return replace(pixel_encoding, features=knots)
 
-    def compute_proposal(self, ray_bundle: RayBundle, pixel_encoding: PixelEncoding):
-        """Proposal sampling as served: deterministic bins (stratified=False),
-        no anneal (anneal=1)."""
+    def compute_proposal(self, ray_bundle: RayBundle, pixel_encoding: PixelEncoding,
+                         ctx: Optional[StepCtx] = None, stratified: bool = False):
+        """Proposal sampling. As served (the defaults): deterministic bins, no
+        anneal; in training: stratified, with the step's anneal, gate and
+        draws from `ctx`."""
+        ctx = ctx or StepCtx()
         density_fns = [(lambda xyz, net=net: net(xyz, pixel_encoding))
                        for net in self.proposal_networks]
         ray_samples, weights_list, ray_samples_list = proposal_sample(
-            ray_bundle, density_fns, self.sampler_cfg, stratified=False)
+            ray_bundle, density_fns, self.sampler_cfg, anneal=ctx.anneal,
+            updated=ctx.updated, stratified=stratified, generator=ctx.generator,
+            draws=ctx.draws)
         positions = ray_samples.get_positions()
         directions = ray_bundle.directions[..., None, :].expand(positions.shape)
         return ray_samples, positions, directions, weights_list, ray_samples_list
@@ -246,24 +297,28 @@ class Model(nn.Module):
     # -- main forward --------------------------------------------------------
 
     def forward(self, model_input: ModelInput, train: bool = False,
-                compute_vis_features: bool = False) -> ModelOutput:
-        if train:
-            raise NotImplementedError("training is not ported yet")
+                compute_vis_features: bool = False,
+                ctx: Optional[StepCtx] = None) -> ModelOutput:
+        """Render the input's rays. With `train`: the encoder in training
+        mode (BatchNorm batch statistics, running buffers updated), stratified
+        sampling from `ctx`, and the per-level weights and bin edges on the
+        output for the losses."""
         self._check_feature_mode()
         camera_input = model_input.camera_input
         ray_bundle = self.compute_ray_bundle(model_input.rendering_input)
-        pixel_encoding = self.compute_pixel_encoding(camera_input, model_input.robot_input)
+        pixel_encoding = self.compute_pixel_encoding(camera_input, model_input.robot_input,
+                                                     train=train)
         return self.render_rays(pixel_encoding, ray_bundle, camera_input,
-                                compute_vis_features)
+                                compute_vis_features, train=train, ctx=ctx)
 
     def render_rays(self, pixel_encoding: PixelEncoding, ray_bundle: RayBundle,
-                    camera_input: CameraInput,
-                    compute_vis_features: bool = False) -> ModelOutput:
+                    camera_input: CameraInput, compute_vis_features: bool = False,
+                    train: bool = False, ctx: Optional[StepCtx] = None) -> ModelOutput:
         """Everything after the context encoding, for one bundle of rays (the
         chunked renderer calls this with the encoding computed once)."""
         pixel_encoding = self.attach_ray_features(pixel_encoding, ray_bundle)
-        ray_samples, positions, directions, _, _ = self.compute_proposal(
-            ray_bundle, pixel_encoding)
+        ray_samples, positions, directions, weights_list, ray_samples_list = (
+            self.compute_proposal(ray_bundle, pixel_encoding, ctx, stratified=train))
         dec = self.decoder(positions, directions, pixel_encoding)
         weights = ray_samples.get_weights(dec.density)
         rgb = torch.sum(weights * dec.color, dim=-2)
@@ -274,6 +329,11 @@ class Model(nn.Module):
             weights, positions, dec.flow[..., :3], camera_input.trgt_extrinsics,
             camera_input.trgt_intrinsics)
         out = ModelOutput(rgb=rgb, depth=depth, optical_flow=optical_flow)
+        if train:
+            levels = ray_samples_list + [ray_samples]
+            out.weights_list = tuple(weights_list + [weights])
+            out.sdist_list = tuple(sdist_edges(rs) for rs in levels)
+            out.tdist_list = tuple(tdist_edges(rs) for rs in levels)
         if compute_vis_features:
             out.action_features = torch.sum(weights * dec.action_features, dim=-2)
             out.ray_positions = pos
@@ -284,9 +344,12 @@ class Model(nn.Module):
 
     # -- inference surface ---------------------------------------------------
 
+    @torch.no_grad()
     def encode_image(self, camera_input: CameraInput, rendering_input: RenderingInput,
                      robot_input: RobotInput) -> ModelInferenceEncoding:
-        """Evaluate density + Jacobian once for inverse dynamics."""
+        """Evaluate density + Jacobian once for inverse dynamics. No gradient:
+        the solvers differentiate only the action, downstream of this, so the
+        kernels' autograd Functions save nothing here."""
         self._check_feature_mode()
         ray_bundle = self.compute_ray_bundle(rendering_input)
         pixel_encoding = self.compute_pixel_encoding(camera_input, robot_input)

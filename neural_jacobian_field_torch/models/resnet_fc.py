@@ -4,8 +4,9 @@ models/resnet_fc.py).
 Two forms, chosen by configuration as in the JAX package:
   - the tz branch (fused_trunk, bf16 compute, knot features): the latent
     projection is done on the knots (KnotFeatures.project_then_interp) and
-    the whole trunk runs in the K7-tz kernel (ops/kernels/field_mlp.py), which
-    takes its plain version on a CPU tensor;
+    the whole trunk runs in the K7-tz kernels (ops/kernels/field_mlp.py:
+    K7-tz-fwd forward, K7-tz-bwd backward), which take their plain versions
+    on a CPU tensor;
   - the plain chain (f32 models, or fused_trunk off): lin_in, the fused lin_z
     projection added to the first combine_layer blocks, the residual blocks,
     relu, lin_out — nn.Linear layers computed in the compute dtype.
@@ -101,14 +102,14 @@ class ResnetFC(nn.Module):
             if not (isinstance(z, KnotFeatures) and self.n_lin_z > 0):
                 raise NotImplementedError(
                     "the level-split fused trunk (K7 without tz) is not ported")
-            from ..ops.kernels.field_mlp import fused_resnet_fc_tz
+            from ..ops.kernels.field_mlp import fused_resnet_fc_train_tz
 
             wz_cat = torch.cat([self._layer(f"lin_z_{i}").weight.t()
                                 for i in range(self.n_lin_z)], dim=1)
             w_rows = list(torch.split(wz_cat, [lvl.shape[-1] for lvl in z.levels], dim=0))
             tz = z.project_then_interp(w_rows)
-            return fused_resnet_fc_tz(self.trunk_params(tz_mode=True), cfg, tz, x,
-                                      self.d_out)
+            return fused_resnet_fc_train_tz(self.trunk_params(tz_mode=True), cfg, tz, x,
+                                            self.d_out)
 
         if isinstance(z, KnotFeatures):
             z = z.concat()

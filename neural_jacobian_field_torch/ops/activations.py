@@ -1,13 +1,25 @@
 """Density activations (PyTorch counterpart of ops/activations.py).
 
-Only the forward of `trunc_exp` is ported: the serving path takes no
-gradient through the density. Its clamped backward comes with training."""
+`trunc_exp` is exp with a gradient taken at the clamped input: forward
+exp(x), backward g * exp(clamp(x, -15, 15)) (the JAX custom_jvp)."""
 
 import torch
 
 
+class TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    return torch.exp(x)
+    return TruncExp.apply(x)
 
 
 def density_activation(kind: str = "trunc_exp"):

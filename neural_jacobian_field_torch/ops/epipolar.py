@@ -83,7 +83,7 @@ def build_ray_knots(pyr: PackedPyramid, origins: torch.Tensor, directions: torch
     and gather per-level knot textures. origins/directions [B, R, 3]; z_near/
     z_far [B, R]; intrinsics normalized. The coarse level is packed here
     through K6."""
-    from .kernels.pack2x2 import pack_2x2_flat
+    from .kernels.pack2x2 import pack_2x2_flat_train
 
     hf, wf = pyr.fine_hw
     hm, wm = pyr.mid_hw
@@ -100,7 +100,7 @@ def build_ray_knots(pyr: PackedPyramid, origins: torch.Tensor, directions: torch
 
     sm = (hf + hm - 1) // hm
     sc = (hf + hc - 1) // hc
-    coarse2 = pack_2x2_flat(pyr.coarse)
+    coarse2 = pack_2x2_flat_train(pyr.coarse)
     mf, mm, mc = num_knots
     return RayKnots(
         fine=_gather_level_knots(pyr.fine2, (hf, wf), 1, p0, pdir, mf),

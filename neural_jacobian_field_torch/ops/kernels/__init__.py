@@ -2,28 +2,43 @@
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
 PyTorch version (same module, `*_plain`) for a CPU tensor, and counts its
-launches in a plain integer attribute `launches`.
+launches in a plain integer attribute `launches`. The differentiable entry
+points (`conv_s1`, `pack_2x2_flat_train`, `fused_resnet_fc_train_tz`) are
+autograd.Functions over these wrappers.
 """
 
-from .conv_suite import conv3x3_s1, conv3x3_s1_plain
-from .field_mlp import fused_resnet_fc_tz, fused_resnet_fc_tz_plain
-from .pack2x2 import pack_2x2_flat, pack_2x2_flat_plain
+from .conv_suite import (
+    conv3x3_s1, conv3x3_s1_dgrad, conv3x3_s1_dgrad_plain, conv3x3_s1_plain,
+    conv3x3_s1_wgrad, conv3x3_s1_wgrad_plain, conv_s1)
+from .field_mlp import (
+    fused_resnet_fc_train_tz, fused_resnet_fc_tz, fused_resnet_fc_tz_bwd,
+    fused_resnet_fc_tz_bwd_plain, fused_resnet_fc_tz_plain)
+from .pack2x2 import (
+    pack_2x2_flat, pack_2x2_flat_bwd, pack_2x2_flat_bwd_plain, pack_2x2_flat_plain,
+    pack_2x2_flat_train)
 from .pdf_resample import fused_sample_pdf, fused_sample_pdf_plain
+
+_TPU = "neural_jacobian_field_tpu/ops/pallas/"
+_CSRC = "neural_jacobian_field_torch/csrc/"
 
 # name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "K9-fwd": (conv3x3_s1, conv3x3_s1_plain,
-               "neural_jacobian_field_torch/csrc/conv3x3_s1.cu",
-               "neural_jacobian_field_tpu/ops/pallas/conv_suite.py:150"),
-    "K6-fwd": (pack_2x2_flat, pack_2x2_flat_plain,
-               "neural_jacobian_field_torch/csrc/pack2x2.cu",
-               "neural_jacobian_field_tpu/ops/pallas/pack2x2.py:71"),
-    "K5": (fused_sample_pdf, fused_sample_pdf_plain,
-           "neural_jacobian_field_torch/csrc/pdf_resample.cu",
-           "neural_jacobian_field_tpu/ops/pallas/pdf_resample.py:79"),
-    "K7-tz-fwd": (fused_resnet_fc_tz, fused_resnet_fc_tz_plain,
-                  "neural_jacobian_field_torch/csrc/field_mlp_tz.cu",
-                  "neural_jacobian_field_tpu/ops/pallas/field_mlp_train.py:440"),
+    "K9-fwd": (conv3x3_s1, conv3x3_s1_plain, _CSRC + "conv3x3_s1.cu",
+               _TPU + "conv_suite.py:150"),
+    "K9-dgrad": (conv3x3_s1_dgrad, conv3x3_s1_dgrad_plain, _CSRC + "conv3x3_s1.cu",
+                 _TPU + "conv_suite.py:370"),
+    "K9-wgrad": (conv3x3_s1_wgrad, conv3x3_s1_wgrad_plain, _CSRC + "conv3x3_wgrad.cu",
+                 _TPU + "conv_suite.py:177"),
+    "K6-fwd": (pack_2x2_flat, pack_2x2_flat_plain, _CSRC + "pack2x2.cu",
+               _TPU + "pack2x2.py:71"),
+    "K6-bwd": (pack_2x2_flat_bwd, pack_2x2_flat_bwd_plain, _CSRC + "pack2x2.cu",
+               _TPU + "pack2x2.py:91"),
+    "K5": (fused_sample_pdf, fused_sample_pdf_plain, _CSRC + "pdf_resample.cu",
+           _TPU + "pdf_resample.py:79"),
+    "K7-tz-fwd": (fused_resnet_fc_tz, fused_resnet_fc_tz_plain, _CSRC + "field_mlp_tz.cu",
+                  _TPU + "field_mlp_train.py:440"),
+    "K7-tz-bwd": (fused_resnet_fc_tz_bwd, fused_resnet_fc_tz_bwd_plain,
+                  _CSRC + "field_mlp_tz_bwd.cu", _TPU + "field_mlp_train.py:471"),
 }
 
 

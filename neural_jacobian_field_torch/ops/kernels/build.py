@@ -1,8 +1,9 @@
 """Build and load the port's hand-written Hopper kernels.
 
 All CUDA sources under `neural_jacobian_field_torch/csrc/` are compiled by
-`nvcc` into ONE shared library with a plain C interface and loaded through
-`ctypes` (no PyTorch headers, so a build takes seconds, not minutes). The
+`nvcc`, one process per source, all started together, and linked into ONE
+shared library with a plain C interface, loaded through `ctypes` (no PyTorch
+headers, so a build takes seconds, not minutes). The
 library is built at first use into `build/torch_kernels/` at the repository
 root (listed in .gitignore), under a name that hashes the sources and flags,
 so an edited source is rebuilt and concurrent processes never load a half-
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -35,10 +36,14 @@ _I = ctypes.c_int
 # C signature of every exported entry point: (argtypes, restype int = cudaError_t)
 _SIGNATURES = {
     "njf_conv3x3_s1_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "njf_conv3x3_s1_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "njf_pack2x2_fwd": (_P, _P, _I, _I, _I, ctypes.c_longlong, _P),
+    "njf_pack2x2_bwd": (_P, _P, _I, _I, _I, _I, _I, _P),
     "njf_pdf_resample": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
                          ctypes.c_float, _P),
     "njf_field_mlp_tz_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "njf_field_mlp_tz_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _P),
 }
 
 
@@ -81,19 +86,33 @@ class KernelLibrary:
 
 
 def _compile(out: Path) -> str:
+    """Compile every source to an object (one nvcc per source, in parallel),
+    then link the shared library; returns the compilers' output."""
     nvcc = _find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    log = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        sources = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [Path(tmpdir) / f"{s.stem}.o" for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for s, o in zip(sources, objs)]
+        logs, failed = [], []
+        for src, proc in zip(sources, procs):
+            text = proc.communicate()[0]
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp = Path(tmpdir) / out.name
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out)
+    log = "\n".join(logs)
     out.with_suffix(".log").write_text(log)
     return log
 
@@ -122,6 +141,16 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dispatch(name: str, t, cuda_fn, plain_fn):
+    """A wrapper's device dispatch: cuda_fn() for a CUDA tensor t (it launches
+    the kernel or raises), plain_fn() for a CPU tensor, an error elsewhere."""
+    if t.device.type == "cuda":
+        return cuda_fn()
+    if t.device.type == "cpu":
+        return plain_fn()
+    raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def check_cuda_tensor(t, name: str, dtype, ndim: int | None = None):

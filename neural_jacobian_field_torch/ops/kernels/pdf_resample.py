@@ -13,7 +13,7 @@ tensor takes the plain version.
 import torch
 
 from ..pdf import resample_bins
-from .build import check_cuda_tensor, load_kernels, stream_of
+from .build import check_cuda_tensor, dispatch, load_kernels, stream_of
 
 
 def fused_sample_pdf_plain(existing_bins: torch.Tensor, weights: torch.Tensor,
@@ -54,11 +54,10 @@ def fused_sample_pdf(existing_bins: torch.Tensor, weights: torch.Tensor,
                      u: torch.Tensor, histogram_padding: float = 0.01,
                      eps: float = 1e-5) -> torch.Tensor:
     """K5 wrapper (same signature as the plain version)."""
-    if existing_bins.device.type == "cuda":
-        return _fused_sample_pdf_cuda(existing_bins, weights, u, histogram_padding, eps)
-    if existing_bins.device.type == "cpu":
-        return fused_sample_pdf_plain(existing_bins, weights, u, histogram_padding, eps)
-    raise ValueError(f"fused_sample_pdf: unsupported device {existing_bins.device}")
+    return dispatch(
+        "fused_sample_pdf", existing_bins,
+        lambda: _fused_sample_pdf_cuda(existing_bins, weights, u, histogram_padding, eps),
+        lambda: fused_sample_pdf_plain(existing_bins, weights, u, histogram_padding, eps))
 
 
 fused_sample_pdf.launches = 0

@@ -15,16 +15,19 @@ def searchsorted_right(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def pdf_queries(lead_shape, num_samples: int, stratified: bool = True,
                 single_jitter: bool = False, generator=None,
-                device=None, dtype=torch.float32) -> torch.Tensor:
+                device=None, dtype=torch.float32, jitter=None) -> torch.Tensor:
     """The CDF queries u [..., num_samples + 1]: a regular grid, jittered
-    within each cell when stratified, else at the cell centres."""
+    within each cell when stratified (by `jitter` in [0, 1), [..., 1 or
+    num_samples + 1], when given, else drawn from `generator`), else at the
+    cell centres."""
     num_bins = num_samples + 1
     u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, dtype=dtype, device=device)
     u = u.expand(*lead_shape, num_bins)
     if stratified:
-        shape = (*lead_shape, 1 if single_jitter else num_bins)
-        jitter = torch.rand(shape, generator=generator, dtype=dtype, device=device)
-        return u + jitter / num_bins
+        if jitter is None:
+            shape = (*lead_shape, 1 if single_jitter else num_bins)
+            jitter = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+        return u + jitter.to(dtype=dtype, device=device) / num_bins
     return u + 0.5 / num_bins
 
 

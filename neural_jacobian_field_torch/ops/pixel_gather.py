@@ -6,7 +6,9 @@ The JAX package packs each pyramid level so one row fetch returns a whole
 (`gather_packed_rows`). On the card a row gather is a plain indexed read, so
 `gather_packed_rows` is `torch.gather` plus the four-corner weighted sum.
 Sample coordinates are not differentiable leaves in this model; nothing here
-takes their gradient.
+takes their gradient (the features are: the packing's gradient is K6-bwd,
+the row gather's is torch.gather's scatter-add, as the JAX custom_vjp
+scatter-adds).
 """
 
 from dataclasses import dataclass
@@ -86,11 +88,12 @@ class PackedPyramid:
 
 def pack_pyramid(pyr: FeaturePyramid) -> PackedPyramid:
     """Pack the fine and mid levels through K6 (once per encoded image)."""
-    from .kernels.pack2x2 import pack_2x2_flat
+    from .kernels.pack2x2 import pack_2x2_flat_train
 
     _, hf, wf, _ = pyr.fine.shape
     _, hm, wm, _ = pyr.mid.shape
-    return PackedPyramid(fine2=pack_2x2_flat(pyr.fine), mid2=pack_2x2_flat(pyr.mid),
+    return PackedPyramid(fine2=pack_2x2_flat_train(pyr.fine),
+                         mid2=pack_2x2_flat_train(pyr.mid),
                          coarse=pyr.coarse, fine_hw=(hf, wf), mid_hw=(hm, wm))
 
 

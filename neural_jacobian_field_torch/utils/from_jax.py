@@ -9,6 +9,10 @@ bridge is a leaf-by-leaf rename:
   batch_stats `mean` / `var`    -> buffers `running_mean` / `running_var`
 Inputs are the Flax trees as nested dicts of arrays (numpy, or anything
 np.asarray takes); nothing here imports JAX.
+
+`load_optax_adam_state` carries an optax Adam state (`ScaleByAdamState`:
+mu, nu, count) over to torch.optim.Adam, so a train state taken in the middle
+of training computes the same next step on both sides.
 """
 
 from typing import Dict, Optional
@@ -48,5 +52,44 @@ def from_jax_variables(params, batch_stats: Optional[dict] = None) -> Dict[str, 
         if stat is None:
             raise KeyError(f"unmapped batch_stats leaf {'/'.join(path)}")
         state[f"{base}.{stat}"] = np.asarray(leaf)
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    # copies: JAX's arrays are read-only, torch's tensors are not
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in state.items()}
+
+
+def _arrays_only(tree):
+    """The tree without its non-array leaves (optax's MaskedNode stands for
+    the leaves another partition of a multi_transform owns)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            sub = _arrays_only(v)
+            if sub:
+                out[k] = sub
+        elif hasattr(v, "shape"):
+            out[k] = v
+    return out
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                          *adam_states) -> None:
+    """Set torch.optim.Adam's per-parameter state (step, exp_avg, exp_avg_sq)
+    from optax ScaleByAdamStates (anything with .mu, .nu param-shaped trees
+    and .count). Pass one state per optax partition (one, or one per
+    multi_transform label); together they must cover every parameter of
+    `model`."""
+    params = dict(model.named_parameters())
+    seen = set()
+    for st in adam_states:
+        mu = from_jax_variables(_arrays_only(st.mu))
+        nu = from_jax_variables(_arrays_only(st.nu))
+        count = float(np.asarray(st.count))
+        for name, m in mu.items():
+            p = params[name]
+            optimizer.state[p] = {"step": torch.tensor(count),
+                                  "exp_avg": m.to(p.device, p.dtype).clone(),
+                                  "exp_avg_sq": nu[name].to(p.device, p.dtype).clone()}
+            seen.add(name)
+    missing = sorted(set(params) - seen)
+    if missing:
+        raise KeyError(f"no Adam state for {missing[:5]}{'...' if len(missing) > 5 else ''}")

@@ -8,7 +8,10 @@ so it runs on a machine without them:
 
 Shapes cover the paths the main-path shapes do not: the scalar gather of K9
 (C or Cout not a multiple of 8), K6's narrow copy units, K7-tz at every
-d_hidden / d_out instantiation, and ragged tile edges.
+d_hidden / d_out instantiation, and ragged tile edges. Each backward kernel
+is held against its plain version, each autograd.Function against plain
+autograd, and a CUDA output must carry a grad_fn (a kernel wrapper that cut
+the graph would train nothing and raise no error).
 """
 
 import math
@@ -133,6 +136,183 @@ def test_k7tz_kernel_matches_plain(dev, n, dh, n_blocks, combine, d_out):
     assert (got - want).abs().max() <= 1e-2 * want.abs().max()
 
 
+# ----------------------------------------------------------- backward kernels
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 7, 9, 12), 20),       # scalar path, ragged tiles
+    ((2, 5, 33, 64), 72),      # vector path, Cout not a multiple of 64
+    ((7, 30, 40, 256), 256),   # layer3 at batch 7
+])
+def test_k9_wgrad_matches_plain(dev, shape, cout):
+    """Both sum the same bf16 products in float32, in another order (split
+    partials vs one GEMM): 1e-4 of the largest |dW|."""
+    g = _gen(4)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn((*shape[:3], cout), generator=g, device=dev).to(torch.bfloat16)
+    n0 = K.conv3x3_s1_wgrad.launches
+    got = K.conv3x3_s1_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert K.conv3x3_s1_wgrad.launches == n0 + 1
+    want = K.conv3x3_s1_wgrad_plain(x, gy)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (3, 3, shape[-1], cout)
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 7, 9, 12), 20), ((2, 30, 40, 64), 64)])
+def test_k9_function_matches_plain_autograd(dev, shape, cout):
+    """autograd.grad through conv_s1 (K9-dgrad, K9-wgrad) against autograd of
+    the plain forward. dx: the kernel rounds one float32 sum to bf16, plain
+    autograd adds the nine taps' bf16 gradients in bf16: 3e-2 of scale. dW:
+    one bf16 rounding of the plain gradient apart: 1e-2 of scale."""
+    g = _gen(5)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+    w = (torch.randn((3, 3, shape[-1], cout), generator=g, device=dev)
+         / math.sqrt(9 * shape[-1])).requires_grad_()
+    gy = torch.randn((*shape[:3], cout), generator=g, device=dev).to(torch.bfloat16)
+    n0 = (K.conv3x3_s1_dgrad.launches, K.conv3x3_s1_wgrad.launches)
+    dx, dw = torch.autograd.grad(K.conv_s1(x, w), (x, w), gy)
+    torch.cuda.synchronize()
+    assert (K.conv3x3_s1_dgrad.launches, K.conv3x3_s1_wgrad.launches) == (n0[0] + 1, n0[1] + 1)
+    px, pw = torch.autograd.grad(K.conv3x3_s1_plain(x, w), (x, w), gy)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert _rel(dx, px) <= 3e-2 and _rel(dw, pw) <= 1e-2
+    # the dgrad kernel alone, against its plain version: one bf16 rounding
+    got = K.conv3x3_s1_dgrad(gy, w)
+    want = K.conv3x3_s1_dgrad_plain(gy, w)
+    assert ((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs() + 1e-3).all()
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 7, 9, 3), torch.float32),     # one channel per thread
+    ((1, 3, 5, 24), torch.bfloat16),   # 16-byte vectors
+    ((1, 1, 1, 8), torch.bfloat16),    # a single texel: every border case at once
+    ((1, 4, 4, 1), torch.bfloat16),
+    ((7, 240, 320, 128), torch.bfloat16),  # the fine level at batch 7
+])
+def test_k6_bwd_is_bit_exact(dev, shape, dtype):
+    """The same additions in the same order, rounded to the dtype after each."""
+    b, h, w, c = shape
+    gp = torch.randn((b, h * w, 4 * c), generator=_gen(6), device=dev).to(dtype)
+    n0 = K.pack_2x2_flat_bwd.launches
+    got = K.pack_2x2_flat_bwd(gp, h)
+    torch.cuda.synchronize()
+    assert K.pack_2x2_flat_bwd.launches == n0 + 1
+    assert torch.equal(got, K.pack_2x2_flat_bwd_plain(gp, h))
+
+
+def test_k6_function_matches_plain_autograd(dev):
+    """Plain autograd sums the same slot gradients in another order: float32
+    rounding, 1e-6 of scale."""
+    x = torch.randn((2, 5, 7, 16), generator=_gen(7), device=dev, requires_grad=True)
+    gp = torch.randn((2, 35, 64), generator=_gen(8), device=dev)
+    (got,) = torch.autograd.grad(K.pack_2x2_flat_train(x), x, gp)
+    (want,) = torch.autograd.grad(K.pack_2x2_flat_plain(x), x, gp)
+    assert _rel(got, want) <= 1e-6
+
+
+def _k7_case(dev, n, dh, n_blocks, combine, d_out, seed):
+    from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
+
+    g = _gen(seed)
+    params, n_lin_z = _trunk(dev, 63, dh, n_blocks, combine, d_out, g)
+    cfg = MlpCfg(n_blocks=n_blocks, d_hidden=dh, combine_layer=combine)
+    tz = torch.randn((n, n_lin_z * dh), generator=g, device=dev).to(torch.bfloat16)
+    x = (torch.rand((n, 63), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    gy = torch.randn((n, d_out), generator=g, device=dev)
+    return params, cfg, tz, x, gy
+
+
+@pytest.mark.parametrize("n,dh,n_blocks,combine,d_out", [
+    (700, 32, 2, 3, 16),
+    (333, 64, 3, 1, 24),
+    (1000, 64, 2, 0, 8),       # no latent injection
+    (65536, 128, 5, 3, 1),     # the proposal trunk
+    (65536, 128, 5, 3, 16),    # the density trunk
+    (4099, 128, 5, 3, 24),     # the Jacobian trunk, ragged tile
+])
+def test_k7tz_bwd_matches_plain(dev, n, dh, n_blocks, combine, d_out):
+    """Same bf16 operations, float32 dx and dW; only the accumulation order
+    differs. Through 5 blocks that can round a recomputed bf16 activation the
+    other way, which moves one ReLU mask or operand by a bf16 step (measured
+    on an H100: exact to 3e-7 at 2 x 32, and at 5 x 128 dW/db within 1.1e-2
+    of scale, 3.2e-3 in l2; dtz within 3e-3 in l2, single elements up to
+    0.21 of scale, at most 1e-4 of them). Bounds: every dW/db leaf within
+    2e-2 of its scale and 1e-2 in l2; dtz within 1e-2 in l2, and at most 1e-3
+    of its elements further than 2e-2 of scale."""
+    params, cfg, tz, x, gy = _k7_case(dev, n, dh, n_blocks, combine, d_out, 9)
+    n0 = K.fused_resnet_fc_tz_bwd.launches
+    grads, dtz = K.fused_resnet_fc_tz_bwd(params, cfg, tz, x, gy, d_out)
+    torch.cuda.synchronize()
+    assert K.fused_resnet_fc_tz_bwd.launches == n0 + 1
+    pgrads, pdtz = K.fused_resnet_fc_tz_bwd_plain(params, cfg, tz, x, gy, d_out)
+    assert dtz.dtype == tz.dtype and dtz.shape == tz.shape
+    if dtz.numel():
+        err = (dtz.float() - pdtz.float()).abs()
+        assert float(err.norm() / pdtz.float().norm()) <= 1e-2
+        assert float((err > 2e-2 * pdtz.float().abs().max()).float().mean()) <= 1e-3
+    for layer, leaves in pgrads.items():
+        for leaf, want in leaves.items():
+            got = grads[layer][leaf]
+            assert got.dtype == torch.float32 and got.shape == want.shape, (layer, leaf)
+            assert _rel(got, want) <= 2e-2, (layer, leaf, _rel(got, want))
+            assert float((got - want).norm() / want.norm()) <= 1e-2, (layer, leaf)
+    # deterministic: no atomics in the reduction
+    again, _ = K.fused_resnet_fc_tz_bwd(params, cfg, tz, x, gy, d_out)
+    assert torch.equal(again["lin_in"]["kernel"], grads["lin_in"]["kernel"])
+
+
+def test_k7tz_function_matches_plain_autograd(dev):
+    """autograd.grad through fused_resnet_fc_train_tz against autograd of the
+    plain forward, whose backward rounds the gradient to bf16 at every cast:
+    5e-2 of scale; x gets no gradient from the kernel's Function."""
+    params, cfg, tz, x, gy = _k7_case(dev, 2000, 64, 3, 3, 16, 10)
+    leaves = [params["lin_in"]["kernel"], params["blocks_0_fc_0"]["kernel"],
+              params["lin_out"]["bias"]]
+    for t in (*leaves, tz):
+        t.requires_grad_()
+    out = K.fused_resnet_fc_train_tz(params, cfg, tz, x, 16)
+    got = torch.autograd.grad(out, (*leaves, tz), gy)
+    want = torch.autograd.grad(K.fused_resnet_fc_tz_plain(params, cfg, tz, x, 16),
+                               (*leaves, tz), gy)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 5e-2
+
+
+def test_cuda_outputs_carry_grad_fn(dev):
+    """Regression: every differentiable entry point keeps the autograd graph
+    on the card, and a loss through the encoder reaches every conv weight."""
+    from neural_jacobian_field_torch.models.encoder_resnet import (
+        EncoderResnet, EncoderResnetCfg)
+
+    g = _gen(11)
+    x = torch.randn((1, 8, 10, 16), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((3, 3, 16, 16), generator=g, device=dev, requires_grad=True)
+    assert K.conv_s1(x, w).grad_fn is not None
+    lvl = torch.randn((1, 4, 6, 8), generator=g, device=dev, requires_grad=True)
+    assert K.pack_2x2_flat_train(lvl).grad_fn is not None
+    params, cfg, tz, xx, _ = _k7_case(dev, 100, 32, 2, 3, 16, 12)
+    tz.requires_grad_()
+    assert K.fused_resnet_fc_train_tz(params, cfg, tz, xx, 16).grad_fn is not None
+
+    enc = EncoderResnet(EncoderResnetCfg(norm_type="batch", conv_impl="pallas"),
+                        torch.bfloat16)
+    enc.init_weights(torch.Generator().manual_seed(0))
+    enc = enc.to(dev)
+    pyr = enc(torch.rand((2, 64, 96, 3), generator=g, device=dev), train=True)
+    (pyr.fine.float().sum() + pyr.mid.float().sum() + pyr.coarse.float().sum()).backward()
+    for name, p in enc.named_parameters():
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         K.conv3x3_s1(torch.randn((1, 4, 4, 8), device=dev), torch.randn((3, 3, 8, 8), device=dev))
+    with pytest.raises(TypeError):
+        K.conv3x3_s1_wgrad(torch.randn((1, 4, 4, 8), device=dev),
+                           torch.randn((1, 4, 4, 8), device=dev))
+    with pytest.raises(TypeError):
+        K.pack_2x2_flat_bwd(torch.randn((1, 16, 32), device=dev, dtype=torch.float64), 4)
