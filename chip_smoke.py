@@ -1,37 +1,48 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # every check below
-    python3 chip_smoke.py --profile    # only: where a train step's device time goes
+    python3 chip_smoke.py                   # every check below
+    python3 chip_smoke.py --profile [MODE]  # only: where a train step's device
+                                            # time goes (MODE epipolar or exact)
 
-Drives the port's two main paths (neural_jacobian_field_torch, never JAX)
-at the flagship configuration with seeded random weights:
+Drives the port's main paths (neural_jacobian_field_torch, never JAX) at the
+flagship configuration with seeded random weights, in both pixel-feature
+modes: "epipolar" (per-ray knot textures, the K7-tz trunks) and "exact" (the
+reference-numerics per-sample pyramid gathers: K1 on the coarse level, the
+K7 trunks that project the latent themselves):
 
   1. card and build: the card's name and power limit, the kernels built from
      csrc/ with nvcc (TF32 off for every float32 reference);
   2. each hand-written kernel against its plain PyTorch version at the
-     shapes the main paths give it, with error, tolerance, and median
-     CUDA-event times of both: the forward kernels (K9-fwd, K6-fwd, K5,
-     K7-tz-fwd) at the serving shapes, the backward kernels (K9-dgrad,
-     K9-wgrad, K6-bwd, K7-tz-bwd) at the training step's;
-  3. serving: a full 480x640 target view rendered in 2048-ray chunks from a
-     480x640 context image (launch counters reset just before, read just
-     after), then one chunk again with the plain versions swapped in;
-  4. inverse dynamics on 4096 rays: encode_image, a model-realisable target
-     flow, 100 Adam steps, and the least-squares solve;
-  5. training: the stage-1 train step at batch 7 x 256 rays with 480x640
-     context images (bf16, forward + backward + Adam): launch counts of an
-     update step and of a frozen step (counters reset before each), non-zero
-     gradients on every encoder and density-head parameter, update / frozen
-     step times and the rays/s of one 5-frozen + 1-update cycle, peak
-     memory, a loss that falls over 30 steps on one batch, and one step's
-     parameter gradients with the kernels against the plain versions;
+     shapes the main paths give it, with error, tolerance, median CUDA-event
+     times of both, the least time the card could take (bound: the larger
+     of the bytes over 3.35 TB/s and the bf16 operations over 989 TFLOP/s)
+     and, where one PyTorch call computes the same function, that call's
+     time: the forward kernels (K9-fwd, K6-fwd, K5, K7-tz-fwd, K7-fwd,
+     K1-fwd) at the serving shapes (K1-fwd at the train step's), the
+     backward kernels (K9-dgrad, K9-wgrad, K6-bwd, K7-tz-bwd, K7-bwd, K1-bwd)
+     at the train step's; K1-bwd and K7-bwd twice, for identical bits;
+  3. serving, per mode: a full 480x640 target view rendered in 2048-ray
+     chunks from a 480x640 context image (launch counters reset just
+     before, read just after), then one chunk again, stage by stage, with
+     the plain versions swapped in;
+  4. inverse dynamics on 4096 rays, per mode: encode_image, a
+     model-realisable target flow, 100 Adam steps, and the least-squares
+     solve;
+  5. training, per mode: the stage-1 train step at batch 7 x 256 rays with
+     480x640 context images (bf16, forward + backward + Adam): launch counts
+     of an update step and of a frozen step (counters reset before each),
+     non-zero gradients on every encoder, density-head, colour-head and
+     proposal parameter, update / frozen step times and the rays/s of one
+     5-frozen + 1-update cycle, peak memory, a loss that falls over 10 steps
+     on one batch, and one step's parameter gradients with the kernels
+     against the plain versions;
   6. timings and peak memory.
 Any failed phase exits non-zero. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result. The
 last three lines are the card line, the kernel table and the device record,
-the last two each one JSON object; the train numbers are on the lines that
-start with "train".
+the last two each one JSON object; the numbers of each mode's train phase
+are on the lines that start with "train".
 """
 
 import argparse
@@ -53,9 +64,15 @@ ID_RAYS = 4096
 SEED = 0
 TRAIN_B, TRAIN_RAYS = 7, 256
 TRAIN_LR, TRAIN_WARMUP = 5e-4, 5
+LOSS_STEPS = 10
 # stride-1 3x3 convs of the encoder per forward: (H, W, C) at a 480x640
 # image -> number of convs (layer1 6, layer2 7, layer3 11)
 K9_SHAPES = ((120, 160, 64, 6), (60, 80, 128, 7), (30, 40, 256, 11))
+# the coarse pyramid level (layer3) at a 480x640 image, and the latent levels
+COARSE_HW, LATENT = (30, 40), (128, 128, 256)
+# H100 SXM, NVIDIA's data sheet: dense bf16 tensor rate and memory bandwidth
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+MODES = ("epipolar", "exact")
 
 
 class PhaseError(RuntimeError):
@@ -98,6 +115,43 @@ def cuda_time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Row:
+    """One kernel's line of the table, summed over the calls it stands for:
+    errors, kernel / plain / library times, and the work (bytes moved: each
+    input read once, each output written once; bf16 tensor operations) from
+    which its bound is computed."""
+
+    def __init__(self):
+        self.errs, self.ms, self.plain_ms, self.library_ms = [], 0.0, 0.0, None
+        self.bytes, self.flops = 0, 0.0
+
+    def add(self, err, ms, plain_ms, nbytes_, flops=0.0, library_ms=None):
+        self.errs.append(float(err))
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.bytes += nbytes_
+        self.flops += flops
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + library_ms
+
+    def record(self):
+        t_bytes = self.bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = self.flops / PEAK_BF16_FLOPS * 1e3
+        return dict(max_abs_err=max(self.errs), ms=self.ms, plain_ms=self.plain_ms,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="operations" if t_ops > t_bytes else "bytes",
+                    library_ms=self.library_ms)
+
+
+def print_times(name, k_ms, p_ms, lib_ms=None, extra=""):
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    print(f"  {name} ms kernel {k_ms:.4f}{extra} plain {p_ms:.4f} library {lib}")
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel wrapper for its plain version where the model looks
@@ -122,10 +176,67 @@ def plain_kernels():
 
 # ------------------------------------------------------------------ phase 2
 
-def kernel_checks(dev):
-    """Each kernel against its plain version at main-path shapes. Returns the
-    rows of the kernel table (without launch counts)."""
+def trunk_params(g, dev, d_out, d_latent=None):
+    """Flagship trunk parameters (d_in 63, 5 x 128, combine_layer 3); the
+    lin_z layers with their kernels [d_latent, 128] (projection mode) or
+    their bias only (tz mode)."""
     import torch
+
+    def lin(din, dout):
+        return {"kernel": torch.randn((din, dout), generator=g, device=dev) / math.sqrt(din),
+                "bias": 0.1 * torch.randn((dout,), generator=g, device=dev)}
+
+    params = {"lin_in": lin(63, 128)}
+    for i in range(3):
+        params[f"lin_z_{i}"] = lin(d_latent, 128) if d_latent else {"bias": lin(1, 128)["bias"]}
+    for i in range(5):
+        params[f"blocks_{i}_fc_0"] = lin(128, 128)
+        params[f"blocks_{i}_fc_1"] = lin(128, 128)
+    params["lin_out"] = lin(128, d_out)
+    return params
+
+
+def trunk_flops(n, d_out, projection):
+    """bf16 operations of one flagship trunk forward over n points (the latent
+    projection 512 x 384 included in projection mode)."""
+    per_point = 2.0 * (63 * 128 + 10 * 128 * 128 + 128 * d_out)
+    if projection:
+        per_point += 2.0 * sum(LATENT) * 3 * 128
+    return n * per_point
+
+
+def latent_levels(g, dev, n):
+    """The exact path's latent as the trunks get it: fine and mid bf16 from
+    the packed-row gathers, coarse float32 from K1-fwd."""
+    import torch
+
+    return tuple(torch.randn((n, c), generator=g, device=dev).to(
+        torch.float32 if i == 2 else torch.bfloat16) for i, c in enumerate(LATENT))
+
+
+def k1_inputs(g, dev, b, n):
+    """A coarse map [b, 1200, 256] bf16 and corner ids / weights of n points
+    per image spread over it."""
+    import torch
+
+    from neural_jacobian_field_torch.ops.pixel_gather import _corner_ids
+
+    hc, wc = COARSE_HW
+    flat = torch.randn((b, hc * wc, 256), generator=g, device=dev).to(torch.bfloat16)
+    cx = torch.rand((b, n), generator=g, device=dev) * (wc - 1)
+    cy = torch.rand((b, n), generator=g, device=dev) * (hc - 1)
+    idx, w4 = _corner_ids(cx, cy, wc, hc)
+    # the reference's op on the same points: grid_sample, align_corners=True
+    grid = torch.stack([cx / (wc - 1) * 2 - 1, cy / (hc - 1) * 2 - 1], dim=-1)[:, :, None]
+    nchw = flat.reshape(b, hc, wc, 256).permute(0, 3, 1, 2)
+    return flat, idx, w4, nchw, grid.to(torch.bfloat16)
+
+
+def kernel_checks(dev):
+    """Each forward kernel against its plain version at main-path shapes.
+    Returns the rows of the kernel table (without launch counts)."""
+    import torch
+    import torch.nn.functional as F
 
     from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
     from neural_jacobian_field_torch.ops import kernels as K
@@ -134,11 +245,8 @@ def kernel_checks(dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
 
-    def record(name, errs, ms, plain_ms):
-        rows[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
-
     # K9-fwd: the encoder's stride-1 3x3 convs at B=1
-    errs, ms, pms = [], 0.0, 0.0
+    row = Row()
     for hh, ww, c, count in K9_SHAPES:
         x = torch.randn((1, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
         w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
@@ -149,30 +257,31 @@ def kernel_checks(dev):
         print(f"K9-fwd 1x{hh}x{ww}x{c}->{c}: max_abs_err {float(err.max()):.3e} "
               f"max_rel_err {rel:.3e} (tol: 2^-7*|ref| + 1e-3 per element) ok={tol_ok}")
         check(tol_ok, "K9-fwd disagrees with its plain version")
-        errs.append(float(err.max()))
+        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         k_ms = cuda_time_ms(lambda: K.conv3x3_s1(x, w))
         p_ms = cuda_time_ms(lambda: K.conv3x3_s1_plain(x, w))
-        print(f"  ms kernel {k_ms:.4f} plain {p_ms:.4f}")
-        ms += count * k_ms
-        pms += count * p_ms
-    record("K9-fwd", errs, ms, pms)
-    print(f"K9-fwd per encode (24 convs): kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        l_ms = cuda_time_ms(lambda: F.conv2d(xc, wc, padding=1))
+        print_times("", k_ms, p_ms, l_ms)
+        row.add(err.max(), count * k_ms, count * p_ms, count * nbytes(x, w, got),
+                count * 2.0 * hh * ww * 9 * c * c, count * l_ms)
+    rows["K9-fwd"] = row.record()
+    print(f"K9-fwd per encode (24 convs): kernel {row.ms:.4f} ms, plain {row.plain_ms:.4f} ms, "
+          f"cuDNN {row.library_ms:.4f} ms, bound {rows['K9-fwd']['bound_ms']:.4f} ms")
 
-    # K6-fwd: fine + mid per encode, coarse per chunk
-    errs, ms, pms = [], 0.0, 0.0
-    for hh, ww, c, count in ((240, 320, 128, 1), (60, 80, 128, 1), (30, 40, 256, 1)):
+    # K6-fwd: fine + mid per encode, coarse per chunk (epipolar)
+    row = Row()
+    for hh, ww, c in ((240, 320, 128), (60, 80, 128), (30, 40, 256)):
         x = torch.randn((1, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
         got, want = K.pack_2x2_flat(x), K.pack_2x2_flat_plain(x)
         err = float((got.float() - want.float()).abs().max())
         print(f"K6-fwd 1x{hh}x{ww}x{c}: max_abs_err {err:.3e} (tol: 0, a copy)")
         check(err == 0.0, "K6-fwd disagrees with its plain version")
-        errs.append(err)
         k_ms = cuda_time_ms(lambda: K.pack_2x2_flat(x))
         p_ms = cuda_time_ms(lambda: K.pack_2x2_flat_plain(x))
-        print(f"  ms kernel {k_ms:.4f} plain {p_ms:.4f}")
-        ms += count * k_ms
-        pms += count * p_ms
-    record("K6-fwd", errs, ms, pms)
+        print_times("", k_ms, p_ms)
+        row.add(err, k_ms, p_ms, nbytes(x, got))
+    rows["K6-fwd"] = row.record()
 
     # K5: one 2048-ray chunk, 256 proposal bins -> 256 NeRF samples
     n, s = PATCH, 256
@@ -190,54 +299,54 @@ def kernel_checks(dev):
           f"{frac:.2e} (tol: 1e-4 but for <= 1e-4 of elements at bin ties, each "
           f"within one bin width {width:.3e})")
     check(frac <= 1e-4 and float(err.max()) <= width, "K5 disagrees with its plain version")
-    record("K5", [float(err.max())], cuda_time_ms(lambda: K.fused_sample_pdf(bins, wts, u)),
-           cuda_time_ms(lambda: K.fused_sample_pdf_plain(bins, wts, u)))
-    print(f"  ms kernel {rows['K5']['ms']:.4f} plain {rows['K5']['plain_ms']:.4f}")
+    row = Row()
+    row.add(err.max(), cuda_time_ms(lambda: K.fused_sample_pdf(bins, wts, u)),
+            cuda_time_ms(lambda: K.fused_sample_pdf_plain(bins, wts, u)),
+            nbytes(bins, wts, u, got))
+    rows["K5"] = row.record()
+    print_times("", row.ms, row.plain_ms)
 
-    # K7-tz-fwd: the three trunks of one chunk (2048 rays x 256 samples)
+    # K7-tz-fwd and K7-fwd: the three trunks of one chunk (2048 rays x 256
+    # samples); K7-fwd takes the latent levels and projects them itself
     cfg = MlpCfg(n_blocks=5, d_hidden=128, combine_layer=3)
     npts = PATCH * 256
     tz = (torch.randn((npts, 384), generator=g, device=dev)).to(torch.bfloat16)
     x = (torch.rand((npts, 63), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
-    errs, ms, pms = [], 0.0, 0.0
-    for d_out in (1, 16, 24):
-        def lin(din, dout):
-            return {"kernel": torch.randn((din, dout), generator=g, device=dev) / math.sqrt(din),
-                    "bias": 0.1 * torch.randn((dout,), generator=g, device=dev)}
-
-        params = {"lin_in": lin(63, 128)}
-        params.update({f"lin_z_{i}": {"bias": lin(1, 128)["bias"]} for i in range(3)})
-        for i in range(5):
-            params[f"blocks_{i}_fc_0"] = lin(128, 128)
-            params[f"blocks_{i}_fc_1"] = lin(128, 128)
-        params["lin_out"] = lin(128, d_out)
-        got = K.fused_resnet_fc_tz(params, cfg, tz, x, d_out)
-        want = K.fused_resnet_fc_tz_plain(params, cfg, tz, x, d_out)
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        print(f"K7-tz-fwd N={npts} d_out={d_out}: max_abs_err {err:.3e} "
-              f"rel_to_scale {err / scale:.3e} (tol: 1e-2 of scale {scale:.3e})")
-        check(torch.isfinite(got).all().item() and err <= 1e-2 * scale,
-              "K7-tz-fwd disagrees with its plain version")
-        errs.append(err)
-        k_ms = cuda_time_ms(lambda: K.fused_resnet_fc_tz(params, cfg, tz, x, d_out), reps=5)
-        p_ms = cuda_time_ms(lambda: K.fused_resnet_fc_tz_plain(params, cfg, tz, x, d_out),
-                            reps=5)
-        flops = 2.0 * npts * (64 * 128 + 10 * 128 * 128 + 128 * 16 * (1 + (d_out > 16)))
-        print(f"  ms kernel {k_ms:.4f} ({flops / k_ms / 1e9:.1f} TFLOP/s) plain {p_ms:.4f}")
-        ms += k_ms
-        pms += p_ms
-    record("K7-tz-fwd", errs, ms, pms)
-    del tz, x
+    z = latent_levels(g, dev, npts)
+    for name, wrapper, plain, proj in (
+            ("K7-tz-fwd", K.fused_resnet_fc_tz, K.fused_resnet_fc_tz_plain, False),
+            ("K7-fwd", K.fused_resnet_fc, K.fused_resnet_fc_plain, True)):
+        row = Row()
+        lat = z if proj else tz
+        for d_out in (1, 16, 24):
+            params = trunk_params(g, dev, d_out, sum(LATENT) if proj else None)
+            got = wrapper(params, cfg, lat, x, d_out)
+            want = plain(params, cfg, lat, x, d_out)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            print(f"{name} N={npts} d_out={d_out}: max_abs_err {err:.3e} "
+                  f"rel_to_scale {err / scale:.3e} (tol: 1e-2 of scale {scale:.3e})")
+            check(torch.isfinite(got).all().item() and err <= 1e-2 * scale,
+                  f"{name} disagrees with its plain version")
+            k_ms = cuda_time_ms(lambda: wrapper(params, cfg, lat, x, d_out), reps=5)
+            p_ms = cuda_time_ms(lambda: plain(params, cfg, lat, x, d_out), reps=5)
+            flops = trunk_flops(npts, d_out, proj)
+            print_times("", k_ms, p_ms, extra=f" ({flops / k_ms / 1e9:.1f} TFLOP/s)")
+            inputs = z if proj else (tz,)
+            row.add(err, k_ms, p_ms, nbytes(*inputs, x, got), flops)
+        rows[name] = row.record()
+    del tz, x, z
     torch.cuda.empty_cache()
     return rows
 
 
 def backward_kernel_checks(dev):
-    """Each backward kernel against its plain version at the train step's
-    shapes (batch 7). Returns its rows of the kernel table; ms are per train
-    step (K7-tz-bwd: per update step, proposal + density trunk)."""
+    """Each backward kernel (and K1-fwd) against its plain version at the
+    train step's shapes (batch 7). Returns its rows of the kernel table; ms
+    are per train step (K7-tz-bwd and K7-bwd: per update step, proposal +
+    density trunk; K1: per call)."""
     import torch
+    import torch.nn.grad as nn_grad
 
     from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
     from neural_jacobian_field_torch.ops import kernels as K
@@ -247,7 +356,7 @@ def backward_kernel_checks(dev):
     b = TRAIN_B
 
     # K9-wgrad and K9-dgrad at the three encoder shapes
-    werrs, derrs, wms, wpms, dms, dpms = [], [], 0.0, 0.0, 0.0, 0.0
+    wrow, drow = Row(), Row()
     for hh, ww, c, count in K9_SHAPES:
         x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
         w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
@@ -258,7 +367,7 @@ def backward_kernel_checks(dev):
         print(f"K9-wgrad {b}x{hh}x{ww}x{c}: max_abs_err {float((got - want).abs().max()):.3e} "
               f"rel_to_scale {werr:.3e} (tol 1e-4 of scale: float32 sums reordered)")
         check(werr <= 1e-4, "K9-wgrad disagrees with its plain version")
-        werrs.append(float((got - want).abs().max()))
+        wgot, wabs = got, float((got - want).abs().max())
         # dgrad alone: one bf16 rounding of a float32 sum on each side
         got, want = K.conv3x3_s1_dgrad(gy, w), K.conv3x3_s1_dgrad_plain(gy, w)
         derr = (got.float() - want.float()).abs()
@@ -273,24 +382,30 @@ def backward_kernel_checks(dev):
               f" + 1e-3 per element) ok={ok}; autograd.grad vs plain autograd: dx "
               f"{fx:.3e} (tol 3e-2 of scale), dW {fw:.3e} (tol 1e-2 of scale)")
         check(ok and fx <= 3e-2 and fw <= 1e-2, "K9 backward disagrees with plain autograd")
-        derrs.append(float(derr.max()))
         del xr, wr, dx, dw, px, pw
+        xc, gyc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         tw = (cuda_time_ms(lambda: K.conv3x3_s1_wgrad(x, gy)),
-              cuda_time_ms(lambda: K.conv3x3_s1_wgrad_plain(x, gy)))
+              cuda_time_ms(lambda: K.conv3x3_s1_wgrad_plain(x, gy)),
+              cuda_time_ms(lambda: nn_grad.conv2d_weight(xc, wc.shape, gyc, padding=1)))
         td = (cuda_time_ms(lambda: K.conv3x3_s1_dgrad(gy, w)),
-              cuda_time_ms(lambda: K.conv3x3_s1_dgrad_plain(gy, w)))
-        print(f"  ms wgrad kernel {tw[0]:.4f} plain {tw[1]:.4f}; dgrad kernel {td[0]:.4f} "
-              f"plain {td[1]:.4f}")
-        wms, wpms = wms + count * tw[0], wpms + count * tw[1]
-        dms, dpms = dms + count * td[0], dpms + count * td[1]
-    rows["K9-wgrad"] = dict(max_abs_err=max(werrs), ms=wms, plain_ms=wpms)
-    rows["K9-dgrad"] = dict(max_abs_err=max(derrs), ms=dms, plain_ms=dpms)
-    print(f"K9 backward per train step (24 convs): wgrad kernel {wms:.4f} plain {wpms:.4f} ms;"
-          f" dgrad kernel {dms:.4f} plain {dpms:.4f} ms")
+              cuda_time_ms(lambda: K.conv3x3_s1_dgrad_plain(gy, w)),
+              cuda_time_ms(lambda: nn_grad.conv2d_input(xc.shape, wc, gyc, padding=1)))
+        print_times("wgrad", *tw)
+        print_times("dgrad", *td)
+        flops = count * 2.0 * b * hh * ww * 9 * c * c
+        wrow.add(wabs, count * tw[0],
+                 count * tw[1], count * nbytes(x, gy, wgot), flops, count * tw[2])
+        drow.add(derr.max(), count * td[0], count * td[1], count * nbytes(gy, w, got), flops,
+                 count * td[2])
+    rows["K9-wgrad"], rows["K9-dgrad"] = wrow.record(), drow.record()
+    print(f"K9 backward per train step (24 convs): wgrad kernel {wrow.ms:.4f} plain "
+          f"{wrow.plain_ms:.4f} cuDNN {wrow.library_ms:.4f} ms; dgrad kernel {drow.ms:.4f} "
+          f"plain {drow.plain_ms:.4f} cuDNN {drow.library_ms:.4f} ms")
     torch.cuda.empty_cache()
 
     # K6-bwd at the fine, mid and coarse levels of batch 7
-    errs, ms, pms = [], 0.0, 0.0
+    row = Row()
     for hh, ww, c in ((240, 320, 128), (60, 80, 128), (30, 40, 256)):
         gp = torch.randn((b, hh * ww, 4 * c), generator=g, device=dev).to(torch.bfloat16)
         got, want = K.pack_2x2_flat_bwd(gp, hh), K.pack_2x2_flat_bwd_plain(gp, hh)
@@ -298,77 +413,140 @@ def backward_kernel_checks(dev):
         print(f"K6-bwd {b}x{hh}x{ww}x{c}: max_abs_err {err:.3e} (tol 0: the same bf16 "
               f"additions in the same order)")
         check(err == 0.0, "K6-bwd disagrees with its plain version")
-        errs.append(err)
         k_ms = cuda_time_ms(lambda: K.pack_2x2_flat_bwd(gp, hh))
         p_ms = cuda_time_ms(lambda: K.pack_2x2_flat_bwd_plain(gp, hh))
-        print(f"  ms kernel {k_ms:.4f} plain {p_ms:.4f}")
-        ms, pms = ms + k_ms, pms + p_ms
-    rows["K6-bwd"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms)
+        print_times("", k_ms, p_ms)
+        row.add(err, k_ms, p_ms, nbytes(gp, got))
+    rows["K6-bwd"] = row.record()
     del gp
     torch.cuda.empty_cache()
 
-    # K7-tz-bwd: the proposal (d_out 1) and density (d_out 16) trunks of a
-    # step, N = 7 x 256 rays x 256 samples
+    # K1-fwd and K1-bwd: the coarse level of a train step's stage, 7 images
+    # x 256 rays x 256 samples (one call of each per stage)
+    n = TRAIN_RAYS * 256
+    flat, idx, w4, nchw, grid = k1_inputs(g, dev, b, n)
+    got, want = K.onehot_gather_fwd(flat, idx, w4), K.onehot_gather_fwd_plain(flat, idx, w4)
+    same, err = bool(torch.equal(got, want)), float((got - want).abs().max())
+    print(f"K1-fwd {b}x{n}x256 from a 30x40 map: max_abs_err "
+          f"{err:.3e} (tol 0: the same float32 products summed in "
+          f"the same corner order) bit-exact={same}")
+    check(same, "K1-fwd disagrees with its plain version")
+    row = Row()
+    row.add(err, cuda_time_ms(lambda: K.onehot_gather_fwd(flat, idx, w4)),
+            cuda_time_ms(lambda: K.onehot_gather_fwd_plain(flat, idx, w4)),
+            nbytes(flat, idx, w4, got),
+            library_ms=cuda_time_ms(lambda: torch.nn.functional.grid_sample(
+                nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)))
+    rows["K1-fwd"] = row.record()
+    print_times("", row.ms, row.plain_ms, row.library_ms)
+    gy = torch.randn((b, n, 256), generator=g, device=dev).to(torch.bfloat16)
+    got = K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1])
+    want = K.onehot_scatter_bwd_plain(gy, idx, w4, flat.shape[1])
+    again = K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1])
+    err, same = rel_err(got, want), bool(torch.equal(got, again))
+    print(f"K1-bwd {b}x{n}x256 onto a 30x40 map: max_abs_err "
+          f"{float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} (tol 1e-4 of scale: "
+          f"float32 sums of ~870 terms per texel reordered); two calls bit-identical={same}")
+    check(err <= 1e-4 and same, "K1-bwd disagrees with its plain version or does not repeat")
+    gy_nchw = gy.reshape(b, n, 1, 256).permute(0, 3, 1, 2)
+    row = Row()
+    row.add(float((got - want).abs().max()),
+            cuda_time_ms(lambda: K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1])),
+            cuda_time_ms(lambda: K.onehot_scatter_bwd_plain(gy, idx, w4, flat.shape[1])),
+            nbytes(gy, idx, w4, got),
+            library_ms=cuda_time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                gy_nchw, nchw, grid, 0, 1, True, [True, False])))
+    rows["K1-bwd"] = row.record()
+    print_times("", row.ms, row.plain_ms, row.library_ms)
+    del flat, idx, w4, nchw, grid, gy, got, want, again
+    torch.cuda.empty_cache()
+
+    # K7-tz-bwd and K7-bwd: the proposal (d_out 1) and density (d_out 16)
+    # trunks of a step, N = 7 x 256 rays x 256 samples
     cfg = MlpCfg(n_blocks=5, d_hidden=128, combine_layer=3)
     npts = b * TRAIN_RAYS * 256
     tz = torch.randn((npts, 384), generator=g, device=dev).to(torch.bfloat16)
     x = (torch.rand((npts, 63), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
-    errs, ms, pms = [], 0.0, 0.0
-    for d_out in (1, 16):
-        def lin(din, dout):
-            return {"kernel": torch.randn((din, dout), generator=g, device=dev) / math.sqrt(din),
-                    "bias": 0.1 * torch.randn((dout,), generator=g, device=dev)}
+    z = latent_levels(g, dev, npts)
+    for name, wrapper, plain, proj in (
+            ("K7-tz-bwd", K.fused_resnet_fc_tz_bwd, K.fused_resnet_fc_tz_bwd_plain, False),
+            ("K7-bwd", K.fused_resnet_fc_bwd, K.fused_resnet_fc_bwd_plain, True)):
+        row = Row()
+        lat = z if proj else tz
+        for d_out in (1, 16):
+            params = trunk_params(g, dev, d_out, sum(LATENT) if proj else None)
+            gy = torch.randn((npts, d_out), generator=g, device=dev)
+            grads, dlat = wrapper(params, cfg, lat, x, gy, d_out)
+            pgrads, pdlat = plain(params, cfg, lat, x, gy, d_out)
 
-        params = {"lin_in": lin(63, 128)}
-        params.update({f"lin_z_{i}": {"bias": lin(1, 128)["bias"]} for i in range(3)})
-        for i in range(5):
-            params[f"blocks_{i}_fc_0"] = lin(128, 128)
-            params[f"blocks_{i}_fc_1"] = lin(128, 128)
-        params["lin_out"] = lin(128, d_out)
-        gy = torch.randn((npts, d_out), generator=g, device=dev)
-        grads, dtz = K.fused_resnet_fc_tz_bwd(params, cfg, tz, x, gy, d_out)
-        pgrads, pdtz = K.fused_resnet_fc_tz_bwd_plain(params, cfg, tz, x, gy, d_out)
-        leaf_max = max(rel_err(grads[k][leaf], v) for k, p in pgrads.items()
-                       for leaf, v in p.items())
-        leaf_l2 = max(float((grads[k][leaf] - v).norm() / v.norm())
-                      for k, p in pgrads.items() for leaf, v in p.items())
-        derr = (dtz.float() - pdtz.float()).abs()
-        dtz_l2 = float(derr.norm() / pdtz.float().norm())
-        dtz_far = float((derr > 2e-2 * pdtz.float().abs().max()).float().mean())
-        err = max(float((grads[k][leaf] - v).abs().max()) for k, p in pgrads.items()
-                  for leaf, v in p.items())
-        print(f"K7-tz-bwd N={npts} d_out={d_out}: dW/db max_abs_err {err:.3e}, worst leaf "
-              f"{leaf_max:.3e} of scale (tol 2e-2), {leaf_l2:.3e} in l2 (tol 1e-2); dtz "
-              f"{dtz_l2:.3e} in l2 (tol 1e-2), share beyond 2e-2 of scale {dtz_far:.2e} "
-              f"(tol 1e-3): bf16 recompute roundings may flip a ReLU mask")
-        check(leaf_max <= 2e-2 and leaf_l2 <= 1e-2 and dtz_l2 <= 1e-2 and dtz_far <= 1e-3,
-              "K7-tz-bwd disagrees with its plain version")
-        errs.append(err)
-        del grads, dtz, pgrads, pdtz
-        k_ms = cuda_time_ms(lambda: K.fused_resnet_fc_tz_bwd(params, cfg, tz, x, gy, d_out),
-                            reps=3, warmup=1)
-        p_ms = cuda_time_ms(lambda: K.fused_resnet_fc_tz_bwd_plain(params, cfg, tz, x, gy,
-                                                                   d_out), reps=3, warmup=1)
-        flops = 2.0 * npts * (64 * 128 + 10 * 128 * 128) * 4
-        print(f"  ms kernel {k_ms:.4f} (~{flops / k_ms / 1e9:.1f} TFLOP/s at 4 trunk passes) "
-              f"plain {p_ms:.4f}")
-        ms, pms = ms + k_ms, pms + p_ms
-    rows["K7-tz-bwd"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms)
-    del tz, x
+            def worst(fn, got):  # (value, leaf) of the worst leaf against pgrads
+                return max((fn(got[k][leaf], v), f"{k}.{leaf}") for k, p in pgrads.items()
+                           for leaf, v in p.items())
+
+            def l2(a, b):
+                return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+            (leaf_max, max_name), (leaf_l2, l2_name) = worst(rel_err, grads), worst(l2, grads)
+            l2_tol = 1e-2
+            if proj:
+                # the plain version again with the latent as one float32 array:
+                # the projection's float32 sum in another, equally valid order,
+                # which flips some bf16 roundings of the injection; the kernel
+                # may be at most twice as far from the plain version as that
+                ref_l2, ref_name = worst(l2, plain(params, cfg, torch.cat(
+                    [t.float() for t in z], dim=-1), x, gy, d_out)[0])
+                l2_tol = max(1e-2, 2 * ref_l2)
+                print(f"  {name} reference: plain vs plain with the latent concatenated, worst "
+                      f"leaf {ref_name} {ref_l2:.3e} in l2")
+            dl2, dfar = 0.0, 0.0
+            for a, ref in zip(dlat if proj else (dlat,), pdlat if proj else (pdlat,)):
+                derr = (a.float() - ref.float()).abs()
+                dl2 = max(dl2, float(derr.norm() / ref.float().norm()))
+                dfar = max(dfar, float((derr > 2e-2 * ref.float().abs().max()).float().mean()))
+            err = max(float((grads[k][leaf] - v).abs().max()) for k, p in pgrads.items()
+                      for leaf, v in p.items())
+            dname = "dz (each level)" if proj else "dtz"
+            print(f"{name} N={npts} d_out={d_out}: dW/db max_abs_err {err:.3e}, worst leaf "
+                  f"{max_name} {leaf_max:.3e} of scale (tol 2e-2), {l2_name} {leaf_l2:.3e} in "
+                  f"l2 (tol {l2_tol:.3e}); {dname} {dl2:.3e} in l2 (tol 1e-2), share beyond "
+                  f"2e-2 of scale {dfar:.2e} (tol 1e-3): bf16 recompute roundings may flip a "
+                  f"ReLU mask")
+            check(leaf_max <= 2e-2 and leaf_l2 <= l2_tol and dl2 <= 1e-2 and dfar <= 1e-3,
+                  f"{name} disagrees with its plain version")
+            if proj:
+                again, dagain = wrapper(params, cfg, lat, x, gy, d_out)
+                same = (all(torch.equal(again[k][leaf], v) for k, p in grads.items()
+                            for leaf, v in p.items())
+                        and all(torch.equal(a, c) for a, c in zip(dlat, dagain)))
+                print(f"  {name} two calls bit-identical (every leaf and dz)={same}")
+                check(same, f"{name} does not repeat bit for bit")
+                del again, dagain
+            del grads, dlat, pgrads, pdlat
+            k_ms = cuda_time_ms(lambda: wrapper(params, cfg, lat, x, gy, d_out), reps=3,
+                                warmup=1)
+            p_ms = cuda_time_ms(lambda: plain(params, cfg, lat, x, gy, d_out), reps=3, warmup=1)
+            # forward recompute + input gradients + weight gradients
+            flops = 3 * trunk_flops(npts, d_out, proj)
+            print_times("", k_ms, p_ms, extra=f" ({flops / k_ms / 1e9:.1f} TFLOP/s)")
+            inputs = z if proj else (tz,)
+            row.add(err, k_ms, p_ms, 2 * nbytes(*inputs) + nbytes(x, gy), flops)
+        rows[name] = row.record()
+    del tz, x, z
     torch.cuda.empty_cache()
     return rows
 
 
 # ------------------------------------------------------------------ phase 3+
 
-def build_model(dev):
+def build_model(dev, mode):
     import numpy as np
     import torch
 
     from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
 
     g = torch.Generator().manual_seed(SEED)
-    model = Model(flagship_model_cfg(), compute_dtype=torch.bfloat16).init_weights(g)
+    model = Model(flagship_model_cfg(pixel_feature_mode=mode),
+                  compute_dtype=torch.bfloat16).init_weights(g)
     # a fresh Jacobian head is N(0, 1e-4) everywhere, so every point's
     # Jacobian is the same ~1e-4 constant; draw it at the density head's
     # scale instead and shrink its output layer so that J(x) varies over the
@@ -414,10 +592,19 @@ def cameras(dev):
     return cam, RobotInput(robot_action=action.to(dev))
 
 
+def all_zero_but(counts: dict) -> dict:
+    """Expected launch counts: the given ones, every other kernel 0."""
+    from neural_jacobian_field_torch.ops.kernels import KERNELS
+
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
 def chunk_stages(model, cam, robot, ri, given=None):
     """One chunk through the serving path, stage by stage. With `given` (the
     outputs of an earlier run), every stage after the encoder takes that
     run's inputs, so each stage's difference is its own."""
+    from neural_jacobian_field_torch.models.pixel_aligned import get_pixel_aligned_features
+    from neural_jacobian_field_torch.ops.epipolar import RayKnots
     from neural_jacobian_field_torch.rendering.samplers import pdf_sample, spaced_sample
 
     out = {}
@@ -428,12 +615,18 @@ def chunk_stages(model, cam, robot, ri, given=None):
     out["pe"] = pe
     rb = model.compute_ray_bundle(ri)
     enc = model.attach_ray_features(pe, rb)
-    out["knots"] = enc.features.coarse
+    cfg = model.sampler_cfg
+    rs0 = spaced_sample(rb, cfg.num_proposal_samples[0], stratified=False)
+    if isinstance(enc.features, RayKnots):
+        out["knots"] = enc.features.coarse
+    else:  # the coarse level at the proposal samples (K1-fwd)
+        pos0 = rs0.get_positions()
+        feats, _, _ = get_pixel_aligned_features(pos0.reshape(1, -1, 3), enc.extrinsics,
+                                                 enc.intrinsics, enc.features)
+        out["coarse samples"] = feats[2]
     if given is not None:
         enc = given["enc"]
     out["enc"] = enc
-    cfg = model.sampler_cfg
-    rs0 = spaced_sample(rb, cfg.num_proposal_samples[0], stratified=False)
     out["density0"] = model.proposal_networks[0](rs0.get_positions(), enc)
     d0 = out["density0"] if given is None else given["density0"]
     rs = pdf_sample(rb, rs0, rs0.get_weights(d0), cfg.num_nerf_samples, stratified=False,
@@ -446,19 +639,20 @@ def chunk_stages(model, cam, robot, ri, given=None):
     return out
 
 
-def slice_phase(dev, model, cam, robot, timings):
+def serve_phase(dev, model, cam, robot, timings, mode):
     import torch
 
     from neural_jacobian_field_torch.inference.render import camera_rays, render_camera
     from neural_jacobian_field_torch.models.model import RenderingInput
     from neural_jacobian_field_torch.ops import kernels as K
 
+    tag = "" if mode == "epipolar" else "exact_"
     with torch.no_grad():
         # warm-up encode (allocator, cuBLAS handles), then the timed encode
         model.compute_pixel_encoding(cam, robot)
         torch.cuda.synchronize()
-        timings["encode_ms"] = cuda_time_ms(lambda: model.compute_pixel_encoding(cam, robot),
-                                            reps=5, warmup=1)
+        timings[tag + "encode_ms"] = cuda_time_ms(
+            lambda: model.compute_pixel_encoding(cam, robot), reps=5, warmup=1)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -468,37 +662,34 @@ def slice_phase(dev, model, cam, robot, timings):
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = K.launch_counts()
-    timings["render_s"] = render_s
-    timings["render_rays_per_s"] = H * W / render_s
-    timings["render_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    print(f"render {H}x{W}: {render_s:.3f} s, {H * W / render_s:.1f} rays/s, "
-          f"peak {timings['render_peak_mem_gib']:.2f} GiB; launches {launches}")
+    timings[tag + "render_s"] = render_s
+    timings[tag + "render_rays_per_s"] = H * W / render_s
+    timings[tag + "render_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"render {mode} {H}x{W}: {render_s:.3f} s, {H * W / render_s:.1f} rays/s, "
+          f"peak {timings[tag + 'render_peak_mem_gib']:.2f} GiB; launches {launches}")
 
     for name, shape in (("rgb", (1, H, W, 3)), ("depth_raw", (1, H, W, 1)),
                         ("flow_raw", (1, H, W, 2)), ("action_features", (1, H, W, 24))):
         t = getattr(out, name)
         check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
         check(bool(torch.isfinite(t).all()), f"{name} has non-finite values")
-    rgb = out.rgb
-    print(f"rgb range [{float(rgb.min()):.4f}, {float(rgb.max()):.4f}], depth range "
+    print(f"rgb range [{float(out.rgb.min()):.4f}, {float(out.rgb.max()):.4f}], depth range "
           f"[{float(out.depth_raw.min()):.4f}, {float(out.depth_raw.max()):.4f}], "
           f"|flow| max {float(out.flow_raw.abs().max()):.4e}")
-    n_chunks = H * W // PATCH
-    forward = ("K9-fwd", "K6-fwd", "K5", "K7-tz-fwd")
-    check(all(launches[k] > 0 for k in forward), f"a kernel was not launched: {launches}")
-    check(all(v == 0 for k, v in launches.items() if k not in forward),
-          f"serving launched a backward kernel: {launches}")
-    check(launches["K9-fwd"] == 24, f"K9-fwd launched {launches['K9-fwd']} times, not 24")
-    check(launches["K7-tz-fwd"] == 3 * n_chunks, "K7-tz-fwd not 3 launches per chunk")
-    check(launches["K5"] == n_chunks, "K5 not one launch per chunk")
-    check(launches["K6-fwd"] == 2 + n_chunks, "K6-fwd not 2 per encode + 1 per chunk")
+    n = H * W // PATCH
+    if mode == "epipolar":  # K6 packs the coarse level per chunk for the knots
+        want = all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n, "K7-tz-fwd": 3 * n})
+    else:
+        want = all_zero_but({"K9-fwd": 24, "K6-fwd": 2, "K5": n, "K7-fwd": 3 * n,
+                             "K1-fwd": 2 * n})
+    check(launches == want, f"{mode} serving launches {launches} != {want}")
 
     # one chunk again, stage by stage, kernels vs plain versions. A random
     # field at bf16 is chaotic end to end (a 1e-4 m shift of a sample moves
     # its 2^9 NeRF frequency by ~0.3 rad), so each stage gets the SAME inputs
     # in both runs (the kernel run's) and is compared on its own output.
     origins, dirs = camera_rays(H, W, cam.trgt_intrinsics, cam.trgt_extrinsics)
-    lo = (n_chunks // 2) * PATCH
+    lo = (n // 2) * PATCH
     ri = RenderingInput(origins=origins[:, lo:lo + PATCH], directions=dirs[:, lo:lo + PATCH],
                         z_near=torch.full((1,), Z_NEAR, device=dev),
                         z_far=torch.full((1,), Z_FAR, device=dev))
@@ -511,26 +702,29 @@ def slice_phase(dev, model, cam, robot, timings):
     def rel(a, b):
         return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12))
 
+    trunk = "K7-tz" if mode == "epipolar" else "K7"
+    feature = (("ray knots", "K6", rel(k["knots"], p["knots"]), 0.0) if mode == "epipolar" else
+               ("coarse samples", "K1-fwd", rel(k["coarse samples"], p["coarse samples"]), 0.0))
     checks = [  # (stage, kernels exercised, error, tolerance)
         ("encoder fine2", "K9+K6", rel(k["fine2"], p["fine2"]), 5e-2),
         ("encoder mid2", "K9+K6", rel(k["mid2"], p["mid2"]), 5e-2),
         ("encoder coarse", "K9", rel(k["coarse"], p["coarse"]), 5e-2),
-        ("ray knots", "K6", rel(k["knots"], p["knots"]), 0.0),
-        ("proposal density", "K7-tz", rel(k["density0"], p["density0"]), 5e-2),
+        feature,
+        ("proposal density", trunk, rel(k["density0"], p["density0"]), 5e-2),
         ("resampled positions (m)", "K5",
          float((k["positions"] - p["positions"]).abs().max()), 2e-3),
-        ("nerf density", "K7-tz", rel(k["density"], p["density"]), 5e-2),
-        ("colour", "K7-tz", rel(k["color"], p["color"]), 5e-2),
-        ("Jacobian features", "K7-tz", rel(k["action_features"], p["action_features"]), 5e-2),
+        ("nerf density", trunk, rel(k["density"], p["density"]), 5e-2),
+        ("colour", trunk, rel(k["color"], p["color"]), 5e-2),
+        ("Jacobian features", trunk, rel(k["action_features"], p["action_features"]), 5e-2),
     ]
     for stage, kern, err, tol in checks:
-        print(f"chunk vs plain [{stage}, {kern}]: err {err:.3e} (tol {tol:g}"
+        print(f"chunk vs plain {mode} [{stage}, {kern}]: err {err:.3e} (tol {tol:g}"
               f"{', relative to scale' if 'positions' not in stage else ''})")
-        check(err <= tol, f"slice stage {stage} disagrees with the plain versions")
+        check(err <= tol, f"{mode} serving stage {stage} disagrees with the plain versions")
     return launches
 
 
-def inverse_dynamics_phase(dev, model, cam, robot, timings):
+def inverse_dynamics_phase(dev, model, cam, robot, timings, mode):
     import torch
 
     from neural_jacobian_field_torch.inference.action_opt import (
@@ -538,6 +732,7 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings):
     from neural_jacobian_field_torch.inference.render import camera_rays
     from neural_jacobian_field_torch.models.model import RenderingInput, RobotInput
 
+    tag = "" if mode == "epipolar" else "exact_"
     g = torch.Generator(device=dev).manual_seed(SEED)
     origins, dirs = camera_rays(H, W, cam.trgt_intrinsics, cam.trgt_extrinsics)
     pick = torch.randperm(H * W, generator=g, device=dev)[:ID_RAYS]
@@ -549,7 +744,7 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings):
         t0 = time.perf_counter()
         enc = model.encode_image(cam, ri, robot)
         torch.cuda.synchronize()
-    timings["id_encode_ms"] = (time.perf_counter() - t0) * 1e3
+    timings[tag + "id_encode_ms"] = (time.perf_counter() - t0) * 1e3
     # a small action keeps the target in the regime where the flow is close
     # to linear in the action (the least-squares step linearises at a = 0;
     # at 5x this action the projection's curvature alone leaves ~6%)
@@ -562,20 +757,21 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings):
     t0 = time.perf_counter()
     res = optimize_actions(model, enc, cam, target, action0=action0, num_iters=100)
     torch.cuda.synchronize()
-    timings["inverse_dynamics_ms"] = (time.perf_counter() - t0) * 1e3
+    timings[tag + "inverse_dynamics_ms"] = (time.perf_counter() - t0) * 1e3
     l0, lbest = float(res.losses[0]), float(res.loss)
-    print(f"inverse dynamics ({ID_RAYS} rays): encode {timings['id_encode_ms']:.1f} ms, "
-          f"100 Adam steps {timings['inverse_dynamics_ms']:.1f} ms, loss {l0:.4e} -> "
-          f"{lbest:.4e} (bound: best < 0.5 x initial)")
+    print(f"inverse dynamics {mode} ({ID_RAYS} rays): encode "
+          f"{timings[tag + 'id_encode_ms']:.1f} ms, 100 Adam steps "
+          f"{timings[tag + 'inverse_dynamics_ms']:.1f} ms, loss {l0:.4e} -> {lbest:.4e} "
+          f"(bound: best < 0.5 x initial)")
     check(math.isfinite(lbest) and lbest < 0.5 * l0, "inverse dynamics loss did not fall")
     t0 = time.perf_counter()
     a = solve_actions_least_squares(model, enc, cam, target)
     torch.cuda.synchronize()
-    timings["least_squares_ms"] = (time.perf_counter() - t0) * 1e3
+    timings[tag + "least_squares_ms"] = (time.perf_counter() - t0) * 1e3
     with torch.no_grad():
         flow = model.infer_optical_flow(enc, cam, RobotInput(a))
     resid = float(torch.linalg.norm(flow - target) / torch.linalg.norm(target))
-    print(f"least squares: {timings['least_squares_ms']:.1f} ms, relative flow "
+    print(f"least squares {mode}: {timings[tag + 'least_squares_ms']:.1f} ms, relative flow "
           f"residual {resid:.3e} (bound 2e-2), |a - a*| {float((a - a_star).abs().max()):.3e}")
     check(resid < 2e-2, "least-squares residual above its bound")
 
@@ -635,7 +831,7 @@ def step_grads(state, batch, yx, draws, updated):
             if p.grad is not None}
 
 
-def train_setup(dev):
+def train_setup(dev, mode):
     """The flagship model with seeded weights, its train state, a batch and a
     generator, warmed up on both gates (allocator, cuBLAS)."""
     import torch
@@ -643,7 +839,7 @@ def train_setup(dev):
     from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
     from neural_jacobian_field_torch.training import TrainCfg, create_train_state, train_step
 
-    model = Model(flagship_model_cfg(), compute_dtype=torch.bfloat16)
+    model = Model(flagship_model_cfg(pixel_feature_mode=mode), compute_dtype=torch.bfloat16)
     model.init_weights(torch.Generator().manual_seed(SEED)).to(dev)
     cfg = TrainCfg(lr=TRAIN_LR, warm_up_steps=TRAIN_WARMUP, rays_per_batch=TRAIN_RAYS)
     state = create_train_state(model, cfg)
@@ -655,7 +851,7 @@ def train_setup(dev):
     return model, state, batch, g
 
 
-def train_phase(dev, timings):
+def train_phase(dev, timings, mode):
     """The stage-1 train step at batch 7 x 256 rays. Returns the launch
     counts of one update step and of one frozen step."""
     import copy
@@ -665,7 +861,8 @@ def train_phase(dev, timings):
     from neural_jacobian_field_torch.ops import kernels as K
     from neural_jacobian_field_torch.training import host_step_schedule, train_step
 
-    model, state, batch, g = train_setup(dev)
+    tag = "train_" if mode == "epipolar" else "exact_train_"
+    model, state, batch, g = train_setup(dev, mode)
 
     # one step's gradients, kernels against plain versions, from the same
     # state and draws. A random field at bf16 is chaotic end to end (a K5
@@ -697,12 +894,12 @@ def train_phase(dev, timings):
         cos = float(torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-30))
         rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
         nrel = float((flat(ng, names) - b).norm() / b.norm().clamp_min(1e-30))
-        print(f"train step gradients, kernels vs plain [{group.rstrip('._')}]: "
+        print(f"train {mode} step gradients, kernels vs plain [{group.rstrip('._')}]: "
               f"{len(names)} tensors, |g| {float(a.norm()):.3e} vs {float(b.norm()):.3e}, "
               f"relative l2 difference {rel:.3e}, cosine {cos:.4f} (bound: cosine > 0.5); "
               f"plain vs plain on images nudged by 2^-8: relative l2 {nrel:.3e}")
         check(bool(b.norm() > 0) and cos > 0.5,
-              f"train gradients of {group} disagree with the plain versions")
+              f"{mode} train gradients of {group} disagree with the plain versions")
     del kg, pg, ng, saved
 
     # launch counts of each step type; then the gradients reach the params
@@ -713,18 +910,22 @@ def train_phase(dev, timings):
         train_step(state, batch, g, updated)
         torch.cuda.synchronize()
         counts[kind] = K.launch_counts()
-        print(f"train launches per {kind} step: {counts[kind]}")
-    expect = {"K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K6-fwd": 3, "K6-bwd": 3, "K5": 1,
-              "K7-tz-fwd": 3}
+        print(f"train {mode} launches per {kind} step: {counts[kind]}")
+    conv = {"K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K5": 1}
     for kind, n_bwd in (("update", 2), ("frozen", 1)):
-        want = dict(expect, **{"K7-tz-bwd": n_bwd})
-        check(counts[kind] == want, f"{kind} step launches {counts[kind]} != {want}")
+        if mode == "epipolar":
+            want = all_zero_but(dict(conv, **{"K6-fwd": 3, "K6-bwd": 3, "K7-tz-fwd": 3,
+                                              "K7-tz-bwd": n_bwd}))
+        else:
+            want = all_zero_but(dict(conv, **{"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2,
+                                              "K1-bwd": n_bwd, "K7-fwd": 3, "K7-bwd": n_bwd}))
+        check(counts[kind] == want, f"{mode} {kind} step launches {counts[kind]} != {want}")
     dead = [name for name, p in model.named_parameters()
             if name.startswith(("encoder.", "decoder.density_head.", "decoder.color_head.",
                                 "proposal_networks_"))
             and (p.grad is None or not bool(p.grad.abs().sum() > 0))]
-    print(f"train gradients: {len(dead)} encoder / density-head / colour-head / proposal "
-          f"parameters without a non-zero gradient after an update step {dead[:4]}")
+    print(f"train {mode} gradients: {len(dead)} encoder / density-head / colour-head / "
+          f"proposal parameters without a non-zero gradient after an update step {dead[:4]}")
     check(not dead, "a parameter the loss reaches got no gradient")
 
     # step times (host clock around synchronised steps), peak memory
@@ -738,33 +939,37 @@ def train_phase(dev, timings):
         times[updated].append((time.perf_counter() - t0) * 1e3)
     upd_ms, frz_ms = statistics.median(times[True]), statistics.median(times[False])
     cycle_s = (5 * frz_ms + upd_ms) / 1e3
-    timings.update(train_update_step_ms=upd_ms, train_frozen_step_ms=frz_ms,
-                   train_cycle_rays_per_s=6 * TRAIN_B * TRAIN_RAYS / cycle_s,
-                   train_peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
-    print(f"train step (batch {TRAIN_B} x {TRAIN_RAYS} rays, 480x640 context, bf16): update "
-          f"{upd_ms:.2f} ms, frozen {frz_ms:.2f} ms (medians of {len(times[True])} / "
+    timings[tag + "update_step_ms"] = upd_ms
+    timings[tag + "frozen_step_ms"] = frz_ms
+    timings[tag + "cycle_rays_per_s"] = 6 * TRAIN_B * TRAIN_RAYS / cycle_s
+    timings[tag + "peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"train {mode} step (batch {TRAIN_B} x {TRAIN_RAYS} rays, 480x640 context, bf16): "
+          f"update {upd_ms:.2f} ms, frozen {frz_ms:.2f} ms (medians of {len(times[True])} / "
           f"{len(times[False])}); 5 frozen + 1 update cycle "
-          f"{timings['train_cycle_rays_per_s']:.1f} rays/s; peak "
-          f"{timings['train_peak_mem_gib']:.2f} GiB")
+          f"{timings[tag + 'cycle_rays_per_s']:.1f} rays/s; peak "
+          f"{timings[tag + 'peak_mem_gib']:.2f} GiB")
 
-    # the loss falls over 30 steps on this batch at one fixed pixel set (the
-    # schedule's own gate; the stratified draws change every step)
+    # the loss falls over LOSS_STEPS steps on this batch at one fixed pixel
+    # set (the schedule's own gate; the stratified draws change every step)
     fixed_yx, _ = step_draws(dev, g)
     losses = []
-    for _ in range(30):
+    for _ in range(LOSS_STEPS):
         updated, _ = host_step_schedule(state.step, state.steps_since_update,
                                         model.cfg.rendering)
         m = train_step(state, batch, g, updated, yx=fixed_yx)
         losses.append(float(m["loss/total"]))
-    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-    print(f"train loss over 30 steps: {losses[0]:.5f} -> {losses[-1]:.5f}; mean of the first "
-          f"5 {first:.5f}, of the last 5 {last:.5f} (bound: finite, last < first)")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    print(f"train {mode} loss over {LOSS_STEPS} steps: {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"mean of the first 3 {first:.5f}, of the last 3 {last:.5f} (bound: finite, "
+          f"last < first)")
     check(all(math.isfinite(v) for v in losses) and last < first, "the train loss did not fall")
-    timings["train_loss_first5"], timings["train_loss_last5"] = first, last
+    timings[tag + "loss_first3"], timings[tag + "loss_last3"] = first, last
+    del model, state, batch
+    torch.cuda.empty_cache()
     return counts
 
 
-def profile_train(dev, top=15):
+def profile_train(dev, mode, top=15):
     """--profile: torch.profiler around one frozen and one update train step
     (after the warm-up). Per step: the traced wall time (the step's first
     host event to its last device event), the device's busy time (the union
@@ -779,7 +984,7 @@ def profile_train(dev, top=15):
 
     from neural_jacobian_field_torch.training import train_step
 
-    _, state, batch, g = train_setup(dev)
+    _, state, batch, g = train_setup(dev, mode)
     for kind, updated in (("frozen", False), ("update", True)):
         train_step(state, batch, g, updated)
         torch.cuda.synchronize()
@@ -807,19 +1012,20 @@ def profile_train(dev, top=15):
             by_name[e.name][1] += 1
         opt_us = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages()
                      if a.key.startswith("Optimizer.step"))
-        print(f"profile {kind} step: traced wall {wall / 1e3:.3f} ms, device busy "
+        print(f"profile {mode} {kind} step: traced wall {wall / 1e3:.3f} ms, device busy "
               f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall:.4f}, {len(dev_ev)} device "
               f"events, optimizer step {opt_us / 1e3:.3f} ms of device time")
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-            print(f"profile {kind}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<5d} "
+            print(f"profile {mode} {kind}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<5d} "
                   f"{name[:90]}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="only profile one frozen and one update train step "
-                             "(torch.profiler) and print where the device time goes")
+    parser.add_argument("--profile", nargs="?", const="epipolar", choices=MODES,
+                        help="only profile one frozen and one update train step of the given "
+                             "feature mode (torch.profiler) and print where the device time "
+                             "goes")
     args = parser.parse_args()
     try:
         import torch
@@ -839,6 +1045,7 @@ def main() -> int:
         return 3
 
     try:
+        t_start = time.perf_counter()
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
         card = card_line()
@@ -855,23 +1062,28 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
         if args.profile:
-            profile_train(dev)
+            profile_train(dev, args.profile)
             return 0
 
         rows = kernel_checks(dev)
         rows.update(backward_kernel_checks(dev))
-        model = build_model(dev)
+        timings, paths = {}, {}
         cam, robot = cameras(dev)
-        timings = {}
-        serve = slice_phase(dev, model, cam, robot, timings)
-        inverse_dynamics_phase(dev, model, cam, robot, timings)
-        timings["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        del model
-        torch.cuda.empty_cache()
-        train = train_phase(dev, timings)
+        for mode in MODES:
+            model = build_model(dev, mode)
+            paths[("" if mode == "epipolar" else "exact_") + "serve"] = serve_phase(
+                dev, model, cam, robot, timings, mode)
+            inverse_dynamics_phase(dev, model, cam, robot, timings, mode)
+            del model
+            torch.cuda.empty_cache()
+        timings["serve_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        for mode in MODES:
+            counts = train_phase(dev, timings, mode)
+            prefix = "" if mode == "epipolar" else "exact_"
+            paths[prefix + "train_update"] = counts["update"]
+            paths[prefix + "train_frozen"] = counts["frozen"]
+        timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
-        paths = {"serve": serve, "train_update": train["update"],
-                 "train_frozen": train["frozen"]}
         print("launches by path: " + json.dumps(paths))
         unused = [n for n in K.KERNELS if not sum(c[n] for c in paths.values())]
         check(not unused, f"kernels launched by no main path: {unused}")

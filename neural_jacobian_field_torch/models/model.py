@@ -47,10 +47,12 @@ class RenderingCfg:
     proposal_weights_anneal_slope: float = 10.0
     # K5 resampling kernel (ops/kernels/pdf_resample.py)
     use_pallas_pdf: bool = True
-    # "epipolar" is the only feature path ported
+    # "exact": every sample gathers from each pyramid level (reference-numerics
+    # bilinear; K1 on the coarse level, the K7 trunk projects the levels);
+    # "epipolar": per-ray knot textures interpolated per sample (K7-tz)
     pixel_feature_mode: str = "exact"
     epipolar_knots: Tuple[int, int, int] = (64, 16, 8)
-    # K7-tz trunk kernel (ops/kernels/field_mlp.py) for bf16 models
+    # K7 / K7-tz trunk kernels (ops/kernels/field_mlp.py) for bf16 models
     use_fused_trunk: bool = False
 
 
@@ -73,7 +75,10 @@ def flagship_model_cfg(**rendering_overrides) -> ModelCfg:
     ResNet-34 in pyramid layout with K9 convs, epipolar knots (64, 16, 8),
     fused K7-tz trunks, K5 resampling, jacobian_mlp decoder (ResnetFC 5 x 128,
     combine_layer 3), action_dim 8, 256 proposal + 256 NeRF samples. Run it
-    with compute_dtype=torch.bfloat16."""
+    with compute_dtype=torch.bfloat16. `pixel_feature_mode="exact"` selects
+    the reference-numerics feature path (model_allegro.yaml's setting for
+    ported-checkpoint evaluation): per-sample pyramid gathers with K1 on the
+    coarse level, and K7 trunks that project the levels themselves."""
     rendering = RenderingCfg(num_proposal_samples=(256,), num_nerf_samples=256,
                              use_pallas_pdf=True, pixel_feature_mode="epipolar",
                              epipolar_knots=(64, 16, 8), use_fused_trunk=True)
@@ -291,8 +296,9 @@ class Model(nn.Module):
         return uv_warped - uv, pos, pos_warped
 
     def _check_feature_mode(self):
-        if self.cfg.rendering.pixel_feature_mode != "epipolar":
-            raise NotImplementedError("only pixel_feature_mode='epipolar' is ported")
+        mode = self.cfg.rendering.pixel_feature_mode
+        if mode not in ("exact", "epipolar"):
+            raise ValueError(f"unknown pixel_feature_mode {mode!r}")
 
     # -- main forward --------------------------------------------------------
 

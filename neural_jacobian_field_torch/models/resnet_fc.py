@@ -1,15 +1,19 @@
 """Residual fully-connected field trunk (PyTorch counterpart of
 models/resnet_fc.py).
 
-Two forms, chosen by configuration as in the JAX package:
+Three forms, chosen by configuration as in the JAX package:
   - the tz branch (fused_trunk, bf16 compute, knot features): the latent
     projection is done on the knots (KnotFeatures.project_then_interp) and
     the whole trunk runs in the K7-tz kernels (ops/kernels/field_mlp.py:
     K7-tz-fwd forward, K7-tz-bwd backward), which take their plain versions
     on a CPU tensor;
+  - the level-split branch (fused_trunk, bf16 compute, the exact path's
+    per-level features): the K7 kernels (K7-fwd, K7-bwd) project the latent
+    levels themselves, with no [N, 512] concatenation;
   - the plain chain (f32 models, or fused_trunk off): lin_in, the fused lin_z
     projection added to the first combine_layer blocks, the residual blocks,
-    relu, lin_out — nn.Linear layers computed in the compute dtype.
+    relu, lin_out — nn.Linear layers computed in the compute dtype, on the
+    levels concatenated.
 The JAX package resolves the fused branch by backend (TPU only); the port
 resolves it by configuration, and the kernel wrapper by the tensor's device.
 """
@@ -41,8 +45,9 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dt) -> torch.Tensor:
 
 
 class ResnetFC(nn.Module):
-    """forward(z, x): z = latent features [..., d_latent] (or KnotFeatures),
-    x = encoded coords [..., d_in]. Returns output [..., d_out] float32.
+    """forward(z, x): z = latent features [..., d_latent] (or KnotFeatures,
+    or a tuple of levels whose widths sum to d_latent), x = encoded coords
+    [..., d_in]. Returns output [..., d_out] float32.
     Layer names match the JAX param tree."""
 
     def __init__(self, cfg: MlpCfg, d_in: int, d_out: int, d_latent: int,
@@ -99,20 +104,24 @@ class ResnetFC(nn.Module):
         use_fused = (self.fused_trunk and cfg.beta == 0 and self.d_latent > 0
                      and dt == torch.bfloat16)
         if use_fused:
-            if not (isinstance(z, KnotFeatures) and self.n_lin_z > 0):
-                raise NotImplementedError(
-                    "the level-split fused trunk (K7 without tz) is not ported")
-            from ..ops.kernels.field_mlp import fused_resnet_fc_train_tz
+            from ..ops.kernels.field_mlp import fused_resnet_fc_train, fused_resnet_fc_train_tz
 
-            wz_cat = torch.cat([self._layer(f"lin_z_{i}").weight.t()
-                                for i in range(self.n_lin_z)], dim=1)
-            w_rows = list(torch.split(wz_cat, [lvl.shape[-1] for lvl in z.levels], dim=0))
-            tz = z.project_then_interp(w_rows)
-            return fused_resnet_fc_train_tz(self.trunk_params(tz_mode=True), cfg, tz, x,
-                                            self.d_out)
+            if isinstance(z, KnotFeatures) and self.n_lin_z > 0:
+                wz_cat = torch.cat([self._layer(f"lin_z_{i}").weight.t()
+                                    for i in range(self.n_lin_z)], dim=1)
+                w_rows = list(torch.split(wz_cat, [lvl.shape[-1] for lvl in z.levels], dim=0))
+                tz = z.project_then_interp(w_rows)
+                return fused_resnet_fc_train_tz(self.trunk_params(tz_mode=True), cfg, tz, x,
+                                                self.d_out)
+            if isinstance(z, KnotFeatures):
+                z = z.interp_levels()
+            return fused_resnet_fc_train(self.trunk_params(tz_mode=False), cfg, z, x,
+                                         self.d_out)
 
         if isinstance(z, KnotFeatures):
             z = z.concat()
+        elif isinstance(z, (tuple, list)):
+            z = torch.cat([t.float() for t in z], dim=-1)
 
         h = _linear(x, self.lin_in, dt)
         tz_parts = None

@@ -3,16 +3,20 @@
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
 PyTorch version (same module, `*_plain`) for a CPU tensor, and counts its
 launches in a plain integer attribute `launches`. The differentiable entry
-points (`conv_s1`, `pack_2x2_flat_train`, `fused_resnet_fc_train_tz`) are
-autograd.Functions over these wrappers.
+points (`conv_s1`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
+`fused_resnet_fc_train_tz`, and `ops/pixel_gather.gather_bilinear_onehot`)
+are autograd.Functions over these wrappers.
 """
 
 from .conv_suite import (
     conv3x3_s1, conv3x3_s1_dgrad, conv3x3_s1_dgrad_plain, conv3x3_s1_plain,
     conv3x3_s1_wgrad, conv3x3_s1_wgrad_plain, conv_s1)
 from .field_mlp import (
-    fused_resnet_fc_train_tz, fused_resnet_fc_tz, fused_resnet_fc_tz_bwd,
-    fused_resnet_fc_tz_bwd_plain, fused_resnet_fc_tz_plain)
+    fused_resnet_fc, fused_resnet_fc_bwd, fused_resnet_fc_bwd_plain, fused_resnet_fc_plain,
+    fused_resnet_fc_train, fused_resnet_fc_train_tz, fused_resnet_fc_tz,
+    fused_resnet_fc_tz_bwd, fused_resnet_fc_tz_bwd_plain, fused_resnet_fc_tz_plain)
+from .onehot_gather import (
+    onehot_gather_fwd, onehot_gather_fwd_plain, onehot_scatter_bwd, onehot_scatter_bwd_plain)
 from .pack2x2 import (
     pack_2x2_flat, pack_2x2_flat_bwd, pack_2x2_flat_bwd_plain, pack_2x2_flat_plain,
     pack_2x2_flat_train)
@@ -35,10 +39,18 @@ KERNELS = {
                _TPU + "pack2x2.py:91"),
     "K5": (fused_sample_pdf, fused_sample_pdf_plain, _CSRC + "pdf_resample.cu",
            _TPU + "pdf_resample.py:79"),
-    "K7-tz-fwd": (fused_resnet_fc_tz, fused_resnet_fc_tz_plain, _CSRC + "field_mlp_tz.cu",
+    "K7-tz-fwd": (fused_resnet_fc_tz, fused_resnet_fc_tz_plain, _CSRC + "field_mlp.cu",
                   _TPU + "field_mlp_train.py:440"),
     "K7-tz-bwd": (fused_resnet_fc_tz_bwd, fused_resnet_fc_tz_bwd_plain,
-                  _CSRC + "field_mlp_tz_bwd.cu", _TPU + "field_mlp_train.py:471"),
+                  _CSRC + "field_mlp_bwd.cu", _TPU + "field_mlp_train.py:471"),
+    "K7-fwd": (fused_resnet_fc, fused_resnet_fc_plain, _CSRC + "field_mlp.cu",
+               _TPU + "field_mlp_train.py:301"),
+    "K7-bwd": (fused_resnet_fc_bwd, fused_resnet_fc_bwd_plain, _CSRC + "field_mlp_bwd.cu",
+               _TPU + "field_mlp_train.py:337"),
+    "K1-fwd": (onehot_gather_fwd, onehot_gather_fwd_plain, _CSRC + "onehot_gather.cu",
+               _TPU + "onehot_gather.py:87"),
+    "K1-bwd": (onehot_scatter_bwd, onehot_scatter_bwd_plain, _CSRC + "onehot_gather.cu",
+               _TPU + "onehot_gather.py:119"),
 }
 
 

@@ -44,6 +44,12 @@ _SIGNATURES = {
     "njf_field_mlp_tz_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "njf_field_mlp_tz_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _P),
+    "njf_field_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _P),
+    "njf_field_mlp_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "njf_onehot_gather_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "njf_onehot_scatter_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,14 +1,17 @@
-"""Pixel-aligned feature gathers (PyTorch counterpart of ops/pixel_gather.py,
-the parts the epipolar serving path uses).
+"""Pixel-aligned feature gathers (PyTorch counterpart of ops/pixel_gather.py).
 
-The JAX package packs each pyramid level so one row fetch returns a whole
-2x2 bilinear patch (`pack_2x2`, kernel K6) and gathers rows by index
-(`gather_packed_rows`). On the card a row gather is a plain indexed read, so
-`gather_packed_rows` is `torch.gather` plus the four-corner weighted sum.
+The JAX package packs the fine and mid pyramid levels so one row fetch
+returns a whole 2x2 bilinear patch (`pack_2x2`, kernel K6) and gathers rows
+by index (`gather_packed_rows`). On the card a row gather is a plain indexed
+read, so `gather_packed_rows` is `torch.gather` plus the four-corner
+weighted sum. The coarse level (layer3, 30x40 at a 480x640 image) is sampled
+by K1 (`gather_bilinear_onehot`: K1-fwd forward, K1-bwd backward).
+`pyramid_pixel_features` samples all three levels at every point: the exact
+(reference-numerics) feature path.
 Sample coordinates are not differentiable leaves in this model; nothing here
 takes their gradient (the features are: the packing's gradient is K6-bwd,
 the row gather's is torch.gather's scatter-add, as the JAX custom_vjp
-scatter-adds).
+scatter-adds, the coarse level's is K1-bwd).
 """
 
 from dataclasses import dataclass
@@ -101,3 +104,75 @@ def _level_coords(fx, fy, stride):
     """Fine-grid pixel coords -> coarser-level pixel coords:
     c = (f + 0.5) / s - 0.5."""
     return (fx + 0.5) / stride - 0.5, (fy + 0.5) / stride - 0.5
+
+
+def _corner_ids(cx, cy, width: int, height: int):
+    """Pixel coords [B, N] -> flat corner ids [B, N, 4] (int64) and corner
+    weights [B, N, 4], corners in order (y0x0, y0x1, y1x0, y1x1)."""
+    x0, y0, wx, wy = bilinear_corners(cx, cy, width, height)
+    base = y0 * width + x0
+    idx = torch.stack([base, base + 1, base + width, base + width + 1], dim=-1)
+    return idx, _corner_weights(wx, wy)
+
+
+class _GatherBilinearOnehot(torch.autograd.Function):
+    """K1-fwd forward, K1-bwd backward (the JAX custom_vjp of
+    gather_bilinear_onehot): the map's gradient is the scatter of the
+    upstream gradient cast to the map's dtype, returned in that dtype; the
+    corner ids and weights get none."""
+
+    @staticmethod
+    def forward(ctx, level, idx, w4):
+        from .kernels import onehot_gather as k1
+
+        b, hc, wc, c = level.shape
+        ctx.save_for_backward(idx, w4)
+        ctx.shape, ctx.dtype = level.shape, level.dtype
+        return k1.onehot_gather_fwd(level.reshape(b, hc * wc, c), idx, w4)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .kernels import onehot_gather as k1
+
+        idx, w4 = ctx.saved_tensors
+        b, hc, wc, c = ctx.shape
+        gf = k1.onehot_scatter_bwd(g.to(ctx.dtype), idx, w4, hc * wc)
+        return gf.reshape(b, hc, wc, c).to(ctx.dtype), None, None
+
+
+def gather_bilinear_onehot(level: torch.Tensor, cx: torch.Tensor,
+                           cy: torch.Tensor) -> torch.Tensor:
+    """Bilinear-sample `level` [B, Hc, Wc, C] at pixel coords (cx, cy) [B, N]
+    (border-clamped, align_corners=True). Returns [B, N, C] float32."""
+    _, hc, wc, _ = level.shape
+    idx, w4 = _corner_ids(cx, cy, wc, hc)
+    return _GatherBilinearOnehot.apply(level, idx, w4)
+
+
+def pyramid_pixel_levels(pyr: PackedPyramid, fx: torch.Tensor, fy: torch.Tensor):
+    """Sample each pyramid level at fine-grid pixel coords (fx, fy) [B, N]:
+    (fine [B, N, Cf], mid [B, N, Cm] in the packed maps' dtype, coarse
+    [B, N, Cc] float32). The fused trunk takes them level by level."""
+    hf, wf = pyr.fine_hw
+    hm, wm = pyr.mid_hw
+    hc = pyr.coarse.shape[1]
+
+    x0, y0, wx, wy = bilinear_corners(fx, fy, wf, hf)
+    fine = gather_packed_rows(pyr.fine2, y0 * wf + x0, _corner_weights(wx, wy))
+
+    sm = (hf + hm - 1) // hm  # fine->mid stride (4 at the reference shapes)
+    mx, my = _level_coords(fx, fy, sm)
+    x0, y0, wx, wy = bilinear_corners(mx, my, wm, hm)
+    mid = gather_packed_rows(pyr.mid2, y0 * wm + x0, _corner_weights(wx, wy))
+
+    sc = (hf + hc - 1) // hc
+    cx, cy = _level_coords(fx, fy, sc)
+    return fine, mid, gather_bilinear_onehot(pyr.coarse, cx, cy)
+
+
+def pyramid_pixel_features(pyr: PackedPyramid, fx: torch.Tensor,
+                           fy: torch.Tensor) -> torch.Tensor:
+    """All pyramid levels at (fx, fy) [B, N], channels concatenated in
+    reference order: [B, N, C_total] float32 (as the JAX package's concat
+    promotes it)."""
+    return torch.cat([t.float() for t in pyramid_pixel_levels(pyr, fx, fy)], dim=-1)

@@ -316,3 +316,165 @@ def test_kernels_reject_what_they_do_not_take(dev):
                            torch.randn((1, 4, 4, 8), device=dev))
     with pytest.raises(TypeError):
         K.pack_2x2_flat_bwd(torch.randn((1, 16, 32), device=dev, dtype=torch.float64), 4)
+
+
+# ------------------------------------------------- the exact path: K1 and K7
+
+def _corner_inputs(dev, b, n, hc, wc, g):
+    from neural_jacobian_field_torch.ops.pixel_gather import _corner_ids
+
+    cx = torch.rand((b, n), generator=g, device=dev) * (wc + 3) - 2
+    cy = torch.rand((b, n), generator=g, device=dev) * (hc + 3) - 2
+    return _corner_ids(cx, cy, wc, hc)
+
+
+@pytest.mark.parametrize("b,n,hc,wc,c,dtype", [
+    (2, 1500, 5, 7, 24, torch.float32),
+    (1, 700, 6, 9, 12, torch.bfloat16),     # C not a multiple of 8: scalar path
+    (2, 333, 2, 3, 6, torch.float32),
+    (7, 65536, 30, 40, 256, torch.bfloat16),  # the train step's coarse level
+])
+def test_k1_fwd_is_bit_exact(dev, b, n, hc, wc, c, dtype):
+    """The same float32 products (weights rounded to the map's dtype), summed
+    in the same corner order with no fused multiply-add: equal bits."""
+    g = _gen(13)
+    idx, w4 = _corner_inputs(dev, b, n, hc, wc, g)
+    flat = torch.randn((b, hc * wc, c), generator=g, device=dev).to(dtype)
+    n0 = K.onehot_gather_fwd.launches
+    got = K.onehot_gather_fwd(flat, idx, w4)
+    torch.cuda.synchronize()
+    assert K.onehot_gather_fwd.launches == n0 + 1
+    assert got.dtype == torch.float32 and torch.equal(got, K.onehot_gather_fwd_plain(flat, idx, w4))
+
+
+@pytest.mark.parametrize("b,n,hc,wc,c,dtype", [
+    (2, 1500, 5, 7, 24, torch.float32),
+    (1, 2100, 6, 9, 40, torch.bfloat16),    # C not a multiple of 32
+    (2, 333, 2, 3, 6, torch.float32),       # one point range
+    (7, 65536, 30, 40, 256, torch.bfloat16),
+])
+def test_k1_bwd_matches_plain_and_repeats(dev, b, n, hc, wc, c, dtype):
+    """The same float32 products summed over the points in another order
+    (per-range partials, then the ranges in order): 1e-5 of scale at these
+    sizes; two calls give identical bits (no atomics)."""
+    g = _gen(14)
+    idx, w4 = _corner_inputs(dev, b, n, hc, wc, g)
+    gy = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    n0 = K.onehot_scatter_bwd.launches
+    got = K.onehot_scatter_bwd(gy, idx, w4, hc * wc)
+    torch.cuda.synchronize()
+    assert K.onehot_scatter_bwd.launches == n0 + 1
+    want = K.onehot_scatter_bwd_plain(gy, idx, w4, hc * wc)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (b, hc * wc, c)
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(K.onehot_scatter_bwd(gy, idx, w4, hc * wc), got)
+
+
+def _k7_exact_case(dev, n, dh, n_blocks, combine, d_out, widths, seed):
+    """Trunk params with lin_z kernels, the latent as levels (the last in
+    float32, as K1-fwd gives the coarse level) or one bf16 array."""
+    from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
+
+    g = _gen(seed)
+    params, n_lin_z = _trunk(dev, 63, dh, n_blocks, combine, d_out, g)
+    d_lat = sum(widths)
+    for i in range(n_lin_z):
+        params[f"lin_z_{i}"]["kernel"] = (torch.randn((d_lat, dh), generator=g, device=dev)
+                                          / math.sqrt(d_lat))
+    cfg = MlpCfg(n_blocks=n_blocks, d_hidden=dh, combine_layer=combine)
+    levels = [torch.randn((n, w), generator=g, device=dev) for w in widths]
+    levels = tuple(t if i == len(levels) - 1 and len(levels) > 1 else t.to(torch.bfloat16)
+                   for i, t in enumerate(levels))
+    z = levels if len(levels) > 1 else levels[0]
+    x = (torch.rand((n, 63), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    gy = torch.randn((n, d_out), generator=g, device=dev)
+    return params, cfg, z, x, gy
+
+
+_K7_EXACT = [
+    (700, 32, 2, 3, 16, (64,)),
+    (333, 64, 3, 2, 24, (16, 32, 48)),
+    (1000, 64, 2, 0, 8, (32, 32)),               # no latent injection
+    (65536, 128, 5, 3, 1, (128, 128, 256)),      # the proposal trunk
+    (4099, 128, 5, 3, 24, (128, 128, 256)),      # the Jacobian trunk, ragged tile
+]
+
+
+@pytest.mark.parametrize("n,dh,n_blocks,combine,d_out,widths", _K7_EXACT)
+def test_k7_fwd_kernel_matches_plain(dev, n, dh, n_blocks, combine, d_out, widths):
+    """Same bf16 operations and casts; only the accumulation order differs
+    (the projection's too), which can flip a bf16 rounding that later layers
+    carry: 1e-2 of scale, as K7-tz-fwd."""
+    params, cfg, z, x, _ = _k7_exact_case(dev, n, dh, n_blocks, combine, d_out, widths, 15)
+    n0 = K.fused_resnet_fc.launches
+    got = K.fused_resnet_fc(params, cfg, z, x, d_out)
+    torch.cuda.synchronize()
+    assert K.fused_resnet_fc.launches == n0 + 1
+    want = K.fused_resnet_fc_plain(params, cfg, z, x, d_out)
+    assert got.shape == want.shape == (n, d_out)
+    assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("n,dh,n_blocks,combine,d_out,widths", _K7_EXACT)
+def test_k7_bwd_matches_plain_and_repeats(dev, n, dh, n_blocks, combine, d_out, widths):
+    """The bounds of K7-tz-bwd (a bf16 recompute rounding may flip a ReLU
+    mask): every dW/db leaf, the lin_z kernels included, within 2e-2 of its
+    scale and 1e-2 in l2; each level's dz, in the level's dtype, within 1e-2
+    in l2 and at most 1e-3 of its elements further than 2e-2 of scale. Two
+    calls give identical bits."""
+    params, cfg, z, x, gy = _k7_exact_case(dev, n, dh, n_blocks, combine, d_out, widths, 16)
+    n0 = K.fused_resnet_fc_bwd.launches
+    grads, dz = K.fused_resnet_fc_bwd(params, cfg, z, x, gy, d_out)
+    torch.cuda.synchronize()
+    assert K.fused_resnet_fc_bwd.launches == n0 + 1
+    pgrads, pdz = K.fused_resnet_fc_bwd_plain(params, cfg, z, x, gy, d_out)
+    levels = z if isinstance(z, tuple) else (z,)
+    dz, pdz = (dz, pdz) if isinstance(z, tuple) else ((dz,), (pdz,))
+    for lvl, a, b in zip(levels, dz, pdz):
+        assert a.dtype == lvl.dtype and a.shape == lvl.shape
+        if not b.float().abs().max():
+            assert not a.float().abs().max()
+            continue
+        err = (a.float() - b.float()).abs()
+        assert float(err.norm() / b.float().norm()) <= 1e-2
+        assert float((err > 2e-2 * b.float().abs().max()).float().mean()) <= 1e-3
+    assert set(grads) == set(pgrads)
+    for layer, leaves in pgrads.items():
+        assert set(grads[layer]) == set(leaves), layer
+        for leaf, want in leaves.items():
+            got = grads[layer][leaf]
+            assert got.dtype == torch.float32 and got.shape == want.shape, (layer, leaf)
+            assert _rel(got, want) <= 2e-2, (layer, leaf, _rel(got, want))
+            assert float((got - want).norm() / want.norm().clamp_min(1e-30)) <= 1e-2, (layer, leaf)
+    again, dz2 = K.fused_resnet_fc_bwd(params, cfg, z, x, gy, d_out)
+    for layer, leaves in grads.items():
+        for leaf, v in leaves.items():
+            assert torch.equal(again[layer][leaf], v), (layer, leaf)
+    for a, b in zip(dz, dz2 if isinstance(dz2, tuple) else (dz2,)):
+        assert torch.equal(a, b)
+
+
+def test_exact_functions_carry_grad_fn(dev):
+    """The exact path's differentiable entry points keep the graph on the
+    card and give the coordinates no gradient."""
+    from neural_jacobian_field_torch.ops.pixel_gather import gather_bilinear_onehot
+
+    g = _gen(17)
+    level = torch.randn((2, 5, 7, 16), generator=g, device=dev).to(torch.bfloat16)
+    level.requires_grad_()
+    cx = (torch.rand((2, 100), generator=g, device=dev) * 7).requires_grad_()
+    cy = torch.rand((2, 100), generator=g, device=dev) * 5
+    out = gather_bilinear_onehot(level, cx, cy)
+    assert out.grad_fn is not None and out.dtype == torch.float32
+    out.sum().backward()
+    assert level.grad is not None and level.grad.dtype == torch.bfloat16 and cx.grad is None
+    params, cfg, z, x, _ = _k7_exact_case(dev, 100, 32, 2, 3, 16, (16, 32), 18)
+    z = tuple(t.clone().requires_grad_() for t in z)
+    assert K.fused_resnet_fc_train(params, cfg, z, x, 16).grad_fn is not None
+
+
+def test_k1_bwd_rejects_a_map_too_large(dev):
+    idx = torch.zeros((1, 4, 4), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        K.onehot_scatter_bwd(torch.randn((1, 4, 8), device=dev), idx,
+                             torch.zeros((1, 4, 4), device=dev), K.onehot_gather.MAX_TEXELS + 1)
