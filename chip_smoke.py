@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                   # every check below
     python3 chip_smoke.py --profile [MODE]  # only: where a train step's device
-                                            # time goes (MODE epipolar or exact)
+                                            # time goes (MODE epipolar, exact,
+                                            # fused or action)
 
 Drives the port's main paths (neural_jacobian_field_torch, never JAX) at the
 flagship configuration with seeded random weights, in both pixel-feature
@@ -19,9 +20,12 @@ K7 trunks that project the latent themselves):
      of the bytes over 3.35 TB/s and the bf16 operations over 989 TFLOP/s)
      and, where one PyTorch call computes the same function, that call's
      time: the forward kernels (K9-fwd, K6-fwd, K5, K7-tz-fwd, K7-fwd,
-     K1-fwd) at the serving shapes (K1-fwd at the train step's), the
-     backward kernels (K9-dgrad, K9-wgrad, K6-bwd, K7-tz-bwd, K7-bwd, K1-bwd)
-     at the train step's; K1-bwd and K7-bwd twice, for identical bits;
+     K1-fwd) at the serving shapes (K1-fwd at the train step's), K10 (the
+     conv with BatchNorm statistics) at the 24 convs of a batch-7 encode,
+     its y bit for bit K9-fwd's, its yardstick F.conv2d followed by the two
+     reductions; the backward kernels (K9-dgrad, K9-wgrad, K6-bwd,
+     K7-tz-bwd and K7-bwd at d_out 1, 16 and 24, K1-bwd) at the train
+     step's; K10, K1-bwd and K7-bwd twice, for identical bits;
   3. serving, per mode: a full 480x640 target view rendered in 2048-ray
      chunks from a 480x640 context image (launch counters reset just
      before, read just after), then one chunk again, stage by stage, with
@@ -34,15 +38,25 @@ K7 trunks that project the latent themselves):
      of an update step and of a frozen step (counters reset before each),
      non-zero gradients on every encoder, density-head, colour-head and
      proposal parameter, update / frozen step times and the rays/s of one
-     5-frozen + 1-update cycle, peak memory, a loss that falls over 10 steps
+     5-frozen + 1-update cycle, peak memory, a loss that falls over 20 steps
      on one batch, and one step's parameter gradients with the kernels
-     against the plain versions;
-  6. timings and peak memory.
+     against the plain versions; then the same in epipolar mode with
+     conv_impl="pallas_fused" (K10 in place of K9-fwd; lines "train fused");
+  6. stage 2 (action), warm-started from that stage-1 model under
+     pallas_fused: flow supervision at batch 7 x 256 rays in both modes and
+     tracks at 7 x 1472 in epipolar mode (lines "action epipolar|exact",
+     "action tracks"): launch counts per step, the Jacobian head's gradients
+     with the kernels against the plain versions, a loss that falls from
+     its early peak on a fixed batch at lr 1e-4, step times, rays/s and
+     peak memory, every parameter outside decoder.jacobian_head bit for bit
+     unchanged and the BatchNorm running statistics moved;
+  7. timings and peak memory.
 Any failed phase exits non-zero. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result. The
 last three lines are the card line, the kernel table and the device record,
 the last two each one JSON object; the numbers of each mode's train phase
-are on the lines that start with "train".
+are on the lines that start with "train", those of stage 2 on the lines
+that start with "action".
 """
 
 import argparse
@@ -64,7 +78,10 @@ ID_RAYS = 4096
 SEED = 0
 TRAIN_B, TRAIN_RAYS = 7, 256
 TRAIN_LR, TRAIN_WARMUP = 5e-4, 5
-LOSS_STEPS = 10
+LOSS_STEPS = 20
+# stage 2: lr 1e-4 (Adam at 5e-3 diverges on the near-zero Jacobian
+# head); tracks per example as bench.py's action-tracks metric
+ACTION_LR, TRACKS = 1e-4, 1472
 # stride-1 3x3 convs of the encoder per forward: (H, W, C) at a 480x640
 # image -> number of convs (layer1 6, layer2 7, layer3 11)
 K9_SHAPES = ((120, 160, 64, 6), (60, 80, 128, 7), (30, 40, 256, 11))
@@ -340,11 +357,63 @@ def kernel_checks(dev):
     return rows
 
 
+def k10_checks(dev):
+    """K10 against its plain version at the 24 stride-1 convs of a batch-7
+    encode (the train step's). Returns its row of the kernel table."""
+    import torch
+    import torch.nn.functional as F
+
+    from neural_jacobian_field_torch.ops import kernels as K
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    b, row = TRAIN_B, Row()
+    for hh, ww, c, count in K9_SHAPES:
+        x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
+        y, s1, s2 = K.conv3x3_s1_stats(x, w)
+        y2, s1b, s2b = K.conv3x3_s1_stats(x, w)
+        same_y = bool(torch.equal(y, K.conv3x3_s1(x, w)))
+        repeat = all(torch.equal(a, c_) for a, c_ in ((y, y2), (s1, s1b), (s2, s2b)))
+        _, p1, p2 = K.conv3x3_s1_stats_plain(x, w)
+        # float32 sums of the same products in another order: s2, a sum of
+        # squares, to 1e-4 of itself; s1 to 1e-4 of sqrt(n * s2), which
+        # bounds the sum of |y| (Cauchy-Schwarz), since s1 may cancel to ~0
+        n = b * hh * ww
+        e1 = float(((s1 - p1).abs() / (n * p2).sqrt().clamp_min(1e-30)).max())
+        e2 = float(((s2 - p2).abs() / p2.clamp_min(1e-30)).max())
+        print(f"K10 {b}x{hh}x{ww}x{c}->{c}: y bit-identical to K9-fwd={same_y}; s1 err "
+              f"{e1:.3e} of sqrt(n s2) (tol 1e-4), s2 err {e2:.3e} relative (tol 1e-4); "
+              f"two calls bit-identical={repeat}")
+        check(same_y and repeat and e1 <= 1e-4 and e2 <= 1e-4,
+              "K10 disagrees with K9-fwd or its plain version, or does not repeat")
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        def yardstick():  # cuDNN conv, then the two float32 reductions
+            yy = F.conv2d(xc, wc, padding=1).float()
+            return yy.sum(dim=(0, 2, 3)), (yy * yy).sum(dim=(0, 2, 3))
+
+        k_ms = cuda_time_ms(lambda: K.conv3x3_s1_stats(x, w))
+        p_ms = cuda_time_ms(lambda: K.conv3x3_s1_stats_plain(x, w))
+        l_ms = cuda_time_ms(yardstick)
+        print_times("", k_ms, p_ms, l_ms)
+        row.add(max(float((s1 - p1).abs().max()), float((s2 - p2).abs().max())),
+                count * k_ms, count * p_ms, count * nbytes(x, w, y, s1, s2),
+                count * 2.0 * n * 9 * c * c, count * l_ms)
+    rec = row.record()
+    print(f"K10 per batch-7 encode (24 convs): kernel {row.ms:.4f} ms, plain "
+          f"{row.plain_ms:.4f} ms, yardstick F.conv2d + sum + sum of squares "
+          f"{row.library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    torch.cuda.empty_cache()
+    return {"K10": rec}
+
+
 def backward_kernel_checks(dev):
     """Each backward kernel (and K1-fwd) against its plain version at the
     train step's shapes (batch 7). Returns its rows of the kernel table; ms
-    are per train step (K7-tz-bwd and K7-bwd: per update step, proposal +
-    density trunk; K1: per call)."""
+    are per train step (K7-tz-bwd and K7-bwd: the proposal and density
+    trunks of a stage-1 update step plus the Jacobian trunk of a stage-2
+    step; K1: per call)."""
     import torch
     import torch.nn.grad as nn_grad
 
@@ -462,7 +531,8 @@ def backward_kernel_checks(dev):
     torch.cuda.empty_cache()
 
     # K7-tz-bwd and K7-bwd: the proposal (d_out 1) and density (d_out 16)
-    # trunks of a step, N = 7 x 256 rays x 256 samples
+    # trunks of a stage-1 step and the Jacobian trunk (d_out 24) of a
+    # stage-2 step, N = 7 x 256 rays x 256 samples
     cfg = MlpCfg(n_blocks=5, d_hidden=128, combine_layer=3)
     npts = b * TRAIN_RAYS * 256
     tz = torch.randn((npts, 384), generator=g, device=dev).to(torch.bfloat16)
@@ -473,7 +543,7 @@ def backward_kernel_checks(dev):
             ("K7-bwd", K.fused_resnet_fc_bwd, K.fused_resnet_fc_bwd_plain, True)):
         row = Row()
         lat = z if proj else tz
-        for d_out in (1, 16):
+        for d_out in (1, 16, 24):
             params = trunk_params(g, dev, d_out, sum(LATENT) if proj else None)
             gy = torch.randn((npts, d_out), generator=g, device=dev)
             grads, dlat = wrapper(params, cfg, lat, x, gy, d_out)
@@ -802,77 +872,51 @@ def train_batch(dev):
         near=torch.full((b,), Z_NEAR, device=dev), far=torch.full((b,), Z_FAR, device=dev))
 
 
-def step_draws(dev, g):
+def step_draws(dev, g, rays=None):
     """Explicit randomness for one step: the pixel set and each sampling
-    level's stratified jitter."""
+    level's stratified jitter for `rays` rays per example (TRAIN_RAYS)."""
     import torch
 
     from neural_jacobian_field_torch.training.prepare import sample_pixels
 
     yx = sample_pixels(TRAIN_RAYS, H, W, g, dev)
-    draws = tuple(torch.rand((TRAIN_B, TRAIN_RAYS, 257), generator=g, device=dev)
+    draws = tuple(torch.rand((TRAIN_B, rays or TRAIN_RAYS, 257), generator=g, device=dev)
                   for _ in range(2))
     return yx, draws
 
 
 def step_grads(state, batch, yx, draws, updated):
-    """Forward + backward of one train step (no optimizer step); returns the
-    parameter gradients by name."""
+    """Forward + backward of one train step of the state's stage (no
+    optimizer step); returns the parameter gradients by name."""
     from neural_jacobian_field_torch.models.model import StepCtx
-    from neural_jacobian_field_torch.training import perception_loss, prepare_training_batch
+    from neural_jacobian_field_torch.training import (
+        action_loss, perception_loss, prepare_training_batch)
 
-    model = state.model
-    mi, mt = prepare_training_batch(batch, TRAIN_RAYS, yx=yx)
+    model, cfg = state.model, state.cfg
+    mi, mt = prepare_training_batch(batch, cfg.rays_per_batch, yx=yx, mode=cfg.mode)
     model.zero_grad(set_to_none=True)
     out = model(mi, train=True, ctx=StepCtx(anneal=1.0, updated=updated, draws=draws))
-    loss, _ = perception_loss(out, mt, state.cfg.loss)
+    loss_fn = perception_loss if cfg.mode == "perception" else action_loss
+    loss, _ = loss_fn(out, mt, cfg.loss)
     loss.backward()
     return {k: p.grad.detach().float().clone() for k, p in model.named_parameters()
             if p.grad is not None}
 
 
-def train_setup(dev, mode):
-    """The flagship model with seeded weights, its train state, a batch and a
-    generator, warmed up on both gates (allocator, cuBLAS)."""
-    import torch
-
-    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
-    from neural_jacobian_field_torch.training import TrainCfg, create_train_state, train_step
-
-    model = Model(flagship_model_cfg(pixel_feature_mode=mode), compute_dtype=torch.bfloat16)
-    model.init_weights(torch.Generator().manual_seed(SEED)).to(dev)
-    cfg = TrainCfg(lr=TRAIN_LR, warm_up_steps=TRAIN_WARMUP, rays_per_batch=TRAIN_RAYS)
-    state = create_train_state(model, cfg)
-    batch = train_batch(dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    for updated in (True, True, False, False):
-        train_step(state, batch, g, updated)
-    torch.cuda.synchronize()
-    return model, state, batch, g
-
-
-def train_phase(dev, timings, mode):
-    """The stage-1 train step at batch 7 x 256 rays. Returns the launch
-    counts of one update step and of one frozen step."""
+def compare_grads(label, state, batch, yx, draws, groups):
+    """One step's gradients with the kernels against the plain versions,
+    from the same state and draws. A random field at bf16 is chaotic end to
+    end (a K5 tie or one bf16 rounding moves a sample, and the 2^9 NeRF
+    frequency turns that into an O(1) change of its features), so the bound
+    is loose: per group the two gradients must point the same way (cosine
+    > 0.5); their relative l2 difference is printed, beside that of the
+    plain versions on inputs nudged by one bf16 step, which measures the
+    step's own sensitivity. Returns the names with a kernel gradient."""
     import copy
 
     import torch
 
-    from neural_jacobian_field_torch.ops import kernels as K
-    from neural_jacobian_field_torch.training import host_step_schedule, train_step
-
-    tag = "train_" if mode == "epipolar" else "exact_train_"
-    model, state, batch, g = train_setup(dev, mode)
-
-    # one step's gradients, kernels against plain versions, from the same
-    # state and draws. A random field at bf16 is chaotic end to end (a K5
-    # tie or one bf16 rounding moves a sample, and the 2^9 NeRF frequency
-    # turns that into an O(1) change of its features), so the bound is
-    # loose: per group the two gradients must point the same way (cosine
-    # > 0.5); their relative l2 difference is printed, beside that of the
-    # plain versions on inputs nudged by one bf16 step, which measures the
-    # step's own sensitivity.
-    yx, draws = step_draws(dev, g)
+    model = state.model
     saved = copy.deepcopy(model.state_dict())
     kg = step_grads(state, batch, yx, draws, True)
     model.load_state_dict(saved)
@@ -888,19 +932,59 @@ def train_phase(dev, timings, mode):
     def flat(grads, names):
         return torch.cat([grads[k].flatten() for k in names]).double()
 
-    for group in ("encoder.", "proposal_networks_", "decoder."):
+    for group in groups:
         names = [k for k in pg if k.startswith(group) and k in kg]
         a, b = flat(kg, names), flat(pg, names)
         cos = float(torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-30))
         rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
         nrel = float((flat(ng, names) - b).norm() / b.norm().clamp_min(1e-30))
-        print(f"train {mode} step gradients, kernels vs plain [{group.rstrip('._')}]: "
+        print(f"{label} step gradients, kernels vs plain [{group.rstrip('._')}]: "
               f"{len(names)} tensors, |g| {float(a.norm()):.3e} vs {float(b.norm()):.3e}, "
               f"relative l2 difference {rel:.3e}, cosine {cos:.4f} (bound: cosine > 0.5); "
               f"plain vs plain on images nudged by 2^-8: relative l2 {nrel:.3e}")
         check(bool(b.norm() > 0) and cos > 0.5,
-              f"{mode} train gradients of {group} disagree with the plain versions")
-    del kg, pg, ng, saved
+              f"{label} gradients of {group} disagree with the plain versions")
+    return sorted(kg)
+
+
+def train_setup(dev, mode, conv_impl="pallas"):
+    """The flagship model with seeded weights, its train state, a batch and a
+    generator, warmed up on both gates (allocator, cuBLAS)."""
+    import torch
+
+    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.training import TrainCfg, create_train_state, train_step
+
+    model = Model(flagship_model_cfg(conv_impl=conv_impl, pixel_feature_mode=mode),
+                  compute_dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(SEED)).to(dev)
+    cfg = TrainCfg(lr=TRAIN_LR, warm_up_steps=TRAIN_WARMUP, rays_per_batch=TRAIN_RAYS)
+    state = create_train_state(model, cfg)
+    batch = train_batch(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for updated in (True, True, False, False):
+        train_step(state, batch, g, updated)
+    torch.cuda.synchronize()
+    return model, state, batch, g
+
+
+def train_phase(dev, timings, mode, conv_impl="pallas"):
+    """The stage-1 train step at batch 7 x 256 rays. Returns the launch
+    counts of one update step and of one frozen step, and the model's state
+    dict after the phase."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.training import host_step_schedule, train_step
+
+    fused = conv_impl == "pallas_fused"
+    label = "train fused" if fused else f"train {mode}"
+    tag = {(False, "epipolar"): "train_", (False, "exact"): "exact_train_",
+           (True, "epipolar"): "fused_train_"}[(fused, mode)]
+    model, state, batch, g = train_setup(dev, mode, conv_impl)
+
+    yx, draws = step_draws(dev, g)
+    compare_grads(label, state, batch, yx, draws, ("encoder.", "proposal_networks_", "decoder."))
 
     # launch counts of each step type; then the gradients reach the params
     counts = {}
@@ -910,8 +994,8 @@ def train_phase(dev, timings, mode):
         train_step(state, batch, g, updated)
         torch.cuda.synchronize()
         counts[kind] = K.launch_counts()
-        print(f"train {mode} launches per {kind} step: {counts[kind]}")
-    conv = {"K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K5": 1}
+        print(f"{label} launches per {kind} step: {counts[kind]}")
+    conv = {"K10" if fused else "K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K5": 1}
     for kind, n_bwd in (("update", 2), ("frozen", 1)):
         if mode == "epipolar":
             want = all_zero_but(dict(conv, **{"K6-fwd": 3, "K6-bwd": 3, "K7-tz-fwd": 3,
@@ -919,12 +1003,12 @@ def train_phase(dev, timings, mode):
         else:
             want = all_zero_but(dict(conv, **{"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2,
                                               "K1-bwd": n_bwd, "K7-fwd": 3, "K7-bwd": n_bwd}))
-        check(counts[kind] == want, f"{mode} {kind} step launches {counts[kind]} != {want}")
+        check(counts[kind] == want, f"{label} {kind} step launches {counts[kind]} != {want}")
     dead = [name for name, p in model.named_parameters()
             if name.startswith(("encoder.", "decoder.density_head.", "decoder.color_head.",
                                 "proposal_networks_"))
             and (p.grad is None or not bool(p.grad.abs().sum() > 0))]
-    print(f"train {mode} gradients: {len(dead)} encoder / density-head / colour-head / "
+    print(f"{label} gradients: {len(dead)} encoder / density-head / colour-head / "
           f"proposal parameters without a non-zero gradient after an update step {dead[:4]}")
     check(not dead, "a parameter the loss reaches got no gradient")
 
@@ -943,13 +1027,17 @@ def train_phase(dev, timings, mode):
     timings[tag + "frozen_step_ms"] = frz_ms
     timings[tag + "cycle_rays_per_s"] = 6 * TRAIN_B * TRAIN_RAYS / cycle_s
     timings[tag + "peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    print(f"train {mode} step (batch {TRAIN_B} x {TRAIN_RAYS} rays, 480x640 context, bf16): "
-          f"update {upd_ms:.2f} ms, frozen {frz_ms:.2f} ms (medians of {len(times[True])} / "
-          f"{len(times[False])}); 5 frozen + 1 update cycle "
+    print(f"{label} step (batch {TRAIN_B} x {TRAIN_RAYS} rays, 480x640 context, bf16, "
+          f"{conv_impl}): update {upd_ms:.2f} ms, frozen {frz_ms:.2f} ms (medians of "
+          f"{len(times[True])} / {len(times[False])}); 5 frozen + 1 update cycle "
           f"{timings[tag + 'cycle_rays_per_s']:.1f} rays/s; peak "
           f"{timings[tag + 'peak_mem_gib']:.2f} GiB")
+    if fused and "train_update_step_ms" in timings:
+        print(f"{label} vs pallas (epipolar, this call): update {upd_ms:.2f} vs "
+              f"{timings['train_update_step_ms']:.2f} ms, frozen {frz_ms:.2f} vs "
+              f"{timings['train_frozen_step_ms']:.2f} ms")
 
-    # the loss falls over LOSS_STEPS steps on this batch at one fixed pixel
+    # the loss falls over the loss steps on this batch at one fixed pixel
     # set (the schedule's own gate; the stratified draws change every step)
     fixed_yx, _ = step_draws(dev, g)
     losses = []
@@ -959,23 +1047,157 @@ def train_phase(dev, timings, mode):
         m = train_step(state, batch, g, updated, yx=fixed_yx)
         losses.append(float(m["loss/total"]))
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
-    print(f"train {mode} loss over {LOSS_STEPS} steps: {losses[0]:.5f} -> {losses[-1]:.5f}; "
+    print(f"{label} loss over {len(losses)} steps: {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"mean of the first 3 {first:.5f}, of the last 3 {last:.5f} (bound: finite, "
           f"last < first)")
     check(all(math.isfinite(v) for v in losses) and last < first, "the train loss did not fall")
     timings[tag + "loss_first3"], timings[tag + "loss_last3"] = first, last
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del model, state, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, trained
+
+
+# ------------------------------------------------------------------ phase 6
+
+def action_batch(dev, supervision):
+    """`train_batch` with the stage-2 targets bench.py's _raw_batch adds: a
+    standard-normal flow per pixel, or TRACKS tracks per example at random
+    pixels with standard-normal motion, all visible."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, batch = TRAIN_B, train_batch(dev)
+    if supervision == "flow":
+        return dataclasses.replace(batch, flow=torch.randn((b, H, W, 2), generator=g,
+                                                            device=dev))
+    return dataclasses.replace(
+        batch, pixel_selector=torch.randint(0, H * W, (b, TRACKS), generator=g, device=dev),
+        pixel_motion=torch.randn((b, TRACKS, 2), generator=g, device=dev),
+        pixel_visible_mask=torch.ones((b, TRACKS), device=dev))
+
+
+def action_setup(dev, mode, supervision, stage1=None):
+    """The flagship model under pallas_fused, its stage-2 train state
+    (warm-started from the stage-1 state dict `stage1` when given), an
+    action batch and a generator."""
+    import torch
+
+    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.training import TrainCfg, create_train_state
+
+    model = Model(flagship_model_cfg(conv_impl="pallas_fused", pixel_feature_mode=mode),
+                  compute_dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(SEED + 6)).to(dev)
+    cfg = TrainCfg(mode="action", lr=ACTION_LR, warm_up_steps=TRAIN_WARMUP,
+                   rays_per_batch=TRAIN_RAYS)
+    state = create_train_state(model, cfg, init_params=stage1)
+    return model, state, action_batch(dev, supervision), torch.Generator(
+        device=dev).manual_seed(SEED + 7)
+
+
+def action_phase(dev, timings, mode, supervision, stage1):
+    """The stage-2 train step under pallas_fused, warm-started from the
+    stage-1 state dict `stage1`: flow at batch 7 x 256 rays, or tracks at
+    7 x TRACKS. Returns the launch counts of one step."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.training import host_step_schedule, train_step
+
+    label = f"action {mode}" if supervision == "flow" else "action tracks"
+    tag = label.replace(" ", "_") + "_"
+    rays = TRAIN_RAYS if supervision == "flow" else TRACKS
+    model, state, batch, g = action_setup(dev, mode, supervision, stage1)
+    head = "decoder.jacobian_head."
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    check(trainable and all(n.startswith(head) for n in trainable),
+          f"{label}: the trainable parameters are not the Jacobian head's: {trainable[:4]}")
+    frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
+               if not n.startswith(head)}
+    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()}
+
+    yx, draws = step_draws(dev, g, rays)
+    reached = compare_grads(label, state, batch, yx, draws, (head,))
+    check(reached == sorted(trainable), f"{label}: gradients on {reached[:4]}..., not the head's")
+
+    # the loss on a fixed batch and pixel set: the near-zero head makes the
+    # first steps' loss artificially low, so it must fall from its early peak
+    fixed_yx, _ = step_draws(dev, g, rays)
+    losses = []
+    for _ in range(LOSS_STEPS):
+        updated, _ = host_step_schedule(state.step, state.steps_since_update,
+                                        model.cfg.rendering)
+        losses.append(float(train_step(state, batch, g, updated, yx=fixed_yx)["loss/total"]))
+    peak, last = max(losses[:5]), statistics.mean(losses[-3:])
+    print(f"{label} loss over {len(losses)} steps (lr {ACTION_LR:g}): "
+          + " ".join(f"{v:.5f}" for v in losses)
+          + f"; peak of the first 5 {peak:.5f}, mean of the last 3 {last:.5f} "
+          f"(bound: finite, last < peak)")
+    check(all(math.isfinite(v) for v in losses) and last < peak,
+          f"{label}: the loss did not fall from its early peak")
+    timings[tag + "loss_peak5"], timings[tag + "loss_last3"] = peak, last
+
+    counts = {}
+    want = all_zero_but({"K10": 24, "K6-fwd": 3, "K5": 1, "K7-tz-fwd": 3, "K7-tz-bwd": 1}
+                        if mode == "epipolar" else
+                        {"K10": 24, "K6-fwd": 2, "K1-fwd": 2, "K5": 1, "K7-fwd": 3,
+                         "K7-bwd": 1})
+    for kind, updated in (("frozen", False), ("update", True)):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        train_step(state, batch, g, updated)
+        torch.cuda.synchronize()
+        counts[kind] = K.launch_counts()
+        print(f"{label} launches per {kind}-gate step: {counts[kind]}")
+        check(counts[kind] == want, f"{label} {kind} step launches {counts[kind]} != {want}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(8):
+        updated, _ = host_step_schedule(state.step, state.steps_since_update,
+                                        model.cfg.rendering)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, g, updated)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    timings[tag + "step_ms"] = step_ms
+    timings[tag + "rays_per_s"] = TRAIN_B * rays / step_ms * 1e3
+    timings[tag + "peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{label} step (batch {TRAIN_B} x {rays} rays, 480x640 context, bf16, "
+          f"pallas_fused): {step_ms:.2f} ms (median of {len(times)}), "
+          f"{timings[tag + 'rays_per_s']:.1f} rays/s; peak {timings[tag + 'peak_mem_gib']:.2f} GiB")
+
+    changed = [n for n, p in model.named_parameters()
+               if n in frozen0 and not torch.equal(p.detach(), frozen0[n])]
+    means = [n for n in stats0 if n.endswith("running_mean")]
+    still = [n for n in means if torch.equal(dict(model.named_buffers())[n], stats0[n])]
+    head_moved = any(not torch.equal(p.detach(), stage1[n]) for n, p in model.named_parameters()
+                     if n.startswith(head))
+    print(f"{label} after {state.step} steps: {len(frozen0) - len(changed)}/{len(frozen0)} "
+          f"parameters outside {head} bit-identical to the warm start "
+          f"(passed={not changed}); {len(means) - len(still)}/{len(means)} BatchNorm running "
+          f"means moved; Jacobian head moved={head_moved}")
+    check(not changed and not still and head_moved,
+          f"{label}: frozen parameters moved {changed[:4]}, or running stats {still[:4]} "
+          f"or the head did not")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return counts["update"]
 
 
 def profile_train(dev, mode, top=15):
     """--profile: torch.profiler around one frozen and one update train step
-    (after the warm-up). Per step: the traced wall time (the step's first
-    host event to its last device event), the device's busy time (the union
-    of its kernel, copy and set intervals, so overlapping work counts once), the
-    idle share 1 - busy / wall, the number of device events, the device time
-    under the optimizer step, and the `top` kernels by device time."""
+    (after the warm-up) of stage 1 in the given feature mode, of stage 1
+    under pallas_fused ("fused", epipolar), or of stage 2 ("action",
+    epipolar, flow; its two steps differ in the proposal gate only). Per
+    step: the traced wall time (the step's first host event to its last
+    device event), the device's busy time (the union of its kernel, copy and
+    set intervals, so overlapping work counts once), the idle share 1 - busy
+    / wall, the number of device events, the device time under the
+    optimizer step, and the `top` kernels by device time."""
     import collections
 
     import torch
@@ -984,7 +1206,14 @@ def profile_train(dev, mode, top=15):
 
     from neural_jacobian_field_torch.training import train_step
 
-    _, state, batch, g = train_setup(dev, mode)
+    if mode == "action":
+        _, state, batch, g = action_setup(dev, "epipolar", "flow")
+        for updated in (True, False):
+            train_step(state, batch, g, updated)
+    elif mode == "fused":
+        _, state, batch, g = train_setup(dev, "epipolar", "pallas_fused")
+    else:
+        _, state, batch, g = train_setup(dev, mode)
     for kind, updated in (("frozen", False), ("update", True)):
         train_step(state, batch, g, updated)
         torch.cuda.synchronize()
@@ -1022,9 +1251,12 @@ def profile_train(dev, mode, top=15):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", nargs="?", const="epipolar", choices=MODES,
+    parser.add_argument("--profile", nargs="?", const="epipolar",
+                        choices=MODES + ("fused", "action"),
                         help="only profile one frozen and one update train step of the given "
-                             "feature mode (torch.profiler) and print where the device time "
+                             "feature mode, of the epipolar step under pallas_fused (fused) or "
+                             "of the stage-2 step (action) with torch.profiler, and print "
+                             "where the device time "
                              "goes")
     args = parser.parse_args()
     try:
@@ -1066,6 +1298,7 @@ def main() -> int:
             return 0
 
         rows = kernel_checks(dev)
+        rows.update(k10_checks(dev))
         rows.update(backward_kernel_checks(dev))
         timings, paths = {}, {}
         cam, robot = cameras(dev)
@@ -1078,10 +1311,18 @@ def main() -> int:
             torch.cuda.empty_cache()
         timings["serve_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         for mode in MODES:
-            counts = train_phase(dev, timings, mode)
+            counts, _ = train_phase(dev, timings, mode)
             prefix = "" if mode == "epipolar" else "exact_"
             paths[prefix + "train_update"] = counts["update"]
             paths[prefix + "train_frozen"] = counts["frozen"]
+        counts, stage1 = train_phase(dev, timings, "epipolar", "pallas_fused")
+        paths["fused_train_update"] = counts["update"]
+        paths["fused_train_frozen"] = counts["frozen"]
+        for mode, supervision in (("epipolar", "flow"), ("exact", "flow"),
+                                  ("epipolar", "tracks")):
+            name = "action_" + ("tracks" if supervision == "tracks" else mode + "_flow")
+            paths[name] = action_phase(dev, timings, mode, supervision, stage1)
+        del stage1
         timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
         print("launches by path: " + json.dumps(paths))

@@ -19,6 +19,19 @@
 // serves C or Cout that are not multiples of 8. The same kernel computes K9's
 // input gradient (dgrad): the wrapper hands it the cotangent and the rotated,
 // transposed weights, as conv_suite.py::_conv_s1_b does.
+//
+// K10 (njf_conv3x3_s1_fwd_stats) replaces conv_suite.py::_s1_fwd_stats: the
+// same kernel with the kStats flag also returns the per-channel sum and sum of
+// squares of the output over (B, H, W), taken from the float32 accumulator
+// before the bf16 downcast, so training-mode BatchNorm never reads y again.
+// y is written by the same code from the same tiles, so it is bit-identical to
+// K9-fwd's. After the tile is stored, each block sums its valid rows per
+// column in float32 in a fixed order and writes one [Cout] partial row of each
+// statistic; a second kernel adds the rows in block order. No atomics: two
+// calls give identical bits. Bound at batch 7 (24 convs of a 480x640 encode):
+// ~238 GFLOP of bf16 products, ops-bound at 989 TFLOP/s, ~0.240 ms; the stats
+// add ~2 reads of a 64x64 float tile per block from shared memory and a
+// [blocks, Cout] float32 partial row pair per conv (~1.8 MB at layer1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,11 +54,12 @@ constexpr int kLDB = kBN + 8;
 constexpr int kLDC = kBN + 4;
 constexpr int kThreads = 128;  // 4 warps, 2x2 over the 64x64 tile
 
-template <bool kVec>
+template <bool kVec, bool kStats>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_s1_kernel(const __nv_bfloat16* __restrict__ x,
                       const __nv_bfloat16* __restrict__ w,
-                      __nv_bfloat16* __restrict__ y, int B, int H, int W, int C,
+                      __nv_bfloat16* __restrict__ y, float* __restrict__ part1,
+                      float* __restrict__ part2, int B, int H, int W, int C,
                       int Cout) {
   __shared__ __align__(128) __nv_bfloat16 sa[kBM * kLDA];
   __shared__ __align__(128) __nv_bfloat16 sb[kBK * kLDB];
@@ -162,6 +176,85 @@ __global__ void __launch_bounds__(kThreads)
         y[static_cast<size_t>(m) * Cout + n] = __float2bfloat16(sc[r * kLDC + nn]);
     }
   }
+
+  if constexpr (kStats) {
+    // thread t sums column t % 64 over rows [32 h, 32 h + 32), h = t / 64,
+    // in row order; the two halves are then added in half order
+    __shared__ float red[2][2][kBN];
+    const int col = tid % kBN;
+    const int half = tid / kBN;
+    const int rows = min(kBM / 2, M - m0 - half * (kBM / 2));
+    float a1 = 0.f, a2 = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float v = sc[(half * (kBM / 2) + r) * kLDC + col];
+      a1 += v;
+      a2 += v * v;
+    }
+    red[half][0][col] = a1;
+    red[half][1][col] = a2;
+    __syncthreads();
+    const int n = n0 + col;
+    if (n < Cout) {
+      float* part = half == 0 ? part1 : part2;
+      part[static_cast<size_t>(blockIdx.x) * Cout + n] =
+          red[0][half][col] + red[1][half][col];
+    }
+  }
+}
+
+// s[n] = sum over the blocks of part[blk][n]: thread (col, j) of a 32 x 16
+// block sums the j-th contiguous range of block rows in order, then thread
+// (col, 0) adds the 16 range sums in order. The same bits on every call.
+constexpr int kSumCols = 32;
+constexpr int kSumRanges = 16;
+
+__global__ void __launch_bounds__(kSumCols * kSumRanges)
+    stats_sum_kernel(const float* __restrict__ part1, const float* __restrict__ part2,
+                     float* __restrict__ s1, float* __restrict__ s2, int nblk, int Cout) {
+  __shared__ float acc[2][kSumRanges][kSumCols];
+  const int col = threadIdx.x;
+  const int j = threadIdx.y;
+  const int n = blockIdx.x * kSumCols + col;
+  const int per = (nblk + kSumRanges - 1) / kSumRanges;
+  const int lo = j * per;
+  const int hi = min(nblk, lo + per);
+  float a1 = 0.f, a2 = 0.f;
+  if (n < Cout) {
+    for (int b = lo; b < hi; ++b) {
+      a1 += part1[static_cast<size_t>(b) * Cout + n];
+      a2 += part2[static_cast<size_t>(b) * Cout + n];
+    }
+  }
+  acc[0][j][col] = a1;
+  acc[1][j][col] = a2;
+  __syncthreads();
+  if (j == 0 && n < Cout) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int r = 0; r < kSumRanges; ++r) {
+      t1 += acc[0][r][col];
+      t2 += acc[1][r][col];
+    }
+    s1[n] = t1;
+    s2[n] = t2;
+  }
+}
+
+template <bool kStats>
+cudaError_t launch_conv(const void* x, const void* w, void* y, float* part1, float* part2,
+                        int B, int H, int W, int C, int Cout, cudaStream_t s) {
+  const long long M = static_cast<long long>(B) * H * W;
+  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
+                  static_cast<unsigned>((Cout + kBN - 1) / kBN));
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  if (C % 8 == 0 && Cout % 8 == 0)
+    conv3x3_s1_kernel<true, kStats><<<grid, kThreads, 0, s>>>(xb, wb, yb, part1, part2, B, H,
+                                                              W, C, Cout);
+  else
+    conv3x3_s1_kernel<false, kStats><<<grid, kThreads, 0, s>>>(xb, wb, yb, part1, part2, B,
+                                                               H, W, C, Cout);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -171,15 +264,25 @@ extern "C" int njf_conv3x3_s1_fwd(const void* x, const void* w, void* y, int B,
                                   void* stream) {
   const long long M = static_cast<long long>(B) * H * W;
   if (M <= 0 || C <= 0 || Cout <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
-                  static_cast<unsigned>((Cout + kBN - 1) / kBN));
+  return static_cast<int>(launch_conv<false>(x, w, y, nullptr, nullptr, B, H, W, C, Cout,
+                                             static_cast<cudaStream_t>(stream)));
+}
+
+// K10: y as njf_conv3x3_s1_fwd, plus s1 [Cout] = sum of y and s2 [Cout] = sum
+// of y^2 over (B, H, W), float32, from the accumulator. partial: float32
+// [2, nblk, Cout] scratch, nblk = ceil(B*H*W / 64) (checked).
+extern "C" int njf_conv3x3_s1_fwd_stats(const void* x, const void* w, void* y, void* partial,
+                                        void* s1, void* s2, int B, int H, int W, int C,
+                                        int Cout, int nblk, void* stream) {
+  const long long M = static_cast<long long>(B) * H * W;
+  if (M <= 0 || C <= 0 || Cout <= 0 || nblk != (M + kBM - 1) / kBM)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  auto* yb = static_cast<__nv_bfloat16*>(y);
-  if (C % 8 == 0 && Cout % 8 == 0)
-    conv3x3_s1_kernel<true><<<grid, kThreads, 0, s>>>(xb, wb, yb, B, H, W, C, Cout);
-  else
-    conv3x3_s1_kernel<false><<<grid, kThreads, 0, s>>>(xb, wb, yb, B, H, W, C, Cout);
+  auto* part1 = static_cast<float*>(partial);
+  auto* part2 = part1 + static_cast<size_t>(nblk) * Cout;
+  cudaError_t err = launch_conv<true>(x, w, y, part1, part2, B, H, W, C, Cout, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats_sum_kernel<<<(Cout + kSumCols - 1) / kSumCols, dim3(kSumCols, kSumRanges), 0, s>>>(
+      part1, part2, static_cast<float*>(s1), static_cast<float*>(s2), nblk, Cout);
   return static_cast<int>(cudaGetLastError());
 }

@@ -100,6 +100,16 @@ class ActionDecoderFlowMlpCfg:
     arm_action_dim: Optional[int] = None
 
 
+def action_param_pattern(cfg) -> str:
+    """Substring of the parameter names that stage 2 trains; everything else
+    is frozen (the reference's `action_param_glob_pattern`)."""
+    return {
+        "jacobian_mlp": "jacobian_head",
+        "jacobian_transformer": "jacobian",
+        "flow_mlp": "flow_head",
+    }[cfg.name]
+
+
 def _pe(cam_xyz: torch.Tensor, num_frequencies: int) -> torch.Tensor:
     return nerf_positional_encoding(cam_xyz, num_frequencies, 0.0, num_frequencies - 1.0)
 

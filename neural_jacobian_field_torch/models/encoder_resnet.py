@@ -5,13 +5,24 @@ The stride-1 3x3 convs of the BasicBlocks go through the K9 kernel
 (ops/kernels/conv_suite.py) when conv_impl="pallas"; the stem 7x7/2, the
 stride-2 3x3s and the 1x1 projections are plain PyTorch convolutions, as
 they were plain XLA in JAX. conv_impl="xla" sends every conv through
-PyTorch's own convolution. BatchNorm has the Flax semantics (momentum 0.9,
+PyTorch's own convolution. conv_impl="pallas_fused" is "pallas" plus the K10
+fold: in training mode with BatchNorm, each stride-1 3x3 conv returns the
+per-channel sum and sum of squares of its output from the kernel's float32
+accumulator, and its BatchNorm takes its batch statistics from them instead
+of reading the output again (the JAX `_ConvK9(emit_stats=True)` and
+`BatchNormFromStats`); the stem, the stride-2 convs and the projections
+keep computing their own, as in JAX. In eval mode, or with another norm, it
+is "pallas". The parameter tree is the same for all three. JAX emits the
+statistics only where `conv3x3_supported` holds, a TPU tiling gate (an
+output height with a divisor in 4..16); the port's kernel takes every
+shape, and the two agree at the flagship's shapes and at any image whose
+stride-1 heights have such a divisor. BatchNorm has the Flax semantics (momentum 0.9,
 biased variance), which torch.nn.BatchNorm2d does not: its momentum weighs
 the batch, not the running value, and its running variance is unbiased. Like
 the JAX `__call__(x, train)`, `forward(rgb, train)` normalises with the
 running statistics in eval mode and with the batch's in training mode,
-updating the running buffers in place. The group/instance norms and the K10
-conv_impl="pallas_fused" are not ported.
+updating the running buffers in place. The group/instance norms are not
+ported.
 """
 
 from dataclasses import dataclass
@@ -34,7 +45,7 @@ class EncoderResnetCfg:
     use_first_pool: bool = True
     norm_type: str = "group"  # batch | instance | group | none
     feature_layout: str = "pyramid"  # pyramid | concat
-    conv_impl: str = "xla"  # xla | pallas (pallas_fused, the K10 fold: not ported)
+    conv_impl: str = "xla"  # xla | pallas | pallas_fused (K9 + the K10 BatchNorm-stats fold)
 
 
 _RESNET34_STAGES: Sequence = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -53,11 +64,22 @@ class ConvHWIO(nn.Module):
     def init_weights(self, g):
         init.kaiming_normal_out_(self.weight, g)
 
-    def forward(self, x):
+    @property
+    def emits_stats(self) -> bool:
+        """Whether `forward(x, stats=True)` returns K10's statistics."""
+        return self.conv_impl == "pallas_fused" and self.ksize == 3 and self.stride == 1
+
+    def forward(self, x, stats: bool = False):
+        """y, or (y, s1, s2) with `stats` where `emits_stats` holds: s1, s2
+        the per-channel float32 sum and sum of squares of y's accumulator
+        over (B, H, W)."""
         w = self.weight.to(x.dtype)
-        if self.conv_impl == "pallas" and self.ksize == 3:
+        if stats and self.emits_stats:
+            return k9.conv_s1_stats(x, w)
+        pallas = self.conv_impl in ("pallas", "pallas_fused")
+        if pallas and self.ksize == 3:
             return k9.conv3x3(x, w, self.stride)
-        if self.conv_impl == "pallas" and self.ksize == 1:
+        if pallas and self.ksize == 1:
             return k9.conv1x1(x, w, self.stride)
         return k9.conv_nhwc(x, w, self.stride, (self.ksize - 1) // 2)
 
@@ -67,7 +89,10 @@ class BatchNorm(nn.Module):
     {weight (scale), bias}, buffers {running_mean, running_var}. Training mode
     takes the batch mean and the biased batch variance, E[y^2] - E[y]^2
     clamped at 0, in float32 (Flax's fast variance), differentiates through
-    them, and moves running = 0.9 running + 0.1 batch. Both modes compute
+    them, and moves running = 0.9 running + 0.1 batch. Given the per-channel
+    sum s1 and sum of squares s2 of y over (B, H, W) (K10), training mode
+    takes mean = s1 / n and var = max(s2 / n - mean^2, 0), n = B*H*W,
+    instead (the JAX BatchNormFromStats). Both modes compute
     (y - mean) * (rsqrt(var + eps) * scale) + bias in float32 and cast back
     once."""
 
@@ -88,12 +113,17 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, y, train: bool = False):
+    def forward(self, y, train: bool = False, s1=None, s2=None):
         at = torch.promote_types(y.dtype, torch.float32)
         if train:
-            yf = y.to(at)
-            mean = yf.mean(dim=(0, 1, 2))
-            var = torch.clamp((yf * yf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            if s1 is None:
+                yf = y.to(at)
+                mean = yf.mean(dim=(0, 1, 2))
+                var = torch.clamp((yf * yf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            else:
+                n = y.numel() // y.shape[-1]
+                mean = s1.to(at) / n
+                var = torch.clamp(s2.to(at) / n - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.float())
@@ -134,6 +164,7 @@ class BasicBlock(nn.Module):
         self.conv2 = ConvHWIO(channels, channels, 3, 1, conv_impl)
         self.bn2 = _norm(norm_type, channels)
         self.needs_proj = strides != 1 or cin != channels
+        self.fuse_bn = conv_impl == "pallas_fused" and norm_type == "batch"
         if self.needs_proj:
             self.downsample_conv = ConvHWIO(cin, channels, 1, strides, conv_impl)
             self.downsample_norm = _norm(norm_type, channels)
@@ -142,9 +173,15 @@ class BasicBlock(nn.Module):
         for m in self.children():
             _init(m, g)
 
+    def _conv_norm(self, conv, norm, x, train):
+        if self.fuse_bn and train and conv.emits_stats:
+            y, s1, s2 = conv(x, stats=True)
+            return norm(y, train, s1, s2)
+        return norm(conv(x), train)
+
     def forward(self, x, train: bool = False):
-        y = torch.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
+        y = torch.relu(self._conv_norm(self.conv1, self.bn1, x, train))
+        y = self._conv_norm(self.conv2, self.bn2, y, train)
         residual = x
         if self.needs_proj:
             residual = self.downsample_norm(self.downsample_conv(x), train)
@@ -158,7 +195,7 @@ class EncoderResnet(nn.Module):
 
     def __init__(self, cfg: EncoderResnetCfg, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.conv_impl not in ("xla", "pallas"):
+        if cfg.conv_impl not in ("xla", "pallas", "pallas_fused"):
             raise NotImplementedError(f"conv_impl={cfg.conv_impl!r} is not ported")
         self.cfg, self.compute_dtype = cfg, compute_dtype
         self.conv1 = ConvHWIO(3, 64, 7, 2, "xla")

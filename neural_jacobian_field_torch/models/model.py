@@ -69,7 +69,7 @@ class ModelCfg:
     ] = field(default_factory=ActionDecoderJacobianTransformerCfg)
 
 
-def flagship_model_cfg(**rendering_overrides) -> ModelCfg:
+def flagship_model_cfg(conv_impl: str = "pallas", **rendering_overrides) -> ModelCfg:
     """The flagship configuration (configurations/model/model_allegro.yaml +
     encoder/image_encoder_resnet.yaml, as bench.py builds it): BatchNorm
     ResNet-34 in pyramid layout with K9 convs, epipolar knots (64, 16, 8),
@@ -78,7 +78,9 @@ def flagship_model_cfg(**rendering_overrides) -> ModelCfg:
     with compute_dtype=torch.bfloat16. `pixel_feature_mode="exact"` selects
     the reference-numerics feature path (model_allegro.yaml's setting for
     ported-checkpoint evaluation): per-sample pyramid gathers with K1 on the
-    coarse level, and K7 trunks that project the levels themselves."""
+    coarse level, and K7 trunks that project the levels themselves.
+    `conv_impl="pallas_fused"` adds the K10 BatchNorm-stats fold to the
+    training-mode encoder (`NJF_CONV_IMPL=pallas_fused python bench.py`)."""
     rendering = RenderingCfg(num_proposal_samples=(256,), num_nerf_samples=256,
                              use_pallas_pdf=True, pixel_feature_mode="epipolar",
                              epipolar_knots=(64, 16, 8), use_fused_trunk=True)
@@ -90,7 +92,7 @@ def flagship_model_cfg(**rendering_overrides) -> ModelCfg:
         rendering=rendering,
         encoder=EncoderResnetCfg(name="resnet", upsample_interp="bilinear", num_layers=4,
                                  use_first_pool=True, norm_type="batch",
-                                 feature_layout="pyramid", conv_impl="pallas"),
+                                 feature_layout="pyramid", conv_impl=conv_impl),
         density_decoder=DensityDecoderMlpCfg(mlp=mlp),
         action_decoder=ActionDecoderJacobianMlpCfg(mlp=mlp, num_frequencies=10,
                                                    geometry_feature_dim=15),

@@ -3,14 +3,14 @@
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
 PyTorch version (same module, `*_plain`) for a CPU tensor, and counts its
 launches in a plain integer attribute `launches`. The differentiable entry
-points (`conv_s1`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
+points (`conv_s1`, `conv_s1_stats`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
 `fused_resnet_fc_train_tz`, and `ops/pixel_gather.gather_bilinear_onehot`)
 are autograd.Functions over these wrappers.
 """
 
 from .conv_suite import (
-    conv3x3_s1, conv3x3_s1_dgrad, conv3x3_s1_dgrad_plain, conv3x3_s1_plain,
-    conv3x3_s1_wgrad, conv3x3_s1_wgrad_plain, conv_s1)
+    conv3x3_s1, conv3x3_s1_dgrad, conv3x3_s1_dgrad_plain, conv3x3_s1_plain, conv3x3_s1_stats,
+    conv3x3_s1_stats_plain, conv3x3_s1_wgrad, conv3x3_s1_wgrad_plain, conv_s1, conv_s1_stats)
 from .field_mlp import (
     fused_resnet_fc, fused_resnet_fc_bwd, fused_resnet_fc_bwd_plain, fused_resnet_fc_plain,
     fused_resnet_fc_train, fused_resnet_fc_train_tz, fused_resnet_fc_tz,
@@ -29,6 +29,8 @@ _CSRC = "neural_jacobian_field_torch/csrc/"
 KERNELS = {
     "K9-fwd": (conv3x3_s1, conv3x3_s1_plain, _CSRC + "conv3x3_s1.cu",
                _TPU + "conv_suite.py:150"),
+    "K10": (conv3x3_s1_stats, conv3x3_s1_stats_plain, _CSRC + "conv3x3_s1.cu",
+            _TPU + "conv_suite.py:253"),
     "K9-dgrad": (conv3x3_s1_dgrad, conv3x3_s1_dgrad_plain, _CSRC + "conv3x3_s1.cu",
                  _TPU + "conv_suite.py:370"),
     "K9-wgrad": (conv3x3_s1_wgrad, conv3x3_s1_wgrad_plain, _CSRC + "conv3x3_wgrad.cu",

@@ -36,6 +36,7 @@ _I = ctypes.c_int
 # C signature of every exported entry point: (argtypes, restype int = cudaError_t)
 _SIGNATURES = {
     "njf_conv3x3_s1_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "njf_conv3x3_s1_fwd_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "njf_conv3x3_s1_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "njf_pack2x2_fwd": (_P, _P, _I, _I, _I, ctypes.c_longlong, _P),
     "njf_pack2x2_bwd": (_P, _P, _I, _I, _I, _I, _I, _P),

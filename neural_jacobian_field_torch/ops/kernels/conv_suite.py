@@ -11,6 +11,12 @@ torch.autograd.Function over three kernel wrappers:
     itself such a conv), counted under its own name;
   - K9-wgrad (`conv3x3_s1_wgrad`, TPU `_s1_wgrad`): csrc/conv3x3_wgrad.cu,
     float32 dW [3, 3, C, Cout], cast to w's dtype by the Function.
+K10 (`conv3x3_s1_stats`, TPU `_s1_fwd_stats`) is K9-fwd's kernel with a
+stats epilogue: it also returns the per-channel sum and sum of squares of
+the output over (B, H, W), from the float32 accumulator, for training-mode
+BatchNorm (conv_impl="pallas_fused"). `ConvS1Stats` is the JAX
+`_conv_s1_stats`: its backward folds the two statistics' cotangents into one
+output cotangent and hands it to K9-dgrad and K9-wgrad.
 The kernels' headers say what bounds them. The weights go to K9-fwd as the
 [9C, Cout] matrix of the TPU kernel, tap-major (row = (dy*3 + dx)*C + c): an
 HWIO kernel reshaped, no copy. The kernels take every stride-1 shape;
@@ -37,19 +43,36 @@ def _acc_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def _assemble(x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's assembled operand: the nine taps of x [B, H, W, C]
+    side by side, [B, H, W, 9C], tap-major (dy*3 + dx), zero halo."""
+    h, wd = x.shape[1:3]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, dy:dy + h, dx:dx + wd, :]
+                      for dy in range(3) for dx in range(3)], dim=-1)
+
+
+def _conv_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The assembled x times w as [9C, Cout] in x's dtype, accumulated (and
+    returned) in at least float32."""
+    at = _acc_dtype(x.dtype)
+    return _assemble(x).to(at) @ w.reshape(-1, w.shape[-1]).to(x.dtype).to(at)
+
+
 def conv3x3_s1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: x [B, H, W, C], w [3, 3, C, Cout] -> [B, H, W,
     Cout] in x's dtype, as the TPU kernel computes it: the nine taps assembled
     into [B, H, W, 9C] (tap-major, zero halo) times w as [9C, Cout] in x's
     dtype, accumulated in at least float32."""
-    b, h, wd, c = x.shape
-    cout = w.shape[-1]
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    asm = torch.cat([xp[:, dy:dy + h, dx:dx + wd, :]
-                     for dy in range(3) for dx in range(3)], dim=-1)
-    at = _acc_dtype(x.dtype)
-    wk = w.reshape(9 * c, cout).to(x.dtype).to(at)
-    return (asm.to(at) @ wk).to(x.dtype)
+    return _conv_acc(x, w).to(x.dtype)
+
+
+def conv3x3_s1_stats_plain(x: torch.Tensor, w: torch.Tensor):
+    """Plain PyTorch version of K10: (y, s1, s2) with y as conv3x3_s1_plain
+    computes it and s1, s2 [Cout] the sums over (B, H, W) of the uncast
+    product and of its square, in the accumulator's type."""
+    acc = _conv_acc(x, w)
+    return acc.to(x.dtype), acc.sum(dim=(0, 1, 2)), (acc * acc).sum(dim=(0, 1, 2))
 
 
 def _rotate(w: torch.Tensor) -> torch.Tensor:
@@ -68,26 +91,29 @@ def conv3x3_s1_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Plain version of the weight gradient, as the TPU kernel computes it:
     the assembled input [B*H*W, 9C] transposed times g [B*H*W, Cout] in at
     least float32 -> dW [3, 3, C, Cout] in that type."""
-    b, h, wd, c = x.shape
-    cout = g.shape[-1]
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    asm = torch.cat([xp[:, dy:dy + h, dx:dx + wd, :]
-                     for dy in range(3) for dx in range(3)], dim=-1)
+    c, cout = x.shape[-1], g.shape[-1]
     at = _acc_dtype(x.dtype)
-    dw = asm.reshape(-1, 9 * c).to(at).t() @ g.reshape(-1, cout).to(at)
+    dw = _assemble(x).reshape(-1, 9 * c).to(at).t() @ g.reshape(-1, cout).to(at)
     return dw.reshape(3, 3, c, cout)
+
+
+def _conv_operands(x: torch.Tensor, w: torch.Tensor, name: str):
+    """The stride-1 kernels' operands, checked: x contiguous bf16 NHWC and w
+    as the bf16 [9C, Cout] matrix on x's device."""
+    if x.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[-1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} / w {tuple(w.shape)}")
+    x = x.contiguous()
+    check_cuda_tensor(x, f"{name} x", torch.bfloat16, 4)
+    wk = w.reshape(-1, w.shape[-1]).to(device=x.device, dtype=torch.bfloat16).contiguous()
+    check_cuda_tensor(wk, f"{name} w", torch.bfloat16, 2)
+    return x, wk
 
 
 def _conv3x3_s1_cuda(x: torch.Tensor, w: torch.Tensor, counter) -> torch.Tensor:
     """Launch K9-fwd's kernel, counted on `counter` (its wrapper)."""
-    if x.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[-1]:
-        raise ValueError(f"conv3x3_s1: x {tuple(x.shape)} / w {tuple(w.shape)}")
-    x = x.contiguous()
-    check_cuda_tensor(x, "conv3x3_s1 x", torch.bfloat16, 4)
+    x, wk = _conv_operands(x, w, "conv3x3_s1")
     b, h, wd, c = x.shape
-    cout = w.shape[-1]
-    wk = w.reshape(9 * c, cout).to(device=x.device, dtype=torch.bfloat16).contiguous()
-    check_cuda_tensor(wk, "conv3x3_s1 w", torch.bfloat16, 2)
+    cout = wk.shape[-1]
     y = torch.empty((b, h, wd, cout), dtype=torch.bfloat16, device=x.device)
     if y.numel() == 0:
         return y
@@ -97,6 +123,25 @@ def _conv3x3_s1_cuda(x: torch.Tensor, w: torch.Tensor, counter) -> torch.Tensor:
         lib.call("njf_conv3x3_s1_fwd", x.data_ptr(), wk.data_ptr(), y.data_ptr(),
                  b, h, wd, c, cout, stream_of(x))
     return y
+
+
+def _conv3x3_s1_stats_cuda(x: torch.Tensor, w: torch.Tensor):
+    x, wk = _conv_operands(x, w, "conv3x3_s1_stats")
+    b, h, wd, c = x.shape
+    cout = wk.shape[-1]
+    y = torch.empty((b, h, wd, cout), dtype=torch.bfloat16, device=x.device)
+    s1, s2 = (torch.zeros((cout,), dtype=torch.float32, device=x.device) for _ in range(2))
+    if y.numel() == 0:
+        return y, s1, s2
+    nblk = -(-b * h * wd // 64)  # the kernel's row blocks
+    partial = torch.empty((2, nblk, cout), dtype=torch.float32, device=x.device)
+    lib = load_kernels()
+    with torch.cuda.device(x.device):
+        conv3x3_s1_stats.launches += 1
+        lib.call("njf_conv3x3_s1_fwd_stats", x.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                 partial.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, h, wd, c, cout, nblk,
+                 stream_of(x))
+    return y, s1, s2
 
 
 def _wgrad_split(rows: int, tiles: int, device) -> tuple:
@@ -137,6 +182,13 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                     lambda: conv3x3_s1_plain(x, w))
 
 
+def conv3x3_s1_stats(x: torch.Tensor, w: torch.Tensor):
+    """K10 wrapper: (y, s1, s2), the stride-1 3x3 conv and the per-channel
+    float32 sum and sum of squares of its output over (B, H, W)."""
+    return dispatch("conv3x3_s1_stats", x, lambda: _conv3x3_s1_stats_cuda(x, w),
+                    lambda: conv3x3_s1_stats_plain(x, w))
+
+
 def conv3x3_s1_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K9-dgrad wrapper: the input gradient, through K9-fwd's kernel."""
     return dispatch("conv3x3_s1_dgrad", g,
@@ -151,6 +203,7 @@ def conv3x3_s1_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3_s1.launches = 0
+conv3x3_s1_stats.launches = 0
 conv3x3_s1_dgrad.launches = 0
 conv3x3_s1_wgrad.launches = 0
 
@@ -176,6 +229,36 @@ def conv_s1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Differentiable stride-1 3x3 same-pad conv: K9-fwd forward, K9-dgrad
     and K9-wgrad backward."""
     return ConvS1.apply(x, w)
+
+
+class ConvS1Stats(torch.autograd.Function):
+    """The differentiable K10 conv (the JAX `_conv_s1_stats`). With s1 =
+    sum(y) and s2 = sum(y^2) over (B, H, W), the three cotangents fold into
+    one output cotangent g = gy + gs1 + 2 y gs2, in the accumulator's type
+    with y the rounded output, cast to y's dtype once; then K9-dgrad and
+    K9-wgrad as for `ConvS1`."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        y, s1, s2 = conv3x3_s1_stats(x, w)
+        ctx.save_for_backward(x, w, y)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, w, y = ctx.saved_tensors
+        at = _acc_dtype(y.dtype)
+        g = (gy.to(at) + gs1.to(at) + 2.0 * y.to(at) * gs2.to(at)).to(y.dtype).contiguous()
+        dx = conv3x3_s1_dgrad(g, w) if ctx.needs_input_grad[0] else None
+        dw = conv3x3_s1_wgrad(x, g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def conv_s1_stats(x: torch.Tensor, w: torch.Tensor):
+    """Differentiable stride-1 3x3 same-pad conv that also returns the
+    per-channel sum and sum of squares of its output over (B, H, W): K10
+    forward, K9-dgrad and K9-wgrad backward."""
+    return ConvS1Stats.apply(x, w)
 
 
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int) -> torch.Tensor:

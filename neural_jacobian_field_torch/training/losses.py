@@ -1,7 +1,8 @@
 """Training losses, assembled as the reference's ModelWrapper does
 (PyTorch counterpart of training/losses.py). Perception stage: rgb MSE
 + 0.08 * DS-NeRF depth (averaged over all levels, sigma 0.001) + 1.0 *
-interlevel + 0.01 * distortion."""
+interlevel + 0.01 * distortion. Action stage: 0.01 * flow MSE, masked by
+the tracks' visibility when there is a mask."""
 
 from dataclasses import dataclass
 from typing import Dict, Tuple
@@ -54,3 +55,17 @@ def perception_loss(out: ModelOutput, target: ModelTarget,
         "depth/pred_mean": torch.mean(out.depth),
     }
     return total, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+
+
+def action_loss(out: ModelOutput, target: ModelTarget,
+                cfg: LossCfg = LossCfg()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, metrics): flow_weight * the squared flow error, averaged
+    over every component, or with a visibility mask summed over the visible
+    rays' components and divided by the number of visible rays (at least 1)."""
+    err = cfg.flow_weight * (out.optical_flow - target.optical_flow) ** 2
+    if target.visible_mask is not None:
+        mask = target.visible_mask.to(err.dtype)
+        flow_loss = torch.sum(err * mask[..., None]) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        flow_loss = torch.mean(err)
+    return flow_loss, {"loss/flow": flow_loss.detach(), "loss/total": flow_loss.detach()}

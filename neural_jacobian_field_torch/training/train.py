@@ -1,5 +1,5 @@
-"""Train state, optimizer and the stage-1 train step (PyTorch counterpart of
-training/train.py).
+"""Train state, optimizer and the train step of both stages (PyTorch
+counterpart of training/train.py).
 
 The optimizer is the reference's: Adam with weight decay 1e-5 and a linear
 warmup lr/warmup -> lr. torch.optim.Adam adds weight_decay * param to the
@@ -8,12 +8,21 @@ scale_by_adam order; the learning rate of step t is the schedule at t, the
 count before the step, as optax's scale_by_learning_rate reads it.
 `grad_clip_norm` clips by the global norm with optax's formula (g * max /
 ||g|| when ||g|| >= max; torch's clip_grad_norm_ adds 1e-6 to the norm), and
-`encoder_lr_scale` gives the encoder its own parameter group.
+`encoder_lr_scale` gives the encoder its own parameter group (stage 1 only:
+the JAX package ignores it in stage 2).
 
-Every parameter takes an Adam step, reached by the loss or not: optax decays
-and normalises a zero gradient too (the Jacobian head in stage 1, the
-proposal networks on frozen steps), so the port fills zeros where autograd
-left a gradient of None, or torch.optim.Adam would skip those parameters.
+Every parameter the optimizer holds takes an Adam step, reached by the loss
+or not: optax decays and normalises a zero gradient too (the Jacobian head
+in stage 1, the proposal networks on frozen steps), so the port fills zeros
+where autograd left a gradient of None, or torch.optim.Adam would skip
+those parameters. Stage 2 (`TrainCfg.mode="action"`) trains only the
+decoder's action parameters (`trainable_mask`, the JAX optax
+multi_transform): the optimizer holds those alone, so the frozen ones are
+neither decayed nor moved (optax's set_to_zero), and they get
+requires_grad=False, so autograd records no encoder, proposal or density
+backward (the JAX `stop_frozen_gradients`). The forward still runs in
+training mode: the BatchNorm running statistics move in stage 2 as the JAX
+step's mutable batch_stats do.
 
 The proposal gate is decided on the host (`host_step_schedule`) and passed
 to `train_step` as a Python bool, as the JAX `make_train_step(static_updated=
@@ -28,20 +37,22 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..models.decoders import action_param_pattern
 from ..models.model import Model, StepCtx, step_schedules
-from .losses import LossCfg, perception_loss
+from .losses import LossCfg, action_loss, perception_loss
 from .prepare import RawBatch, prepare_training_batch
 
 
 @dataclass(frozen=True)
 class TrainCfg:
+    mode: str = "perception"  # perception | action
     lr: float = 1e-4
     weight_decay: float = 1e-5
     warm_up_steps: int = 10000
     rays_per_batch: int = 256
     loss: LossCfg = field(default_factory=LossCfg)
     grad_clip_norm: Optional[float] = None  # global-norm clipping, before decay
-    encoder_lr_scale: float = 1.0  # lr multiplier on encoder.* parameters
+    encoder_lr_scale: float = 1.0  # stage-1 lr multiplier on encoder.* parameters
 
 
 @dataclass
@@ -60,14 +71,42 @@ def warmup_lr(cfg: TrainCfg, count: int, lr_mult: float = 1.0) -> float:
     return (init - end) * frac + end
 
 
+def trainable_mask(model: torch.nn.Module, mode: str, action_decoder_cfg) -> Dict[str, str]:
+    """Parameter name -> "trainable" or "frozen". Stage 2 ("action") trains
+    only the decoder parameters whose name has a part containing the
+    decoder's action pattern (the JAX mask over param paths); stage 1 trains
+    everything."""
+    if mode not in ("perception", "action"):
+        raise ValueError(f"unknown mode {mode!r}")
+    labels = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        trainable = mode == "perception" or (
+            parts[0] == "decoder"
+            and any(action_param_pattern(action_decoder_cfg) in part for part in parts))
+        labels[name] = "trainable" if trainable else "frozen"
+    return labels
+
+
 def make_optimizer(cfg: TrainCfg, model: Model) -> torch.optim.Adam:
-    """Adam(wd) over two groups, "encoder" (lr x encoder_lr_scale) and
-    "other"; each group's "lr_mult" scales the warmup schedule."""
-    enc, other = [], []
-    for name, p in model.named_parameters():
-        (enc if name.startswith("encoder.") else other).append(p)
-    groups = [dict(params=enc, name="encoder", lr_mult=cfg.encoder_lr_scale),
-              dict(params=other, name="other", lr_mult=1.0)]
+    """Adam(wd). Stage 1: two groups, "encoder" (lr x encoder_lr_scale) and
+    "other". Stage 2: one group of the trainable parameters; the frozen ones
+    get requires_grad=False. Each group's "lr_mult" scales the warmup
+    schedule."""
+    if cfg.mode == "action":
+        labels = trainable_mask(model, cfg.mode, model.cfg.action_decoder)
+        params = []
+        for name, p in model.named_parameters():
+            p.requires_grad_(labels[name] == "trainable")
+            if p.requires_grad:
+                params.append(p)
+        groups = [dict(params=params, name="trainable", lr_mult=1.0)]
+    else:
+        enc, other = [], []
+        for name, p in model.named_parameters():
+            (enc if name.startswith("encoder.") else other).append(p)
+        groups = [dict(params=enc, name="encoder", lr_mult=cfg.encoder_lr_scale),
+                  dict(params=other, name="other", lr_mult=1.0)]
     for g in groups:
         g["lr"] = warmup_lr(cfg, 0, g["lr_mult"])
     return torch.optim.Adam(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
@@ -117,8 +156,9 @@ def merge_compatible_params(template: Dict[str, torch.Tensor],
 def create_train_state(model: Model, cfg: TrainCfg,
                        init_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
     """A fresh optimizer over the model's (already initialised) parameters.
-    `init_params` (a state dict) warm-starts the model shape-tolerantly, with
-    the fresh optimizer state ("so that optimization restarts")."""
+    `init_params` (a state dict, running statistics included) warm-starts
+    the model shape-tolerantly, with the fresh optimizer state ("so that
+    optimization restarts"): stage 2 from a stage-1 model."""
     if init_params is not None:
         current = model.state_dict()
         model.load_state_dict(merge_compatible_params(current, init_params), strict=True)
@@ -135,24 +175,26 @@ def train_step(state: TrainState, batch: RawBatch,
                generator: Optional[torch.Generator] = None,
                updated: Optional[bool] = None, *, yx: Optional[torch.Tensor] = None,
                draws: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """One stage-1 step: prepare the batch, forward in training mode, the
-    perception loss, backward, Adam; the state advances in place. `updated`
-    fixes the proposal gate (None: the schedule's); the pixel set and the
-    stratified draws come from `generator`, or from `yx` and `draws`.
-    Returns the loss metrics (detached)."""
+    """One step of the state's stage: prepare the batch, forward in training
+    mode, the perception or action loss, backward, Adam; the state advances
+    in place. `updated` fixes the proposal gate (None: the schedule's); the
+    pixel set (unless tracks choose the pixels) and the stratified draws
+    come from `generator`, or from `yx` and `draws`. Returns the loss
+    metrics (detached)."""
     model, opt, cfg = state.model, state.optimizer, state.cfg
     anneal, upd, new_ssu = step_schedules(state.step, state.steps_since_update,
                                           model.cfg.rendering)
     if updated is not None:
         upd = bool(updated)
         new_ssu = 1 if upd else state.steps_since_update + 1
-    mi, mt = prepare_training_batch(batch, cfg.rays_per_batch, generator, yx)
+    mi, mt = prepare_training_batch(batch, cfg.rays_per_batch, generator, yx, mode=cfg.mode)
     ctx = StepCtx(anneal=anneal, updated=upd, generator=generator,
                   draws=None if draws is None else tuple(draws))
 
     opt.zero_grad(set_to_none=True)
     out = model(mi, train=True, ctx=ctx)
-    loss, metrics = perception_loss(out, mt, cfg.loss)
+    loss_fn = perception_loss if cfg.mode == "perception" else action_loss
+    loss, metrics = loss_fn(out, mt, cfg.loss)
     loss.backward()
     apply_gradients(state)
     state.steps_since_update = new_ssu

@@ -12,7 +12,9 @@ np.asarray takes); nothing here imports JAX.
 
 `load_optax_adam_state` carries an optax Adam state (`ScaleByAdamState`:
 mu, nu, count) over to torch.optim.Adam, so a train state taken in the middle
-of training computes the same next step on both sides.
+of training computes the same next step on both sides; in stage 2 the state
+covers the trainable partition of optax's multi_transform alone, as the
+port's optimizer does.
 """
 
 from typing import Dict, Optional
@@ -75,17 +77,23 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Modu
                           *adam_states) -> None:
     """Set torch.optim.Adam's per-parameter state (step, exp_avg, exp_avg_sq)
     from optax ScaleByAdamStates (anything with .mu, .nu param-shaped trees
-    and .count). Pass one state per optax partition (one, or one per
-    multi_transform label); together they must cover every parameter of
-    `model`."""
-    params = dict(model.named_parameters())
+    and .count). Pass one state per optax partition that has one (one, or
+    one per Adam-chained multi_transform label; set_to_zero's frozen
+    partition has none); together they must cover exactly the parameters
+    `optimizer` holds (`model` names them)."""
+    held = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    params = {name: p for name, p in model.named_parameters() if id(p) in held}
+    if len(params) != len(held):
+        raise KeyError("the optimizer holds parameters that are not the model's")
     seen = set()
     for st in adam_states:
         mu = from_jax_variables(_arrays_only(st.mu))
         nu = from_jax_variables(_arrays_only(st.nu))
         count = float(np.asarray(st.count))
         for name, m in mu.items():
-            p = params[name]
+            p = params.get(name)
+            if p is None:
+                raise KeyError(f"Adam state for {name}, which the optimizer does not hold")
             optimizer.state[p] = {"step": torch.tensor(count),
                                   "exp_avg": m.to(p.device, p.dtype).clone(),
                                   "exp_avg_sq": nu[name].to(p.device, p.dtype).clone()}

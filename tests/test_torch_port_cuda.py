@@ -7,8 +7,8 @@ so it runs on a machine without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
 
 Shapes cover the paths the main-path shapes do not: the scalar gather of K9
-(C or Cout not a multiple of 8), K6's narrow copy units, K7-tz at every
-d_hidden / d_out instantiation, and ragged tile edges. Each backward kernel
+and K10 (C or Cout not a multiple of 8), K6's narrow copy units, K7-tz at
+every d_hidden / d_out instantiation, and ragged tile edges. Each backward kernel
 is held against its plain version, each autograd.Function against plain
 autograd, and a CUDA output must carry a grad_fn (a kernel wrapper that cut
 the graph would train nothing and raise no error).
@@ -136,6 +136,49 @@ def test_k7tz_kernel_matches_plain(dev, n, dh, n_blocks, combine, d_out):
     assert (got - want).abs().max() <= 1e-2 * want.abs().max()
 
 
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 7, 9, 12), 20),        # scalar path, ragged tiles, a half-empty row block
+    ((2, 5, 33, 64), 72),       # vector path, Cout not a multiple of 64
+    ((7, 30, 40, 256), 256),    # layer3 at batch 7
+    ((7, 120, 160, 64), 64),    # layer1 at batch 7: 2,100 row blocks
+])
+def test_k10_matches_plain_and_repeats(dev, shape, cout):
+    """y bit for bit K9-fwd's (the same kernel and tiles); s1 and s2 float32
+    sums of the same products in another order: s2 within 1e-4 of itself,
+    s1 within 1e-4 of sqrt(n * s2), which bounds the sum of |y|; two calls
+    give identical bits (no atomics)."""
+    g = _gen(19)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((3, 3, shape[-1], cout), generator=g, device=dev) / math.sqrt(9 * shape[-1])
+    n0 = K.conv3x3_s1_stats.launches
+    y, s1, s2 = K.conv3x3_s1_stats(x, w)
+    torch.cuda.synchronize()
+    assert K.conv3x3_s1_stats.launches == n0 + 1
+    assert y.dtype == torch.bfloat16 and s1.dtype == s2.dtype == torch.float32
+    assert torch.equal(y, K.conv3x3_s1(x, w))
+    _, p1, p2 = K.conv3x3_s1_stats_plain(x, w)
+    n = shape[0] * shape[1] * shape[2]
+    assert float(((s2 - p2).abs() / p2.clamp_min(1e-30)).max()) <= 1e-4
+    assert float(((s1 - p1).abs() / (n * p2).sqrt().clamp_min(1e-30)).max()) <= 1e-4
+    y2, s1b, s2b = K.conv3x3_s1_stats(x, w)
+    assert torch.equal(y, y2) and torch.equal(s1, s1b) and torch.equal(s2, s2b)
+
+
+def test_k10_function_matches_plain_autograd(dev):
+    """autograd.grad through conv_s1_stats (the fold, then K9-dgrad and
+    K9-wgrad) against autograd of the plain version, under cotangents on y,
+    s1 and s2: the bounds of the K9 Function (dx 3e-2, dW 1e-2 of scale)."""
+    g = _gen(20)
+    x = torch.randn((2, 30, 40, 64), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+    w = (torch.randn((3, 3, 64, 64), generator=g, device=dev) / 24.0).requires_grad_()
+    cts = (torch.randn((2, 30, 40, 64), generator=g, device=dev).to(torch.bfloat16),
+           torch.randn((64,), generator=g, device=dev),
+           1e-3 * torch.randn((64,), generator=g, device=dev))
+    dx, dw = torch.autograd.grad(K.conv_s1_stats(x, w), (x, w), cts)
+    px, pw = torch.autograd.grad(K.conv3x3_s1_stats_plain(x, w), (x, w), cts)
+    assert _rel(dx, px) <= 3e-2 and _rel(dw, pw) <= 1e-2
+
+
 # ----------------------------------------------------------- backward kernels
 
 def _rel(got, want):
@@ -233,6 +276,7 @@ def _k7_case(dev, n, dh, n_blocks, combine, d_out, seed):
     (65536, 128, 5, 3, 1),     # the proposal trunk
     (65536, 128, 5, 3, 16),    # the density trunk
     (4099, 128, 5, 3, 24),     # the Jacobian trunk, ragged tile
+    (65536, 128, 5, 3, 24),    # the Jacobian trunk, as stage 2 runs it backward
 ])
 def test_k7tz_bwd_matches_plain(dev, n, dh, n_blocks, combine, d_out):
     """Same bf16 operations, float32 dx and dW; only the accumulation order
@@ -294,18 +338,22 @@ def test_cuda_outputs_carry_grad_fn(dev):
     assert K.conv_s1(x, w).grad_fn is not None
     lvl = torch.randn((1, 4, 6, 8), generator=g, device=dev, requires_grad=True)
     assert K.pack_2x2_flat_train(lvl).grad_fn is not None
+    assert all(t.grad_fn is not None for t in K.conv_s1_stats(x, w))
     params, cfg, tz, xx, _ = _k7_case(dev, 100, 32, 2, 3, 16, 12)
     tz.requires_grad_()
     assert K.fused_resnet_fc_train_tz(params, cfg, tz, xx, 16).grad_fn is not None
 
-    enc = EncoderResnet(EncoderResnetCfg(norm_type="batch", conv_impl="pallas"),
-                        torch.bfloat16)
-    enc.init_weights(torch.Generator().manual_seed(0))
-    enc = enc.to(dev)
-    pyr = enc(torch.rand((2, 64, 96, 3), generator=g, device=dev), train=True)
-    (pyr.fine.float().sum() + pyr.mid.float().sum() + pyr.coarse.float().sum()).backward()
-    for name, p in enc.named_parameters():
-        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+    for conv_impl in ("pallas", "pallas_fused"):
+        enc = EncoderResnet(EncoderResnetCfg(norm_type="batch", conv_impl=conv_impl),
+                            torch.bfloat16)
+        enc.init_weights(torch.Generator().manual_seed(0))
+        enc = enc.to(dev)
+        n0 = K.conv3x3_s1_stats.launches
+        pyr = enc(torch.rand((2, 64, 96, 3), generator=g, device=dev), train=True)
+        assert K.conv3x3_s1_stats.launches - n0 == (24 if conv_impl == "pallas_fused" else 0)
+        (pyr.fine.float().sum() + pyr.mid.float().sum() + pyr.coarse.float().sum()).backward()
+        for name, p in enc.named_parameters():
+            assert p.grad is not None and bool(p.grad.abs().sum() > 0), (conv_impl, name)
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
@@ -397,6 +445,7 @@ _K7_EXACT = [
     (1000, 64, 2, 0, 8, (32, 32)),               # no latent injection
     (65536, 128, 5, 3, 1, (128, 128, 256)),      # the proposal trunk
     (4099, 128, 5, 3, 24, (128, 128, 256)),      # the Jacobian trunk, ragged tile
+    (65536, 128, 5, 3, 24, (128, 128, 256)),     # the Jacobian trunk of stage 2
 ]
 
 
@@ -478,3 +527,57 @@ def test_k1_bwd_rejects_a_map_too_large(dev):
     with pytest.raises(ValueError):
         K.onehot_scatter_bwd(torch.randn((1, 4, 8), device=dev), idx,
                              torch.zeros((1, 4, 4), device=dev), K.onehot_gather.MAX_TEXELS + 1)
+
+
+def test_stage2_step_on_the_card_freezes_all_but_the_head(dev):
+    """Two stage-2 steps of a small pallas_fused bf16 model with flow
+    supervision: K10 runs 24 times per step and no encoder backward kernel
+    runs; every parameter outside decoder.jacobian_head is bit for bit
+    unchanged; the head and the BatchNorm running statistics move."""
+    from dataclasses import replace
+
+    from neural_jacobian_field_torch.models.decoders import ActionDecoderJacobianMlpCfg
+    from neural_jacobian_field_torch.models.decoders import DensityDecoderMlpCfg
+    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
+    from neural_jacobian_field_torch.training import RawBatch, TrainCfg, create_train_state
+    from neural_jacobian_field_torch.training import train_step
+
+    mlp = MlpCfg(n_blocks=2, d_hidden=32, combine_layer=3)
+    cfg = flagship_model_cfg(conv_impl="pallas_fused", num_proposal_samples=(8,),
+                             num_nerf_samples=8, epipolar_knots=(8, 4, 2))
+    cfg = replace(cfg, action_dim=4, density_decoder=DensityDecoderMlpCfg(mlp=mlp),
+                  action_decoder=ActionDecoderJacobianMlpCfg(mlp=mlp))
+    model = Model(cfg, compute_dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    state = create_train_state(model, TrainCfg(mode="action", lr=1e-3, warm_up_steps=2,
+                                               rays_per_batch=16))
+    g = _gen(21)
+    b, h, w = 2, 64, 96
+    intr = torch.tensor([[1.2, 0.0, 0.5], [0.0, 1.6, 0.5], [0.0, 0.0, 1.0]], device=dev)
+    trgt = torch.eye(4, device=dev)
+    trgt[0, 3] = 0.1
+    batch = RawBatch(
+        ctxt_rgb=torch.rand((b, h, w, 3), generator=g, device=dev),
+        ctxt_extrinsics=torch.eye(4, device=dev).expand(b, 4, 4),
+        ctxt_intrinsics=intr.expand(b, 3, 3), robot_action=torch.randn((b, 4), device=dev),
+        trgt_rgb=torch.rand((b, h, w, 3), generator=g, device=dev),
+        trgt_depth=1.0 + torch.rand((b, h, w, 1), generator=g, device=dev),
+        trgt_extrinsics=trgt.expand(b, 4, 4), trgt_intrinsics=intr.expand(b, 3, 3),
+        near=torch.full((b,), 0.5, device=dev), far=torch.full((b,), 4.0, device=dev),
+        flow=torch.randn((b, h, w, 2), generator=g, device=dev))
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: t.clone() for n, t in model.named_buffers()}
+    K.reset_launch_counts()
+    for updated in (True, False):
+        metrics = train_step(state, batch, g, updated)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["K10"] == 48 and counts["K7-tz-bwd"] == 2, counts
+    assert counts["K9-fwd"] == counts["K9-dgrad"] == counts["K9-wgrad"] == counts["K6-bwd"] == 0
+    assert torch.isfinite(metrics["loss/flow"])
+    for n, p in model.named_parameters():
+        moved = not torch.equal(p.detach(), params0[n])
+        assert moved == n.startswith("decoder.jacobian_head."), n
+    assert all(not torch.equal(t, stats0[n]) for n, t in model.named_buffers()
+               if n.endswith("running_mean"))
