@@ -13,19 +13,25 @@ reference-numerics per-sample pyramid gathers: K1 on the coarse level, the
 K7 trunks that project the latent themselves):
 
   1. card and build: the card's name and power limit, the kernels built from
-     csrc/ with nvcc (TF32 off for every float32 reference);
+     csrc/ with nvcc, and where the toolkit has cuobjdump the HGMMA /
+     UTMALDG / HMMA counts of the K9 kernels' SASS (every TMA kernel must
+     hold wgmma and TMA loads and no legacy mma) (TF32 off for every
+     float32 reference);
   2. each hand-written kernel against its plain PyTorch version at the
      shapes the main paths give it, with error, tolerance, median CUDA-event
      times of both, the least time the card could take (bound: the larger
      of the bytes over 3.35 TB/s and the bf16 operations over 989 TFLOP/s)
      and, where one PyTorch call computes the same function, that call's
      time: the forward kernels (K9-fwd, K6-fwd, K5, K7-tz-fwd, K7-fwd,
-     K1-fwd) at the serving shapes (K1-fwd at the train step's), K10 (the
-     conv with BatchNorm statistics) at the 24 convs of a batch-7 encode,
-     its y bit for bit K9-fwd's, its yardstick F.conv2d followed by the two
-     reductions; the backward kernels (K9-dgrad, K9-wgrad, K6-bwd,
-     K7-tz-bwd and K7-bwd at d_out 1, 16 and 24, K1-bwd) at the train
-     step's; K10, K1-bwd and K7-bwd twice, for identical bits;
+     K1-fwd) at the serving shapes (K1-fwd at the train step's; K9-fwd also
+     at batch 7, on a line of its own), K10 (the conv with BatchNorm
+     statistics) at the 24 convs of a batch-7 encode, its y bit for bit
+     K9-fwd's, its yardstick F.conv2d followed by the two reductions; the
+     backward kernels (K9-dgrad, K9-wgrad, K6-bwd, K7-tz-bwd and K7-bwd at
+     d_out 1, 16 and 24, K1-bwd) at the train step's; K10, K1-bwd and K7-bwd
+     twice, for identical bits. The conv rows take bf16 weights, as the
+     model passes them, and print beside the wrapper time the kernels'
+     device time (torch.profiler) and the achieved TFLOP/s;
   3. serving, per mode: a full 480x640 target view rendered in 2048-ray
      chunks from a 480x640 context image (launch counters reset just
      before, read just after), then one chunk again, stage by stage, with
@@ -51,12 +57,13 @@ K7 trunks that project the latent themselves):
      peak memory, every parameter outside decoder.jacobian_head bit for bit
      unchanged and the BatchNorm running statistics moved;
   7. timings and peak memory.
-Any failed phase exits non-zero. Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result. The
-last three lines are the card line, the kernel table and the device record,
-the last two each one JSON object; the numbers of each mode's train phase
-are on the lines that start with "train", those of stage 2 on the lines
-that start with "action".
+Every main path also checks that no K9 wrapper fell back to its legacy
+kernel (C or Cout not a multiple of 8). Any failed phase exits non-zero.
+Without a CUDA device, or without the package beside this script, it exits
+non-zero and prints no result. The last three lines are the card line, the
+kernel table and the device record, the last two each one JSON object; the
+numbers of each mode's train phase are on the lines that start with "train",
+those of stage 2 on the lines that start with "action".
 """
 
 import argparse
@@ -130,6 +137,67 @@ def cuda_time_ms(fn, reps=10, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=5):
+    """Device milliseconds of fn() per call: the sum of the device intervals
+    of its kernels (and copies and fills) under torch.profiler, over reps
+    calls after one warm-up. Spans the profiler mirrors from host ranges are
+    dropped."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():  # "clears events at the end of each cycle"
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    host = {e.name for e in events if e.device_type == DeviceType.CPU}
+    us = sum(e.time_range.elapsed_us() for e in events
+             if e.device_type == DeviceType.CUDA and e.name not in host)
+    check(us > 0, "the profiler recorded no device time")
+    return us / reps / 1e3
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel: (HGMMA, UTMALDG, HMMA)} for the K9 kernels in the built
+    library's SASS, or {} where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if re.search(r"conv3x3|wgrad", m.group(1)) else None
+            if fn:
+                counts[fn] = [0, 0, 0]
+        elif fn:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "UTMALDG" in line
+            counts[fn][2] += bool(re.search(r"\bHMMA\b", line))
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def check_no_legacy(label):
+    """The K9 wrappers' legacy kernels (C or Cout not a multiple of 8) ran no
+    time since the counters were reset."""
+    from neural_jacobian_field_torch.ops import kernels as K
+
+    legacy = K.legacy_launch_counts()
+    check(not any(legacy.values()), f"{label}: legacy K9 kernels launched {legacy}")
 
 
 def nbytes(*tensors) -> int:
@@ -262,29 +330,51 @@ def kernel_checks(dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
 
-    # K9-fwd: the encoder's stride-1 3x3 convs at B=1
-    row = Row()
-    for hh, ww, c, count in K9_SHAPES:
-        x = torch.randn((1, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
-        w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
-        got, want = K.conv3x3_s1(x, w), K.conv3x3_s1_plain(x, w)
-        err = (got.float() - want.float()).abs()
-        tol_ok = bool((err <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
-        rel = float((err / want.float().abs().clamp_min(1e-3)).max())
-        print(f"K9-fwd 1x{hh}x{ww}x{c}->{c}: max_abs_err {float(err.max()):.3e} "
-              f"max_rel_err {rel:.3e} (tol: 2^-7*|ref| + 1e-3 per element) ok={tol_ok}")
-        check(tol_ok, "K9-fwd disagrees with its plain version")
-        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
-        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        k_ms = cuda_time_ms(lambda: K.conv3x3_s1(x, w))
-        p_ms = cuda_time_ms(lambda: K.conv3x3_s1_plain(x, w))
-        l_ms = cuda_time_ms(lambda: F.conv2d(xc, wc, padding=1))
-        print_times("", k_ms, p_ms, l_ms)
-        row.add(err.max(), count * k_ms, count * p_ms, count * nbytes(x, w, got),
-                count * 2.0 * hh * ww * 9 * c * c, count * l_ms)
-    rows["K9-fwd"] = row.record()
-    print(f"K9-fwd per encode (24 convs): kernel {row.ms:.4f} ms, plain {row.plain_ms:.4f} ms, "
-          f"cuDNN {row.library_ms:.4f} ms, bound {rows['K9-fwd']['bound_ms']:.4f} ms")
+    # K9-fwd: the encoder's stride-1 3x3 convs at B=1 (the table's row) and
+    # at batch 7 (the pallas train step's), with bf16 weights as Conv.forward
+    # passes them; cuDNN gets the same weights, pre-cast
+    for b in (1, TRAIN_B):
+        row, dev_ms, lib_dev, b2b = Row(), 0.0, 0.0, [0.0, 0.0]
+        for hh, ww, c, count in K9_SHAPES:
+            x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
+            w = (torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)).to(
+                torch.bfloat16)
+            got, want = K.conv3x3_s1(x, w), K.conv3x3_s1_plain(x, w)
+            err = (got.float() - want.float()).abs()
+            tol_ok = bool((err <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
+            rel = float((err / want.float().abs().clamp_min(1e-3)).max())
+            print(f"K9-fwd {b}x{hh}x{ww}x{c}->{c}: max_abs_err {float(err.max()):.3e} "
+                  f"max_rel_err {rel:.3e} (tol: 2^-7*|ref| + 1e-3 per element) ok={tol_ok}")
+            check(tol_ok, "K9-fwd disagrees with its plain version")
+            xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+            wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            k_ms = cuda_time_ms(lambda: K.conv3x3_s1(x, w))
+            p_ms = cuda_time_ms(lambda: K.conv3x3_s1_plain(x, w))
+            l_ms = cuda_time_ms(lambda: F.conv2d(xc, wc, padding=1))
+            d_ms = device_ms(lambda: K.conv3x3_s1(x, w))
+            ld_ms = device_ms(lambda: F.conv2d(xc, wc, padding=1))
+            flops = 2.0 * b * hh * ww * 9 * c * c
+            print_times("", k_ms, p_ms, l_ms, extra=f" (device {d_ms:.4f}, "
+                        f"{flops / d_ms / 1e9:.1f} TFLOP/s; library's device {ld_ms:.4f})")
+            if b == 1:  # one call's time is mostly launch latency: also 20 in a row
+                k20, l20 = (cuda_time_ms(lambda: [f() for _ in range(20)]) / 20 for f in (
+                    lambda: K.conv3x3_s1(x, w), lambda: F.conv2d(xc, wc, padding=1)))
+                print(f"   back to back, ms per call: kernel {k20:.4f} cuDNN {l20:.4f}")
+                b2b = [b2b[0] + count * k20, b2b[1] + count * l20]
+            row.add(err.max(), count * k_ms, count * p_ms, count * nbytes(x, w, got),
+                    count * flops, count * l_ms)
+            dev_ms += count * d_ms
+            lib_dev += count * ld_ms
+        rec = row.record()
+        print(f"K9-fwd per encode at batch {b} (24 convs): kernel {row.ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms ({row.flops / dev_ms / 1e9:.1f} TFLOP/s; cuDNN's device "
+              f"{lib_dev:.4f} ms), plain "
+              f"{row.plain_ms:.4f} ms, cuDNN {row.library_ms:.4f} ms, kernel/library "
+              f"{row.ms / row.library_ms:.3f}, bound {rec['bound_ms']:.4f} ms"
+              + (f"; back to back kernel {b2b[0]:.4f} ms, cuDNN {b2b[1]:.4f} ms, kernel/library "
+                 f"{b2b[0] / b2b[1]:.3f}" if b == 1 else ""))
+        if b == 1:
+            rows["K9-fwd"] = rec
 
     # K6-fwd: fine + mid per encode, coarse per chunk (epipolar)
     row = Row()
@@ -366,10 +456,11 @@ def k10_checks(dev):
     from neural_jacobian_field_torch.ops import kernels as K
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    b, row = TRAIN_B, Row()
+    b, row, dev_ms, lib_dev = TRAIN_B, Row(), 0.0, 0.0
     for hh, ww, c, count in K9_SHAPES:
         x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
-        w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
+        w = (torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)).to(
+            torch.bfloat16)
         y, s1, s2 = K.conv3x3_s1_stats(x, w)
         y2, s1b, s2b = K.conv3x3_s1_stats(x, w)
         same_y = bool(torch.equal(y, K.conv3x3_s1(x, w)))
@@ -387,7 +478,7 @@ def k10_checks(dev):
         check(same_y and repeat and e1 <= 1e-4 and e2 <= 1e-4,
               "K10 disagrees with K9-fwd or its plain version, or does not repeat")
         xc = x.permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
         def yardstick():  # cuDNN conv, then the two float32 reductions
             yy = F.conv2d(xc, wc, padding=1).float()
@@ -396,14 +487,22 @@ def k10_checks(dev):
         k_ms = cuda_time_ms(lambda: K.conv3x3_s1_stats(x, w))
         p_ms = cuda_time_ms(lambda: K.conv3x3_s1_stats_plain(x, w))
         l_ms = cuda_time_ms(yardstick)
-        print_times("", k_ms, p_ms, l_ms)
+        d_ms = device_ms(lambda: K.conv3x3_s1_stats(x, w))
+        ld_ms = device_ms(yardstick)
+        flops = 2.0 * n * 9 * c * c
+        print_times("", k_ms, p_ms, l_ms, extra=f" (device {d_ms:.4f}, "
+                    f"{flops / d_ms / 1e9:.1f} TFLOP/s; yardstick's device {ld_ms:.4f})")
         row.add(max(float((s1 - p1).abs().max()), float((s2 - p2).abs().max())),
                 count * k_ms, count * p_ms, count * nbytes(x, w, y, s1, s2),
-                count * 2.0 * n * 9 * c * c, count * l_ms)
+                count * flops, count * l_ms)
+        dev_ms += count * d_ms
+        lib_dev += count * ld_ms
     rec = row.record()
-    print(f"K10 per batch-7 encode (24 convs): kernel {row.ms:.4f} ms, plain "
-          f"{row.plain_ms:.4f} ms, yardstick F.conv2d + sum + sum of squares "
-          f"{row.library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    print(f"K10 per batch-7 encode (24 convs): kernel {row.ms:.4f} ms, device {dev_ms:.4f} ms "
+          f"({row.flops / dev_ms / 1e9:.1f} TFLOP/s; the yardstick's device {lib_dev:.4f} ms), "
+          f"plain {row.plain_ms:.4f} ms, yardstick "
+          f"F.conv2d + sum + sum of squares {row.library_ms:.4f} ms, kernel/library "
+          f"{row.ms / row.library_ms:.3f}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     torch.cuda.empty_cache()
     return {"K10": rec}
 
@@ -425,10 +524,11 @@ def backward_kernel_checks(dev):
     b = TRAIN_B
 
     # K9-wgrad and K9-dgrad at the three encoder shapes
-    wrow, drow = Row(), Row()
+    wrow, drow, wdev, ddev, wlib, dlib = Row(), Row(), 0.0, 0.0, 0.0, 0.0
     for hh, ww, c, count in K9_SHAPES:
         x = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
-        w = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
+        w = (torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)).to(
+            torch.bfloat16)
         gy = torch.randn((b, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
         # wgrad: the same bf16 products summed in float32 in another order
         got, want = K.conv3x3_s1_wgrad(x, gy), K.conv3x3_s1_wgrad_plain(x, gy)
@@ -443,7 +543,7 @@ def backward_kernel_checks(dev):
         ok = bool((derr <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
         # the whole Function: autograd.grad through conv_s1 against plain
         # autograd, which adds the nine taps' bf16 gradients in bf16
-        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        xr, wr = x.clone().requires_grad_(), w.float().requires_grad_()
         dx, dw = torch.autograd.grad(K.conv_s1(xr, wr), (xr, wr), gy)
         px, pw = torch.autograd.grad(K.conv3x3_s1_plain(xr, wr), (xr, wr), gy)
         fx, fw = rel_err(dx, px), rel_err(dw, pw)
@@ -453,24 +553,37 @@ def backward_kernel_checks(dev):
         check(ok and fx <= 3e-2 and fw <= 1e-2, "K9 backward disagrees with plain autograd")
         del xr, wr, dx, dw, px, pw
         xc, gyc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         tw = (cuda_time_ms(lambda: K.conv3x3_s1_wgrad(x, gy)),
               cuda_time_ms(lambda: K.conv3x3_s1_wgrad_plain(x, gy)),
               cuda_time_ms(lambda: nn_grad.conv2d_weight(xc, wc.shape, gyc, padding=1)))
         td = (cuda_time_ms(lambda: K.conv3x3_s1_dgrad(gy, w)),
               cuda_time_ms(lambda: K.conv3x3_s1_dgrad_plain(gy, w)),
               cuda_time_ms(lambda: nn_grad.conv2d_input(xc.shape, wc, gyc, padding=1)))
-        print_times("wgrad", *tw)
-        print_times("dgrad", *td)
-        flops = count * 2.0 * b * hh * ww * 9 * c * c
+        dw_ms = device_ms(lambda: K.conv3x3_s1_wgrad(x, gy))
+        dd_ms = device_ms(lambda: K.conv3x3_s1_dgrad(gy, w))
+        lw_ms = device_ms(lambda: nn_grad.conv2d_weight(xc, wc.shape, gyc, padding=1))
+        ldd_ms = device_ms(lambda: nn_grad.conv2d_input(xc.shape, wc, gyc, padding=1))
+        conv_flops = 2.0 * b * hh * ww * 9 * c * c
+        print_times("wgrad", *tw, extra=f" (device {dw_ms:.4f}, "
+                    f"{conv_flops / dw_ms / 1e9:.1f} TFLOP/s; library's device {lw_ms:.4f})")
+        print_times("dgrad", *td, extra=f" (device {dd_ms:.4f}, "
+                    f"{conv_flops / dd_ms / 1e9:.1f} TFLOP/s; library's device {ldd_ms:.4f})")
+        wdev += count * dw_ms
+        ddev += count * dd_ms
+        wlib += count * lw_ms
+        dlib += count * ldd_ms
+        flops = count * conv_flops
         wrow.add(wabs, count * tw[0],
                  count * tw[1], count * nbytes(x, gy, wgot), flops, count * tw[2])
         drow.add(derr.max(), count * td[0], count * td[1], count * nbytes(gy, w, got), flops,
                  count * td[2])
     rows["K9-wgrad"], rows["K9-dgrad"] = wrow.record(), drow.record()
-    print(f"K9 backward per train step (24 convs): wgrad kernel {wrow.ms:.4f} plain "
-          f"{wrow.plain_ms:.4f} cuDNN {wrow.library_ms:.4f} ms; dgrad kernel {drow.ms:.4f} "
-          f"plain {drow.plain_ms:.4f} cuDNN {drow.library_ms:.4f} ms")
+    for name, r, d, ld in (("wgrad", wrow, wdev, wlib), ("dgrad", drow, ddev, dlib)):
+        print(f"K9 backward per train step (24 convs): {name} kernel {r.ms:.4f} ms, device "
+              f"{d:.4f} ms ({r.flops / d / 1e9:.1f} TFLOP/s; cuDNN's device {ld:.4f} ms), plain "
+              f"{r.plain_ms:.4f}, cuDNN {r.library_ms:.4f} ms, kernel/library "
+              f"{r.ms / r.library_ms:.3f}")
     torch.cuda.empty_cache()
 
     # K6-bwd at the fine, mid and coarse levels of batch 7
@@ -732,6 +845,7 @@ def serve_phase(dev, model, cam, robot, timings, mode):
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = K.launch_counts()
+    check_no_legacy(f"{mode} serving")
     timings[tag + "render_s"] = render_s
     timings[tag + "render_rays_per_s"] = H * W / render_s
     timings[tag + "render_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -994,6 +1108,7 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
         train_step(state, batch, g, updated)
         torch.cuda.synchronize()
         counts[kind] = K.launch_counts()
+        check_no_legacy(f"{label} {kind} step")
         print(f"{label} launches per {kind} step: {counts[kind]}")
     conv = {"K10" if fused else "K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K5": 1}
     for kind, n_bwd in (("update", 2), ("frozen", 1)):
@@ -1149,6 +1264,7 @@ def action_phase(dev, timings, mode, supervision, stage1):
         train_step(state, batch, g, updated)
         torch.cuda.synchronize()
         counts[kind] = K.launch_counts()
+        check_no_legacy(f"{label} {kind} step")
         print(f"{label} launches per {kind}-gate step: {counts[kind]}")
         check(counts[kind] == want, f"{label} {kind} step launches {counts[kind]} != {want}")
 
@@ -1197,8 +1313,11 @@ def profile_train(dev, mode, top=15):
     device event), the device's busy time (the union of its kernel, copy and
     set intervals, so overlapping work counts once), the idle share 1 - busy
     / wall, the number of device events, the device time under the
-    optimizer step, and the `top` kernels by device time."""
+    optimizer step, the `top` kernels by device time, and the device time
+    and launches of the stride-1 conv kernels (K9-fwd or K10, K9-dgrad,
+    K9-wgrad and their ordered sums) by kernel."""
     import collections
+    import re
 
     import torch
     from torch.autograd import DeviceType
@@ -1247,6 +1366,20 @@ def profile_train(dev, mode, top=15):
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
             print(f"profile {mode} {kind}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<5d} "
                   f"{name[:90]}")
+        # the stride-1 conv kernels (K9-fwd / K10, K9-dgrad, K9-wgrad) and
+        # their ordered-sum passes
+        conv = collections.defaultdict(lambda: [0.0, 0])
+        for name, (us, n) in by_name.items():
+            m = re.search(r"(conv3x3_(tma|legacy)_kernel|wgrad_(tma|legacy)_kernel|"
+                          r"stats_sum_kernel|sum_splits_kernel)(<[^>]*>)?", name)
+            if m:
+                conv[m.group(0)][0] += us
+                conv[m.group(0)][1] += n
+        print(f"profile {mode} {kind} conv kernels: "
+              f"{sum(v[0] for v in conv.values()) / 1e3:.3f} ms in "
+              f"{sum(v[1] for v in conv.values())} launches; "
+              + "; ".join(f"{k} {v[0] / 1e3:.3f} ms x{v[1]}"
+                          for k, v in sorted(conv.items(), key=lambda kv: -kv[1][0])))
 
 
 def main() -> int:
@@ -1293,6 +1426,14 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+        sass = sass_counts(lib.path)
+        for fn, (hgmma, utmaldg, hmma) in sass.items():
+            print(f"  SASS {fn[:96]}: HGMMA {hgmma} UTMALDG {utmaldg} HMMA {hmma}")
+        tma = {fn: c for fn, c in sass.items() if "tma_kernel" in fn}
+        check(not sass or (tma and all(c[0] and c[1] and not c[2] for c in tma.values())),
+              "a K9 TMA kernel lacks HGMMA or UTMALDG in its SASS, or kept HMMA")
+        print(f"SASS: {len(tma)} TMA kernels with HGMMA and UTMALDG" if sass
+              else "SASS: no cuobjdump in this toolkit")
         if args.profile:
             profile_train(dev, args.profile)
             return 0

@@ -1,8 +1,9 @@
-// Shared by the K9 kernels (conv3x3_s1.cu, conv3x3_wgrad.cu): reads of the
-// implicit [B*H*W, 9C] operand of a stride-1 3x3 same-pad NHWC convolution.
-// Row m is output pixel (b, y, x); column k = (dy*3 + dx)*C + c is input
-// channel c of tap (dy, dx), i.e. x[b, y+dy-1, x+dx-1, c], zero outside the
-// image and outside [0, M) x [0, K).
+// Shared by the legacy K9 kernels (conv3x3_s1.cu, conv3x3_wgrad.cu): reads of
+// the implicit [B*H*W, 9C] operand of a stride-1 3x3 same-pad NHWC
+// convolution. Row m is output pixel (b, y, x); column k = (dy*3 + dx)*C + c
+// is input channel c of tap (dy, dx), i.e. x[b, y+dy-1, x+dx-1, c], zero
+// outside the image and outside [0, M) x [0, K). The TMA kernels take the
+// same operand as boxes of x and need none of this.
 
 #pragma once
 
@@ -28,16 +29,6 @@ __device__ __forceinline__ long long implicit_offset(int m, int k, int M, int K,
   const int ix = xx + dx - 1;
   if (iy < 0 || iy >= H || ix < 0 || ix >= W) return -1;
   return ((static_cast<long long>(b) * H + iy) * W + ix) * C + c;
-}
-
-// Eight consecutive columns k..k+7 of row m (C % 8 == 0, so they never
-// straddle a tap).
-__device__ __forceinline__ uint4 load_x_vec(const __nv_bfloat16* __restrict__ x,
-                                            int m, int k, int M, int K, int H,
-                                            int W, int C) {
-  const long long off = implicit_offset(m, k, M, K, H, W, C);
-  if (off < 0) return make_uint4(0u, 0u, 0u, 0u);
-  return *reinterpret_cast<const uint4*>(x + off);
 }
 
 __device__ __forceinline__ __nv_bfloat16 load_x_elem(

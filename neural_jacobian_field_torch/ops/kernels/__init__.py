@@ -2,7 +2,8 @@
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
 PyTorch version (same module, `*_plain`) for a CPU tensor, and counts its
-launches in a plain integer attribute `launches`. The differentiable entry
+launches in a plain integer attribute `launches` (the K9 wrappers also those
+of their legacy kernel in `legacy_launches`). The differentiable entry
 points (`conv_s1`, `conv_s1_stats`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
 `fused_resnet_fc_train_tz`, and `ops/pixel_gather.gather_bilinear_onehot`)
 are autograd.Functions over these wrappers.
@@ -60,6 +61,15 @@ def launch_counts() -> dict:
     return {name: k[0].launches for name, k in KERNELS.items()}
 
 
+def legacy_launch_counts() -> dict:
+    """Launches of the K9 wrappers that went to the legacy kernel (C or Cout
+    not a multiple of 8)."""
+    return {name: k[0].legacy_launches for name, k in KERNELS.items()
+            if hasattr(k[0], "legacy_launches")}
+
+
 def reset_launch_counts() -> None:
     for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "legacy_launches"):
+            wrapper.legacy_launches = 0

@@ -3,7 +3,8 @@
 All CUDA sources under `neural_jacobian_field_torch/csrc/` are compiled by
 `nvcc`, one process per source, all started together, and linked into ONE
 shared library with a plain C interface, loaded through `ctypes` (no PyTorch
-headers, so a build takes seconds, not minutes). The
+headers, so a build takes seconds, not minutes), against the CUDA driver
+library (`-lcuda`: the K9 kernels encode TMA tensor maps). The
 library is built at first use into `build/torch_kernels/` at the repository
 root (listed in .gitignore), under a name that hashes the sources and flags,
 so an edited source is rebuilt and concurrent processes never load a half-
@@ -35,9 +36,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every exported entry point: (argtypes, restype int = cudaError_t)
 _SIGNATURES = {
-    "njf_conv3x3_s1_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "njf_conv3x3_s1_fwd_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "njf_conv3x3_s1_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "njf_conv3x3_s1_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "njf_conv3x3_s1_fwd_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P),
+    "njf_conv3x3_s1_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "njf_pack2x2_fwd": (_P, _P, _I, _I, _I, ctypes.c_longlong, _P),
     "njf_pack2x2_bwd": (_P, _P, _I, _I, _I, _I, _I, _P),
     "njf_pdf_resample": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
@@ -60,6 +62,16 @@ def _find_nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: building "
                        "the port's CUDA kernels needs the CUDA toolkit")
+
+
+def _link_flags(nvcc: str) -> list:
+    """The driver API (cuTensorMapEncodeTiled, for the TMA tensor maps):
+    -lcuda, with the toolkit's stub library on the search path where the
+    driver's own libcuda.so is not."""
+    root = Path(nvcc).resolve().parents[1]
+    stubs = [d for d in (root / "lib64" / "stubs", root / "targets" / "x86_64-linux" / "lib" /
+                         "stubs") if (d / "libcuda.so").exists()]
+    return [f"-L{d}" for d in stubs[:1]] + ["-lcuda"]
 
 
 def _sources():
@@ -114,7 +126,8 @@ def _compile(out: Path) -> str:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
         tmp = Path(tmpdir) / out.name
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True, text=True)
+                               *map(str, objs), *_link_flags(nvcc)],
+                              capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}\n{link.stderr}")
@@ -144,10 +157,12 @@ def load_kernels() -> KernelLibrary:
 
 
 def stream_of(t) -> int:
-    """PyTorch's current CUDA stream on t's device, as an integer handle."""
+    """PyTorch's current CUDA stream on t's device, as an integer handle (the
+    raw handle, without building a torch.cuda.Stream: ~0.1 against ~4 µs of
+    host time per call)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def dispatch(name: str, t, cuda_fn, plain_fn):

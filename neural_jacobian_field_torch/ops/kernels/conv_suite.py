@@ -5,10 +5,11 @@ Replaces neural_jacobian_field_tpu/ops/pallas/conv_suite.py. The stride-1
 3x3 conv is the `_conv_s1` custom_vjp there and `conv_s1` here, a
 torch.autograd.Function over three kernel wrappers:
   - K9-fwd (`conv3x3_s1`, TPU `_s1_fwd`): the hand-written implicit GEMM in
-    csrc/conv3x3_s1.cu;
+    csrc/conv3x3_s1.cu (TMA-fed wgmma);
   - K9-dgrad (`conv3x3_s1_dgrad`): the SAME kernel on the cotangent and the
     rotated, transposed weights (a stride-1 same-pad conv's input gradient is
-    itself such a conv), counted under its own name;
+    itself such a conv), which it reads from the forward's w itself, counted
+    under its own name;
   - K9-wgrad (`conv3x3_s1_wgrad`, TPU `_s1_wgrad`): csrc/conv3x3_wgrad.cu,
     float32 dW [3, 3, C, Cout], cast to w's dtype by the Function.
 K10 (`conv3x3_s1_stats`, TPU `_s1_fwd_stats`) is K9-fwd's kernel with a
@@ -17,9 +18,11 @@ the output over (B, H, W), from the float32 accumulator, for training-mode
 BatchNorm (conv_impl="pallas_fused"). `ConvS1Stats` is the JAX
 `_conv_s1_stats`: its backward folds the two statistics' cotangents into one
 output cotangent and hands it to K9-dgrad and K9-wgrad.
-The kernels' headers say what bounds them. The weights go to K9-fwd as the
-[9C, Cout] matrix of the TPU kernel, tap-major (row = (dy*3 + dx)*C + c): an
-HWIO kernel reshaped, no copy. The kernels take every stride-1 shape;
+The kernels' headers say what bounds them. The weights go to the kernels as
+the HWIO tensor, no copy. `conv_plan` and `wgrad_plan` choose each shape's
+tiles, grid and pixel slices; shapes with C or Cout not a multiple of 8
+(which TMA cannot take) go to a legacy WMMA kernel, counted apart in each
+wrapper's `legacy_launches`. The kernels take every stride-1 shape;
 `conv3x3_supported`'s row-block gate is a TPU tiling limit and is not
 carried over. The stride-2 3x3 and the 1x1 projections were plain XLA in JAX
 and stay plain PyTorch convolutions here.
@@ -31,6 +34,10 @@ kernels take bf16), a CPU tensor takes the plain version. The Function looks
 its wrappers up in this module at call time, so swapping a wrapper for its
 plain version here swaps it for the forward and the backward alike.
 """
+
+import contextlib
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -97,64 +104,204 @@ def conv3x3_s1_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw.reshape(3, 3, c, cout)
 
 
-def _conv_operands(x: torch.Tensor, w: torch.Tensor, name: str):
+# Streaming multiprocessors of an H100 SXM: the default of the plans; the
+# wrappers pass the card's own count.
+SMS = 132
+
+
+class ConvPlan(NamedTuple):
+    """How K9-fwd, K9-dgrad and K10 run one shape. bn 0: the legacy kernel
+    (C or Cout not a multiple of 8), 64-pixel row blocks. Otherwise (bn 64)
+    the TMA kernel: each block a th x tw patch of output pixels (th * tw =
+    128, or 64 where that gives too few blocks; tw 8 or 16) and 64 output
+    channels, over the K steps of `k_steps(C)`."""
+    th: int
+    tw: int
+    bn: int
+    tiles_y: int
+    tiles_x: int
+    m_tiles: int  # row blocks, in (b, ty, tx) order: K10's partial rows
+    n_tiles: int
+
+    @property
+    def legacy(self) -> bool:
+        return self.bn == 0
+
+
+class WgradPlan(NamedTuple):
+    """How K9-wgrad runs one shape. nh 0: the legacy kernel, the B*H*W rows
+    cut into `splits` slices of `per` rows. Otherwise the TMA kernel: dW in
+    k_tiles = 3 tap columns x ceil(C / 64) chunks by n_tiles of 64 nh output
+    channels, the p_tiles th x tw patches (th * tw = 64, tw 8, 16 or 32)
+    cut into `splits` slices of `per` patches, each slice one float32
+    partial, the partials added in slice order."""
+    th: int
+    tw: int
+    nh: int
+    tiles_y: int
+    tiles_x: int
+    p_tiles: int
+    k_tiles: int
+    n_tiles: int
+    splits: int
+    per: int
+
+    @property
+    def legacy(self) -> bool:
+        return self.nh == 0
+
+    def slices(self):
+        """[begin, end) of each slice, in the order the partials are added."""
+        return [(s * self.per, min(self.p_tiles, (s + 1) * self.per)) for s in range(self.splits)]
+
+
+def k_steps(c: int):
+    """The TMA forward kernel's K loop, in order: (tap, first channel), tap =
+    dy * 3 + dx: per 64-channel chunk of C, per tap column dx (one ring
+    stage, one halo'd box of x), the three taps dy."""
+    return [(dy * 3 + dx, c0) for c0 in range(0, c, 64) for dx in range(3) for dy in range(3)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _patch(h: int, w: int, rows: int, widths=None):
+    """The th x tw patch of `rows` pixels (powers of two, each at most 256;
+    tw in `widths` where given) that covers an h x w image with the fewest
+    pixels, then the squarest."""
+    best = None
+    th = 1
+    while th <= rows:
+        tw = rows // th
+        if th <= 256 and tw <= 256 and (widths is None or tw in widths):
+            area = _cdiv(h, th) * th * _cdiv(w, tw) * tw
+            key = (area, abs(th.bit_length() - tw.bit_length()), th)
+            best = min(best or (key, th, tw), (key, th, tw))
+        th *= 2
+    return best[1], best[2]
+
+
+# patch widths of the TMA kernels: a multiple of 8 rows per patch row (the
+# shifted halo tiles stay 1,024-byte aligned); the forward kernel is built
+# for 8 and 16, the wgrad kernel takes up to 32
+_FWD_WIDTHS, _WGRAD_WIDTHS = (8, 16), (8, 16, 32)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan(b: int, h: int, w: int, c: int, cout: int, sms: int = SMS,
+              patch: tuple | None = None) -> ConvPlan:
+    """The plan of a stride-1 conv of x [b, h, w, c] to cout channels (for
+    the dgrad c is the forward's Cout and cout its C): 128-pixel patches
+    where they give five blocks per SM (of `sms`) or more, else 64-pixel
+    ones (the patch sizes measured fastest at the encoder's shapes on an
+    H100). `patch` forces (th, tw) (tests of ragged edges)."""
+    if c % 8 or cout % 8:
+        return ConvPlan(0, 0, 0, 0, 0, _cdiv(b * h * w, 64), _cdiv(cout, 64))
+    if patch is None:
+        th, tw = _patch(h, w, 128, _FWD_WIDTHS)
+        if b * _cdiv(h, th) * _cdiv(w, tw) * _cdiv(cout, 64) < 5 * sms:
+            th, tw = _patch(h, w, 64, _FWD_WIDTHS)
+    else:
+        th, tw = patch
+    ty, tx = _cdiv(h, th), _cdiv(w, tw)
+    m_tiles = b * ty * tx
+    return ConvPlan(th, tw, 64, ty, tx, m_tiles, _cdiv(cout, 64))
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(b: int, h: int, w: int, c: int, cout: int, sms: int = SMS,
+               patch: tuple | None = None) -> WgradPlan:
+    """The plan of K9-wgrad for x [b, h, w, c] and g [b, h, w, cout]: as many
+    pixel slices as keep the grid within one wave of `sms` blocks (the
+    legacy kernel: about four blocks per SM, slices of at least 256 rows, a
+    multiple of its 32). `patch` forces (th, tw)."""
+    if c % 8 or cout % 8:
+        rows, k_tiles, n_tiles = b * h * w, _cdiv(9 * c, 64), _cdiv(cout, 64)
+        splits = max(1, min(_cdiv(rows, 256), _cdiv(4 * sms, k_tiles * n_tiles)))
+        per = _cdiv(_cdiv(rows, splits), 32) * 32
+        return WgradPlan(0, 0, 0, 0, 0, rows, k_tiles, n_tiles, _cdiv(rows, per), per)
+    th, tw = patch or _patch(h, w, 64, _WGRAD_WIDTHS)
+    ty, tx = _cdiv(h, th), _cdiv(w, tw)
+    p_tiles = b * ty * tx
+    nh = 2 if cout > 64 else 1
+    k_tiles, n_tiles = 3 * _cdiv(c, 64), _cdiv(cout, 64 * nh)
+    per = _cdiv(p_tiles, max(1, min(p_tiles, sms // (k_tiles * n_tiles))))
+    return WgradPlan(th, tw, nh, ty, tx, p_tiles, k_tiles, n_tiles, _cdiv(p_tiles, per), per)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _conv_operands(x: torch.Tensor, w: torch.Tensor, name: str, dgrad: bool = False):
     """The stride-1 kernels' operands, checked: x contiguous bf16 NHWC and w
-    as the bf16 [9C, Cout] matrix on x's device."""
-    if x.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[-1]:
+    the bf16 HWIO kernel on x's device, [3, 3, C, Cout] (the dgrad's: the
+    forward's [3, 3, Cout, C], which the kernel reads rotated)."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3) \
+            or w.shape[3 if dgrad else 2] != x.shape[-1]:
         raise ValueError(f"{name}: x {tuple(x.shape)} / w {tuple(w.shape)}")
     x = x.contiguous()
     check_cuda_tensor(x, f"{name} x", torch.bfloat16, 4)
-    wk = w.reshape(-1, w.shape[-1]).to(device=x.device, dtype=torch.bfloat16).contiguous()
-    check_cuda_tensor(wk, f"{name} w", torch.bfloat16, 2)
-    return x, wk
+    w = w.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    check_cuda_tensor(w, f"{name} w", torch.bfloat16, 4)
+    return x, w
 
 
-def _conv3x3_s1_cuda(x: torch.Tensor, w: torch.Tensor, counter) -> torch.Tensor:
-    """Launch K9-fwd's kernel, counted on `counter` (its wrapper)."""
-    x, wk = _conv_operands(x, w, "conv3x3_s1")
+def _on_device(t):
+    """t's device as the current one for a launch; nothing to switch (and no
+    host time spent) when it already is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def _count(wrapper, legacy: bool) -> None:
+    wrapper.launches += 1
+    wrapper.legacy_launches += legacy
+
+
+def _conv3x3_s1_cuda(x: torch.Tensor, w: torch.Tensor, counter, dgrad: bool = False,
+                     plan: ConvPlan | None = None) -> torch.Tensor:
+    """Launch K9-fwd's kernel (or, with dgrad, the input gradient from the
+    forward's w), counted on `counter` (its wrapper)."""
+    x, w = _conv_operands(x, w, "conv3x3_s1", dgrad)
     b, h, wd, c = x.shape
-    cout = wk.shape[-1]
+    cout = w.shape[2 if dgrad else 3]
     y = torch.empty((b, h, wd, cout), dtype=torch.bfloat16, device=x.device)
     if y.numel() == 0:
         return y
+    plan = plan or conv_plan(b, h, wd, c, cout, _sms(x.device.index))
     lib = load_kernels()
-    with torch.cuda.device(x.device):
-        counter.launches += 1
-        lib.call("njf_conv3x3_s1_fwd", x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                 b, h, wd, c, cout, stream_of(x))
+    with _on_device(x):
+        _count(counter, plan.legacy)
+        lib.call("njf_conv3x3_s1_fwd", x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c,
+                 cout, plan.th, plan.tw, plan.bn, int(dgrad), stream_of(x))
     return y
 
 
-def _conv3x3_s1_stats_cuda(x: torch.Tensor, w: torch.Tensor):
-    x, wk = _conv_operands(x, w, "conv3x3_s1_stats")
+def _conv3x3_s1_stats_cuda(x: torch.Tensor, w: torch.Tensor, plan: ConvPlan | None = None):
+    x, w = _conv_operands(x, w, "conv3x3_s1_stats")
     b, h, wd, c = x.shape
-    cout = wk.shape[-1]
+    cout = w.shape[-1]
     y = torch.empty((b, h, wd, cout), dtype=torch.bfloat16, device=x.device)
-    s1, s2 = (torch.zeros((cout,), dtype=torch.float32, device=x.device) for _ in range(2))
     if y.numel() == 0:
-        return y, s1, s2
-    nblk = -(-b * h * wd // 64)  # the kernel's row blocks
-    partial = torch.empty((2, nblk, cout), dtype=torch.float32, device=x.device)
+        return y, *(torch.zeros((cout,), dtype=torch.float32, device=x.device) for _ in range(2))
+    s1, s2 = (torch.empty((cout,), dtype=torch.float32, device=x.device) for _ in range(2))
+    plan = plan or conv_plan(b, h, wd, c, cout, _sms(x.device.index))
+    partial = torch.empty((2, plan.m_tiles, cout), dtype=torch.float32, device=x.device)
     lib = load_kernels()
-    with torch.cuda.device(x.device):
-        conv3x3_s1_stats.launches += 1
-        lib.call("njf_conv3x3_s1_fwd_stats", x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                 partial.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, h, wd, c, cout, nblk,
-                 stream_of(x))
+    with _on_device(x):
+        _count(conv3x3_s1_stats, plan.legacy)
+        lib.call("njf_conv3x3_s1_fwd_stats", x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                 partial.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, h, wd, c, cout, plan.th,
+                 plan.tw, plan.bn, plan.m_tiles, stream_of(x))
     return y, s1, s2
 
 
-def _wgrad_split(rows: int, tiles: int, device) -> tuple:
-    """(splits, rows per split) for K9-wgrad: enough blocks for about four per
-    SM, each slice at least 256 rows and a multiple of the kernel's 32."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(-(-rows // 256), -(-4 * sms // tiles)))
-    per = -(-rows // splits)
-    per = -(-per // 32) * 32
-    return -(-rows // per), per
-
-
-def _conv3x3_s1_wgrad_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _conv3x3_s1_wgrad_cuda(x: torch.Tensor, g: torch.Tensor,
+                           plan: WgradPlan | None = None) -> torch.Tensor:
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"conv3x3_s1_wgrad: x {tuple(x.shape)} / g {tuple(g.shape)}")
     x, g = x.contiguous(), g.contiguous()
@@ -163,16 +310,16 @@ def _conv3x3_s1_wgrad_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, h, wd, c = x.shape
     cout = g.shape[-1]
     dw = torch.empty((9 * c, cout), dtype=torch.float32, device=x.device)
-    rows = b * h * wd
-    if rows == 0 or dw.numel() == 0:
+    if b * h * wd == 0 or dw.numel() == 0:
         return dw.zero_().reshape(3, 3, c, cout)
-    splits, per = _wgrad_split(rows, -(-9 * c // 64) * -(-cout // 64), x.device)
-    partial = torch.empty((splits, 9 * c, cout), dtype=torch.float32, device=x.device)
+    plan = plan or wgrad_plan(b, h, wd, c, cout, _sms(x.device.index))
+    partial = torch.empty((plan.splits, 9 * c, cout), dtype=torch.float32, device=x.device)
     lib = load_kernels()
-    with torch.cuda.device(x.device):
-        conv3x3_s1_wgrad.launches += 1
+    with _on_device(x):
+        _count(conv3x3_s1_wgrad, plan.legacy)
         lib.call("njf_conv3x3_s1_wgrad", x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                 dw.data_ptr(), b, h, wd, c, cout, splits, per, stream_of(x))
+                 dw.data_ptr(), b, h, wd, c, cout, plan.th, plan.tw, plan.nh, plan.splits,
+                 plan.per, stream_of(x))
     return dw.reshape(3, 3, c, cout)
 
 
@@ -192,7 +339,7 @@ def conv3x3_s1_stats(x: torch.Tensor, w: torch.Tensor):
 def conv3x3_s1_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K9-dgrad wrapper: the input gradient, through K9-fwd's kernel."""
     return dispatch("conv3x3_s1_dgrad", g,
-                    lambda: _conv3x3_s1_cuda(g, _rotate(w), conv3x3_s1_dgrad),
+                    lambda: _conv3x3_s1_cuda(g, w, conv3x3_s1_dgrad, dgrad=True),
                     lambda: conv3x3_s1_dgrad_plain(g, w))
 
 
@@ -202,10 +349,12 @@ def conv3x3_s1_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                     lambda: conv3x3_s1_wgrad_plain(x, g))
 
 
-conv3x3_s1.launches = 0
-conv3x3_s1_stats.launches = 0
-conv3x3_s1_dgrad.launches = 0
-conv3x3_s1_wgrad.launches = 0
+# launches, and among them those of the legacy kernels (C or Cout not a
+# multiple of 8), which no main-path shape should reach
+for _wrapper in (conv3x3_s1, conv3x3_s1_stats, conv3x3_s1_dgrad, conv3x3_s1_wgrad):
+    _wrapper.launches = 0
+    _wrapper.legacy_launches = 0
+del _wrapper
 
 
 class ConvS1(torch.autograd.Function):

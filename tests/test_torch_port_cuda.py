@@ -581,3 +581,118 @@ def test_stage2_step_on_the_card_freezes_all_but_the_head(dev):
         assert moved == n.startswith("decoder.jacobian_head."), n
     assert all(not torch.equal(t, stats0[n]) for n, t in model.named_buffers()
                if n.endswith("running_mean"))
+
+
+# ------------------------------------------- the TMA + wgmma K9 template
+
+def _conv_inputs(shape, cout, seed):
+    g = _gen(seed)
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((3, 3, shape[-1], cout), generator=g, device="cuda")
+         / math.sqrt(9 * shape[-1])).to(torch.bfloat16)
+    gy = torch.randn((*shape[:3], cout), generator=g, device="cuda").to(torch.bfloat16)
+    return x, w, gy
+
+
+def _within_one_rounding(got, want):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
+
+
+def _check_stats(x, w, y, s1, s2):
+    _, p1, p2 = K.conv3x3_s1_stats_plain(x, w)
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    assert float(((s2 - p2).abs() / p2.clamp_min(1e-30)).max()) <= 1e-4
+    assert float(((s1 - p1).abs() / (n * p2).sqrt().clamp_min(1e-30)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize("h,w,c", [(120, 160, 64), (60, 80, 128), (30, 40, 256)])
+def test_k9_tma_path_at_encoder_shapes(dev, b, h, w, c):
+    """K9-fwd, K9-dgrad, K10 and K9-wgrad on the TMA + wgmma path at the
+    encoder's three shapes, at serving (B = 1) and training (batch 7) size,
+    bf16 weights as the model passes them: fwd and dgrad within one bf16
+    rounding, K10's y bit for bit K9-fwd's and its sums within 1e-4, wgrad
+    within 1e-4 of scale; K10 and wgrad give identical bits twice; no legacy
+    launch."""
+    x, wt, gy = _conv_inputs((b, h, w, c), c, 22)
+    legacy0 = K.legacy_launch_counts()
+    y = K.conv3x3_s1(x, wt)
+    assert _within_one_rounding(y, K.conv3x3_s1_plain(x, wt))
+    assert _within_one_rounding(K.conv3x3_s1_dgrad(gy, wt), K.conv3x3_s1_dgrad_plain(gy, wt))
+    ys, s1, s2 = K.conv3x3_s1_stats(x, wt)
+    assert torch.equal(ys, y)
+    _check_stats(x, wt, ys, s1, s2)
+    again = K.conv3x3_s1_stats(x, wt)
+    assert all(torch.equal(a, b_) for a, b_ in zip((ys, s1, s2), again))
+    dw = K.conv3x3_s1_wgrad(x, gy)
+    assert _rel(dw, K.conv3x3_s1_wgrad_plain(x, gy)) <= 1e-4
+    assert torch.equal(dw, K.conv3x3_s1_wgrad(x, gy))
+    torch.cuda.synchronize()
+    assert K.legacy_launch_counts() == legacy0
+
+
+@pytest.mark.parametrize("shape,cout,patch,wpatch", [
+    ((2, 30, 40, 64), 64, (8, 16), (8, 8)),      # th = 8 at H = 30: the last patch row hangs
+    ((1, 30, 33, 128), 128, (8, 16), (4, 16)),   # tw = 16 at W = 33: 15 columns hang over
+    ((2, 30, 40, 72), 72, (16, 8), (2, 32)),     # C, Cout multiples of 8 but not of 64
+    ((1, 17, 33, 8), 80, (8, 16), (8, 8)),       # one 8-channel chunk, Cout 80: ragged n tile
+    ((3, 9, 11, 136), 24, (8, 16), (2, 32)),     # the patch larger than the image
+    ((1, 30, 33, 64), 136, (8, 8), (8, 8)),      # 64-pixel patches hanging both ways
+])
+def test_k9_tma_ragged_patches(dev, shape, cout, patch, wpatch):
+    """Forced patches that hang over the bottom or right edge: the hanging
+    rows read real neighbours, so they must stay out of y and K10's sums;
+    in wgrad their g is zero-filled. Bounds as at the encoder's shapes."""
+    from neural_jacobian_field_torch.ops.kernels import conv_suite as cs
+
+    b, h, w, c = shape
+    x, wt, gy = _conv_inputs(shape, cout, 23)
+    plan = cs.conv_plan(b, h, w, c, cout, patch=patch)
+    y = cs._conv3x3_s1_cuda(x, wt, K.conv3x3_s1, plan=plan)
+    assert _within_one_rounding(y, K.conv3x3_s1_plain(x, wt))
+    ys, s1, s2 = cs._conv3x3_s1_stats_cuda(x, wt, plan=plan)
+    assert torch.equal(ys, y)
+    _check_stats(x, wt, ys, s1, s2)
+    dx = cs._conv3x3_s1_cuda(gy, wt, K.conv3x3_s1_dgrad, dgrad=True,
+                             plan=cs.conv_plan(b, h, w, cout, c, patch=patch))
+    assert _within_one_rounding(dx, K.conv3x3_s1_dgrad_plain(gy, wt))
+    dw = cs._conv3x3_s1_wgrad_cuda(x, gy, plan=cs.wgrad_plan(b, h, w, c, cout, patch=wpatch))
+    assert _rel(dw, K.conv3x3_s1_wgrad_plain(x, gy)) <= 1e-4
+
+
+@pytest.mark.parametrize("c,cout,legacy", [
+    (12, 20, True), (64, 20, True), (12, 64, True), (8, 16, False), (72, 64, False)])
+def test_legacy_counter_moves_only_for_unaligned_channels(dev, c, cout, legacy):
+    """The legacy kernels run exactly for C or Cout not a multiple of 8 (the
+    dgrad's C is the forward's Cout), and agree with the plain versions."""
+    x, wt, gy = _conv_inputs((2, 6, 10, c), cout, 24)
+    K.reset_launch_counts()
+    assert _within_one_rounding(K.conv3x3_s1(x, wt), K.conv3x3_s1_plain(x, wt))
+    assert _within_one_rounding(K.conv3x3_s1_dgrad(gy, wt), K.conv3x3_s1_dgrad_plain(gy, wt))
+    _, s1, s2 = K.conv3x3_s1_stats(x, wt)
+    _check_stats(x, wt, None, s1, s2)
+    assert _rel(K.conv3x3_s1_wgrad(x, gy), K.conv3x3_s1_wgrad_plain(x, gy)) <= 1e-4
+    torch.cuda.synchronize()
+    names = ("K9-fwd", "K9-dgrad", "K10", "K9-wgrad")
+    assert {n: K.launch_counts()[n] for n in names} == dict.fromkeys(names, 1)
+    assert K.legacy_launch_counts() == dict.fromkeys(names, int(legacy))
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 60, 80, 128), 128), ((2, 30, 40, 72), 72)])
+def test_conv_functions_on_the_tma_path(dev, shape, cout):
+    """ConvS1 and ConvS1Stats (K9-fwd / K10 forward, K9-dgrad and K9-wgrad
+    backward) against plain autograd, at the bounds of the K9 Function (dx
+    3e-2, dW 1e-2 of scale)."""
+    x, wt, gy = _conv_inputs(shape, cout, 25)
+    x = x.requires_grad_()
+    w = wt.float().requires_grad_()
+    dx, dw = torch.autograd.grad(K.conv_s1(x, w), (x, w), gy)
+    px, pw = torch.autograd.grad(K.conv3x3_s1_plain(x, w), (x, w), gy)
+    assert _rel(dx, px) <= 3e-2 and _rel(dw, pw) <= 1e-2
+    g = _gen(26)
+    cts = (gy, torch.randn((cout,), generator=g, device=dev),
+           1e-3 * torch.randn((cout,), generator=g, device=dev))
+    dx, dw = torch.autograd.grad(K.conv_s1_stats(x, w), (x, w), cts)
+    px, pw = torch.autograd.grad(K.conv3x3_s1_stats_plain(x, w), (x, w), cts)
+    assert _rel(dx, px) <= 3e-2 and _rel(dw, pw) <= 1e-2
