@@ -14,9 +14,9 @@ K7 trunks that project the latent themselves):
 
   1. card and build: the card's name and power limit, the kernels built from
      csrc/ with nvcc, and where the toolkit has cuobjdump the HGMMA /
-     UTMALDG / HMMA counts of the K9 kernels' SASS (every TMA kernel must
-     hold wgmma and TMA loads and no legacy mma) (TF32 off for every
-     float32 reference);
+     UTMALDG / HMMA counts of the K9 and K7 forward kernels' SASS (every
+     TMA kernel and both K7 wgmma kernels must hold wgmma and TMA loads and
+     no legacy mma) (TF32 off for every float32 reference);
   2. each hand-written kernel against its plain PyTorch version at the
      shapes the main paths give it, with error, tolerance, median CUDA-event
      times of both, the least time the card could take (bound: the larger
@@ -29,9 +29,13 @@ K7 trunks that project the latent themselves):
      K9-fwd's, its yardstick F.conv2d followed by the two reductions; the
      backward kernels (K9-dgrad, K9-wgrad, K6-bwd, K7-tz-bwd and K7-bwd at
      d_out 1, 16 and 24, K1-bwd) at the train step's; K10, K1-bwd and K7-bwd
-     twice, for identical bits. The conv rows take bf16 weights, as the
-     model passes them, and print beside the wrapper time the kernels'
-     device time (torch.profiler) and the achieved TFLOP/s;
+     twice, for identical bits (K7-tz-fwd and K7-fwd too). The conv rows
+     take bf16 weights, as the model passes them, and print beside the
+     wrapper time the kernels' device time (torch.profiler) and the
+     achieved TFLOP/s; so do the K7 forward rows, per trunk and summed,
+     with the time per call of 20 calls back to back and the host's time
+     to enqueue one (the wrapper's host cost); the other rows print their
+     device time (the K7 backward rows with their TFLOP/s);
   3. serving, per mode: a full 480x640 target view rendered in 2048-ray
      chunks from a 480x640 context image (launch counters reset just
      before, read just after), then one chunk again, stage by stage, with
@@ -57,8 +61,9 @@ K7 trunks that project the latent themselves):
      peak memory, every parameter outside decoder.jacobian_head bit for bit
      unchanged and the BatchNorm running statistics moved;
   7. timings and peak memory.
-Every main path also checks that no K9 wrapper fell back to its legacy
-kernel (C or Cout not a multiple of 8). Any failed phase exits non-zero.
+Every main path also checks that no K9 wrapper went to its legacy kernel
+(C or Cout not a multiple of 8), and no K7 forward wrapper to its legacy
+WMMA kernel (shapes off fwd_plan's wgmma kernel). Any failed phase exits non-zero.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result. The last three lines are the card line, the
 kernel table and the device record, the last two each one JSON object; the
@@ -167,8 +172,9 @@ def device_ms(fn, reps=5):
 
 
 def sass_counts(lib_path) -> dict:
-    """{kernel: (HGMMA, UTMALDG, HMMA)} for the K9 kernels in the built
-    library's SASS, or {} where the toolkit has no cuobjdump."""
+    """{kernel: (HGMMA, UTMALDG, HMMA)} for the K9 kernels and the K7
+    forward kernels in the built library's SASS, or {} where the toolkit
+    has no cuobjdump."""
     import re
     import shutil
 
@@ -181,7 +187,8 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if re.search(r"conv3x3|wgrad", m.group(1)) else None
+            fn = m.group(1) if re.search(r"conv3x3|wgrad|field_mlp_(wg|fwd)", m.group(1)) \
+                else None
             if fn:
                 counts[fn] = [0, 0, 0]
         elif fn:
@@ -192,12 +199,15 @@ def sass_counts(lib_path) -> dict:
 
 
 def check_no_legacy(label):
-    """The K9 wrappers' legacy kernels (C or Cout not a multiple of 8) ran no
-    time since the counters were reset."""
+    """The legacy kernels of the K9 wrappers (C or Cout not a multiple of 8)
+    and of the K7 forward wrappers (shapes off fwd_plan's wgmma kernel) ran
+    no time since the counters were reset."""
     from neural_jacobian_field_torch.ops import kernels as K
 
     legacy = K.legacy_launch_counts()
-    check(not any(legacy.values()), f"{label}: legacy K9 kernels launched {legacy}")
+    check(set(legacy) >= {"K9-fwd", "K10", "K9-dgrad", "K9-wgrad", "K7-tz-fwd", "K7-fwd"},
+          f"{label}: legacy counters {sorted(legacy)}")
+    check(not any(legacy.values()), f"{label}: legacy kernels launched {legacy}")
 
 
 def nbytes(*tensors) -> int:
@@ -377,7 +387,7 @@ def kernel_checks(dev):
             rows["K9-fwd"] = rec
 
     # K6-fwd: fine + mid per encode, coarse per chunk (epipolar)
-    row = Row()
+    row, dev_sum = Row(), 0.0
     for hh, ww, c in ((240, 320, 128), (60, 80, 128), (30, 40, 256)):
         x = torch.randn((1, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
         got, want = K.pack_2x2_flat(x), K.pack_2x2_flat_plain(x)
@@ -386,9 +396,12 @@ def kernel_checks(dev):
         check(err == 0.0, "K6-fwd disagrees with its plain version")
         k_ms = cuda_time_ms(lambda: K.pack_2x2_flat(x))
         p_ms = cuda_time_ms(lambda: K.pack_2x2_flat_plain(x))
-        print_times("", k_ms, p_ms)
+        d_ms = device_ms(lambda: K.pack_2x2_flat(x))
+        dev_sum += d_ms
+        print_times("", k_ms, p_ms, extra=f" (device {d_ms:.4f})")
         row.add(err, k_ms, p_ms, nbytes(x, got))
     rows["K6-fwd"] = row.record()
+    print(f"K6-fwd fine + mid + coarse: kernel {row.ms:.4f} ms, device {dev_sum:.4f} ms")
 
     # K5: one 2048-ray chunk, 256 proposal bins -> 256 NeRF samples
     n, s = PATCH, 256
@@ -411,7 +424,8 @@ def kernel_checks(dev):
             cuda_time_ms(lambda: K.fused_sample_pdf_plain(bins, wts, u)),
             nbytes(bins, wts, u, got))
     rows["K5"] = row.record()
-    print_times("", row.ms, row.plain_ms)
+    print_times("", row.ms, row.plain_ms,
+                extra=f" (device {device_ms(lambda: K.fused_sample_pdf(bins, wts, u)):.4f})")
 
     # K7-tz-fwd and K7-fwd: the three trunks of one chunk (2048 rays x 256
     # samples); K7-fwd takes the latent levels and projects them itself
@@ -423,25 +437,50 @@ def kernel_checks(dev):
     for name, wrapper, plain, proj in (
             ("K7-tz-fwd", K.fused_resnet_fc_tz, K.fused_resnet_fc_tz_plain, False),
             ("K7-fwd", K.fused_resnet_fc, K.fused_resnet_fc_plain, True)):
-        row = Row()
+        row, dev_sum, b2b_sum, host_sum = Row(), 0.0, 0.0, 0.0
         lat = z if proj else tz
         for d_out in (1, 16, 24):
             params = trunk_params(g, dev, d_out, sum(LATENT) if proj else None)
             got = wrapper(params, cfg, lat, x, d_out)
+            again = wrapper(params, cfg, lat, x, d_out)
             want = plain(params, cfg, lat, x, d_out)
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
+            same = bool(torch.equal(got, again))
             print(f"{name} N={npts} d_out={d_out}: max_abs_err {err:.3e} "
-                  f"rel_to_scale {err / scale:.3e} (tol: 1e-2 of scale {scale:.3e})")
-            check(torch.isfinite(got).all().item() and err <= 1e-2 * scale,
-                  f"{name} disagrees with its plain version")
-            k_ms = cuda_time_ms(lambda: wrapper(params, cfg, lat, x, d_out), reps=5)
+                  f"rel_to_scale {err / scale:.3e} (tol: 1e-2 of scale {scale:.3e}); two calls "
+                  f"bit-identical={same}")
+            check(torch.isfinite(got).all().item() and err <= 1e-2 * scale and same,
+                  f"{name} disagrees with its plain version or does not repeat")
+            del got, again, want
+
+            def call():
+                return wrapper(params, cfg, lat, x, d_out)
+
+            k_ms = cuda_time_ms(call, reps=5)
             p_ms = cuda_time_ms(lambda: plain(params, cfg, lat, x, d_out), reps=5)
+            d_ms = device_ms(call)
+            # 20 calls back to back: per call on the device's clock, and the
+            # host's enqueue time per call (the wrapper's host cost)
+            b2b = cuda_time_ms(lambda: [call() for _ in range(20)], reps=3, warmup=1) / 20
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                call()
+            host = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
             flops = trunk_flops(npts, d_out, proj)
-            print_times("", k_ms, p_ms, extra=f" ({flops / k_ms / 1e9:.1f} TFLOP/s)")
+            print_times("", k_ms, p_ms, extra=f" (device {d_ms:.4f}, {flops / d_ms / 1e9:.1f} "
+                        f"TFLOP/s; 20 back to back {b2b:.4f} per call, host {host:.4f} per "
+                        f"call)")
             inputs = z if proj else (tz,)
-            row.add(err, k_ms, p_ms, nbytes(*inputs, x, got), flops)
+            row.add(err, k_ms, p_ms, nbytes(*inputs, x) + npts * d_out * 4, flops)
+            dev_sum, b2b_sum, host_sum = dev_sum + d_ms, b2b_sum + b2b, host_sum + host
         rows[name] = row.record()
+        print(f"{name} three trunks (d_out 1, 16, 24), N={npts}: kernel {row.ms:.4f} ms, device "
+              f"{dev_sum:.4f} ms ({row.flops / dev_sum / 1e9:.1f} TFLOP/s), back to back "
+              f"{b2b_sum:.4f} ms, host {host_sum:.4f} ms, plain {row.plain_ms:.4f} ms, bound "
+              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
     del tz, x, z
     torch.cuda.empty_cache()
     return rows
@@ -587,7 +626,7 @@ def backward_kernel_checks(dev):
     torch.cuda.empty_cache()
 
     # K6-bwd at the fine, mid and coarse levels of batch 7
-    row = Row()
+    row, dev_sum = Row(), 0.0
     for hh, ww, c in ((240, 320, 128), (60, 80, 128), (30, 40, 256)):
         gp = torch.randn((b, hh * ww, 4 * c), generator=g, device=dev).to(torch.bfloat16)
         got, want = K.pack_2x2_flat_bwd(gp, hh), K.pack_2x2_flat_bwd_plain(gp, hh)
@@ -597,9 +636,12 @@ def backward_kernel_checks(dev):
         check(err == 0.0, "K6-bwd disagrees with its plain version")
         k_ms = cuda_time_ms(lambda: K.pack_2x2_flat_bwd(gp, hh))
         p_ms = cuda_time_ms(lambda: K.pack_2x2_flat_bwd_plain(gp, hh))
-        print_times("", k_ms, p_ms)
+        d_ms = device_ms(lambda: K.pack_2x2_flat_bwd(gp, hh))
+        dev_sum += d_ms
+        print_times("", k_ms, p_ms, extra=f" (device {d_ms:.4f})")
         row.add(err, k_ms, p_ms, nbytes(gp, got))
     rows["K6-bwd"] = row.record()
+    print(f"K6-bwd fine + mid + coarse: kernel {row.ms:.4f} ms, device {dev_sum:.4f} ms")
     del gp
     torch.cuda.empty_cache()
 
@@ -620,7 +662,8 @@ def backward_kernel_checks(dev):
             library_ms=cuda_time_ms(lambda: torch.nn.functional.grid_sample(
                 nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)))
     rows["K1-fwd"] = row.record()
-    print_times("", row.ms, row.plain_ms, row.library_ms)
+    print_times("", row.ms, row.plain_ms, row.library_ms,
+                extra=f" (device {device_ms(lambda: K.onehot_gather_fwd(flat, idx, w4)):.4f})")
     gy = torch.randn((b, n, 256), generator=g, device=dev).to(torch.bfloat16)
     got = K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1])
     want = K.onehot_scatter_bwd_plain(gy, idx, w4, flat.shape[1])
@@ -639,7 +682,8 @@ def backward_kernel_checks(dev):
             library_ms=cuda_time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                 gy_nchw, nchw, grid, 0, 1, True, [True, False])))
     rows["K1-bwd"] = row.record()
-    print_times("", row.ms, row.plain_ms, row.library_ms)
+    print_times("", row.ms, row.plain_ms, row.library_ms, extra=f" (device "
+                f"{device_ms(lambda: K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1])):.4f})")
     del flat, idx, w4, nchw, grid, gy, got, want, again
     torch.cuda.empty_cache()
 
@@ -654,7 +698,7 @@ def backward_kernel_checks(dev):
     for name, wrapper, plain, proj in (
             ("K7-tz-bwd", K.fused_resnet_fc_tz_bwd, K.fused_resnet_fc_tz_bwd_plain, False),
             ("K7-bwd", K.fused_resnet_fc_bwd, K.fused_resnet_fc_bwd_plain, True)):
-        row = Row()
+        row, dev_sum = Row(), 0.0
         lat = z if proj else tz
         for d_out in (1, 16, 24):
             params = trunk_params(g, dev, d_out, sum(LATENT) if proj else None)
@@ -708,12 +752,17 @@ def backward_kernel_checks(dev):
             k_ms = cuda_time_ms(lambda: wrapper(params, cfg, lat, x, gy, d_out), reps=3,
                                 warmup=1)
             p_ms = cuda_time_ms(lambda: plain(params, cfg, lat, x, gy, d_out), reps=3, warmup=1)
+            d_ms = device_ms(lambda: wrapper(params, cfg, lat, x, gy, d_out), reps=3)
+            dev_sum += d_ms
             # forward recompute + input gradients + weight gradients
             flops = 3 * trunk_flops(npts, d_out, proj)
-            print_times("", k_ms, p_ms, extra=f" ({flops / k_ms / 1e9:.1f} TFLOP/s)")
+            print_times("", k_ms, p_ms, extra=f" ({flops / k_ms / 1e9:.1f} TFLOP/s; device "
+                        f"{d_ms:.4f}, {flops / d_ms / 1e9:.1f} TFLOP/s)")
             inputs = z if proj else (tz,)
             row.add(err, k_ms, p_ms, 2 * nbytes(*inputs) + nbytes(x, gy), flops)
         rows[name] = row.record()
+        print(f"{name} three trunks (d_out 1, 16, 24), N={npts}: kernel {row.ms:.4f} ms, device "
+              f"{dev_sum:.4f} ms ({row.flops / dev_sum / 1e9:.1f} TFLOP/s)")
     del tz, x, z
     torch.cuda.empty_cache()
     return rows
@@ -1429,11 +1478,13 @@ def main() -> int:
         sass = sass_counts(lib.path)
         for fn, (hgmma, utmaldg, hmma) in sass.items():
             print(f"  SASS {fn[:96]}: HGMMA {hgmma} UTMALDG {utmaldg} HMMA {hmma}")
-        tma = {fn: c for fn, c in sass.items() if "tma_kernel" in fn}
-        check(not sass or (tma and all(c[0] and c[1] and not c[2] for c in tma.values())),
-              "a K9 TMA kernel lacks HGMMA or UTMALDG in its SASS, or kept HMMA")
-        print(f"SASS: {len(tma)} TMA kernels with HGMMA and UTMALDG" if sass
-              else "SASS: no cuobjdump in this toolkit")
+        tma = {fn: c for fn, c in sass.items() if "tma_kernel" in fn or "wg_kernel" in fn}
+        check(not sass or (sum("wg_kernel" in fn for fn in tma) == 2
+                           and all(c[0] and c[1] and not c[2] for c in tma.values())),
+              "a K9 TMA kernel or K7 wgmma kernel lacks HGMMA or UTMALDG in its SASS, or kept "
+              "HMMA")
+        print(f"SASS: {len(tma)} TMA / wgmma kernels (K9 and K7 forward) with HGMMA and UTMALDG"
+              if sass else "SASS: no cuobjdump in this toolkit")
         if args.profile:
             profile_train(dev, args.profile)
             return 0

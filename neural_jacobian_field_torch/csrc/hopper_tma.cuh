@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the K9 kernels (conv3x3_s1.cu,
-// conv3x3_wgrad.cu), as raw PTX: TMA tensor maps and tile loads, the
-// mbarrier ring, wgmma shared-memory descriptors, warpgroup fences and the
-// bf16 wgmma m64n64k16 the kernels issue. sm_90a only.
+// conv3x3_wgrad.cu) and the K7 forward (field_mlp.cu), as raw PTX: TMA
+// tensor maps and tile loads, the mbarrier ring, wgmma shared-memory
+// descriptors, warpgroup fences, register rebalancing and the bf16 wgmma
+// shapes the kernels issue (A from shared memory or from registers).
+// sm_90a only.
 //
 // Every operand tile is a TMA box whose innermost extent is 64 bf16 = 128
 // bytes, stored with the 128-byte swizzle: a tile of R rows is R x 128 B,
@@ -13,7 +15,8 @@
 //   - MN-major (the rows are the contraction, the 64 elements of a row the
 //     wgmma M or N): stride byte offset 1,024 between 8-row groups of the
 //     contraction; a k16 step advances the start address by 2,048 B. With an
-//     M or N of 64 the leading byte offset is never used.
+//     M or N of 64 the leading byte offset is never used; with an N of 128
+//     it is the distance from the first 64 columns' tile to the second's.
 
 #pragma once
 
@@ -25,11 +28,14 @@ namespace njf_hopper {
 
 // ------------------------------------------------------------------ host
 
-// A tiled bf16 tensor map, 128-byte swizzle, zero fill out of bounds
-// (negative coordinates included). dims innermost first; strides in bytes
-// for dims 1..rank-1. Returns false if the driver refuses the map.
+// A tiled tensor map (bf16 unless `type` says otherwise), 128-byte swizzle,
+// zero fill out of bounds (negative coordinates included). dims innermost
+// first; strides in bytes for dims 1..rank-1; the innermost box extent must
+// span at most 128 bytes. Returns false if cuTensorMapEncodeTiled refuses
+// the map.
 inline bool encode_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                       const uint64_t* strides, const uint32_t* box) {
+                       const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {
@@ -38,8 +44,7 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank, const uint6
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, s, b, e,
+  return cuTensorMapEncodeTiled(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, s, b, e,
                                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -99,6 +104,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -127,6 +141,24 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* smem) {
   d |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset: 8 rows
   d |= static_cast<uint64_t>(1) << 62;     // 128-byte swizzle
   return d;
+}
+
+// The same for an MN-major operand of N 128 held as two 64-column tiles,
+// the second `lbo` bytes after the first.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* smem, uint32_t lbo) {
+  uint64_t d = desc_sw128(smem) & ~(static_cast<uint64_t>(0x3FFF) << 16);
+  return d | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16);
+}
+
+// Register rebalancing between warpgroups (every warp of the warpgroup).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -169,6 +201,66 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// Keep the compiler from reusing the registers of an A operand that an
+// asynchronous wgmma may still read (place after the wait that retires it).
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers (the bf16x2
+// fragment a0..a3 of mma.sync's m16n8k16 A, per warp its 16 rows), B an
+// MN-major tile (the transpose bit); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], as wgmma_m64n128_rs.
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                uint32_t a2, uint32_t a3, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
 }  // namespace njf_hopper

@@ -6,17 +6,19 @@ The stride-1 3x3 convs of the BasicBlocks go through the K9 kernel
 stride-2 3x3s and the 1x1 projections are plain PyTorch convolutions, as
 they were plain XLA in JAX. conv_impl="xla" sends every conv through
 PyTorch's own convolution. conv_impl="pallas_fused" is "pallas" plus the K10
-fold: in training mode with BatchNorm, each stride-1 3x3 conv returns the
-per-channel sum and sum of squares of its output from the kernel's float32
-accumulator, and its BatchNorm takes its batch statistics from them instead
-of reading the output again (the JAX `_ConvK9(emit_stats=True)` and
-`BatchNormFromStats`); the stem, the stride-2 convs and the projections
-keep computing their own, as in JAX. In eval mode, or with another norm, it
-is "pallas". The parameter tree is the same for all three. JAX emits the
-statistics only where `conv3x3_supported` holds, a TPU tiling gate (an
-output height with a divisor in 4..16); the port's kernel takes every
-shape, and the two agree at the flagship's shapes and at any image whose
-stride-1 heights have such a divisor. BatchNorm has the Flax semantics (momentum 0.9,
+fold: in training mode with BatchNorm, each stride-1 3x3 conv on JAX's
+shape family returns the per-channel sum and sum of squares of its output
+from the kernel's float32 accumulator, and its BatchNorm takes its batch
+statistics from them instead of reading the output again (the JAX
+`_ConvK9(emit_stats=True)` and `BatchNormFromStats`). The family is where
+JAX's `conv3x3_supported` holds (an output height with a divisor in 4..16,
+W >= 2, the assembled operand within 6 MiB; `conv3x3_s1_supported` is the
+port's copy); off it JAX runs the conv through XLA and BatchNorm sums y
+itself, and so does the port, though its conv still runs K9 (which takes
+every shape). The stem, the stride-2 convs and the projections keep
+computing their own statistics, as in JAX. In eval mode, or with another
+norm, it is "pallas". The parameter tree is the same for all three.
+BatchNorm has the Flax semantics (momentum 0.9,
 biased variance), which torch.nn.BatchNorm2d does not: its momentum weighs
 the batch, not the running value, and its running variance is unbiased. Like
 the JAX `__call__(x, train)`, `forward(rgb, train)` normalises with the
@@ -64,17 +66,18 @@ class ConvHWIO(nn.Module):
     def init_weights(self, g):
         init.kaiming_normal_out_(self.weight, g)
 
-    @property
-    def emits_stats(self) -> bool:
-        """Whether `forward(x, stats=True)` returns K10's statistics."""
-        return self.conv_impl == "pallas_fused" and self.ksize == 3 and self.stride == 1
+    def emits_stats(self, x) -> bool:
+        """Whether `forward(x, stats=True)` returns K10's statistics for this
+        x: a stride-1 3x3 conv under pallas_fused, x on JAX's shape family."""
+        return (self.conv_impl == "pallas_fused" and self.ksize == 3 and self.stride == 1
+                and k9.conv3x3_s1_supported(tuple(x.shape), x.element_size()))
 
     def forward(self, x, stats: bool = False):
-        """y, or (y, s1, s2) with `stats` where `emits_stats` holds: s1, s2
-        the per-channel float32 sum and sum of squares of y's accumulator
+        """y, or (y, s1, s2) with `stats` where `emits_stats(x)` holds: s1,
+        s2 the per-channel float32 sum and sum of squares of y's accumulator
         over (B, H, W)."""
         w = self.weight.to(x.dtype)
-        if stats and self.emits_stats:
+        if stats and self.emits_stats(x):
             return k9.conv_s1_stats(x, w)
         pallas = self.conv_impl in ("pallas", "pallas_fused")
         if pallas and self.ksize == 3:
@@ -174,7 +177,7 @@ class BasicBlock(nn.Module):
             _init(m, g)
 
     def _conv_norm(self, conv, norm, x, train):
-        if self.fuse_bn and train and conv.emits_stats:
+        if self.fuse_bn and train and conv.emits_stats(x):
             y, s1, s2 = conv(x, stats=True)
             return norm(y, train, s1, s2)
         return norm(conv(x), train)

@@ -2,8 +2,8 @@
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
 PyTorch version (same module, `*_plain`) for a CPU tensor, and counts its
-launches in a plain integer attribute `launches` (the K9 wrappers also those
-of their legacy kernel in `legacy_launches`). The differentiable entry
+launches in a plain integer attribute `launches` (the K9 and K7 forward
+wrappers also those of their legacy kernel in `legacy_launches`). The differentiable entry
 points (`conv_s1`, `conv_s1_stats`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
 `fused_resnet_fc_train_tz`, and `ops/pixel_gather.gather_bilinear_onehot`)
 are autograd.Functions over these wrappers.
@@ -62,8 +62,9 @@ def launch_counts() -> dict:
 
 
 def legacy_launch_counts() -> dict:
-    """Launches of the K9 wrappers that went to the legacy kernel (C or Cout
-    not a multiple of 8)."""
+    """Launches that went to a legacy kernel: the K9 wrappers' (C or Cout not
+    a multiple of 8) and the K7 forward wrappers' (shapes off
+    field_mlp.fwd_plan's wgmma kernel)."""
     return {name: k[0].legacy_launches for name, k in KERNELS.items()
             if hasattr(k[0], "legacy_launches")}
 

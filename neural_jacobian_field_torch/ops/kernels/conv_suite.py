@@ -22,10 +22,12 @@ The kernels' headers say what bounds them. The weights go to the kernels as
 the HWIO tensor, no copy. `conv_plan` and `wgrad_plan` choose each shape's
 tiles, grid and pixel slices; shapes with C or Cout not a multiple of 8
 (which TMA cannot take) go to a legacy WMMA kernel, counted apart in each
-wrapper's `legacy_launches`. The kernels take every stride-1 shape;
-`conv3x3_supported`'s row-block gate is a TPU tiling limit and is not
-carried over. The stride-2 3x3 and the 1x1 projections were plain XLA in JAX
-and stay plain PyTorch convolutions here.
+wrapper's `legacy_launches`. The kernels take every stride-1 shape, but
+the JAX encoder takes K10's statistics only where its `conv3x3_supported`
+(a TPU row-block gate) holds and lets BatchNorm sum y itself elsewhere, so
+`conv3x3_s1_supported`, a copy of that predicate at stride 1, tells the
+port's encoder where to do the same. The stride-2 3x3 and the 1x1
+projections were plain XLA in JAX and stay plain PyTorch convolutions here.
 
 All functions take and return NHWC; conv kernels are HWIO.
 
@@ -102,6 +104,33 @@ def conv3x3_s1_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     at = _acc_dtype(x.dtype)
     dw = _assemble(x).reshape(-1, 9 * c).to(at).t() @ g.reshape(-1, cout).to(at)
     return dw.reshape(3, 3, c, cout)
+
+
+# the JAX kernel's cap on its assembled [rows, W, 9C] operand (bytes)
+_VMEM_ASM_CAP = 6 * 1024 * 1024
+
+
+def _pick_rb(h_out: int) -> int | None:
+    """The JAX kernel's output-row block: 10 where it divides h_out, else
+    the largest divisor of h_out in [4, 16], else None."""
+    if h_out % 10 == 0:
+        return 10
+    for rb in range(16, 3, -1):
+        if h_out % rb == 0:
+            return rb
+    return None
+
+
+def conv3x3_s1_supported(x_shape, itemsize: int) -> bool:
+    """JAX's `conv_suite.conv3x3_supported` at stride 1 for x [B, H, W, C]
+    of `itemsize`-byte elements: a row block exists, W >= 2, and the
+    assembled operand fits 6 MiB. Where it fails JAX runs the conv through
+    XLA and takes no K10 statistics (plain Python, no JAX)."""
+    if len(x_shape) != 4:
+        return False
+    _, h, w, c = x_shape
+    rb = _pick_rb(h)
+    return rb is not None and w >= 2 and rb * w * 9 * c * itemsize <= _VMEM_ASM_CAP
 
 
 # Streaming multiprocessors of an H100 SXM: the default of the plans; the

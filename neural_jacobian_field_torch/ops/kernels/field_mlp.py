@@ -22,15 +22,27 @@ dW/db in float32, gives dz in each level's own dtype (dz = bf16(dt) W_z^T
 summed in float32) and gives x no gradient. The kernels (csrc/field_mlp.cu,
 csrc/field_mlp_bwd.cu) say in their headers what bounds them.
 
+The forward kernels run by `fwd_plan`: the flagship's shapes (d_hidden 128,
+d_in <= 64, latent levels in multiples of 64) take the persistent wgmma
+kernel, which reads a forward-only packing of the weights (`_pack_fwd`) and
+x_pe padded to 64 columns; other shapes take the legacy WMMA kernel, counted
+apart in each forward wrapper's `legacy_launches`. The backward kernels read
+`_pack`'s layout.
+
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes the plain version. The Functions look their wrappers up in this
 module at call time, so swapping a wrapper for its plain version here swaps
 it for the forward and the backward alike.
 """
 
+import functools
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from .build import check_cuda_tensor, dispatch, load_kernels, stream_of
+from .conv_suite import SMS, _count, _on_device, _sms
 
 _BF = torch.bfloat16
 
@@ -192,6 +204,108 @@ def fused_resnet_fc_bwd_plain(params, cfg, z, x: torch.Tensor, g: torch.Tensor, 
     return grads, (tuple(dzs) if isinstance(z, (tuple, list)) else dzs[0])
 
 
+# ------------------------------------------------------------ the forward plan
+
+class FwdPlan(NamedTuple):
+    """How K7-fwd / K7-tz-fwd run one shape (csrc/field_mlp.cu). legacy: the
+    WMMA kernel, one block per `tile` = 64 points. Otherwise the wgmma
+    kernel: `grid` persistent blocks walk the `n_tiles` tiles of `tile` =
+    128 points (block b takes tiles b, b + grid, ...), `consumers` warpgroups
+    of 64 points each and one producer warpgroup, a ring of `stages` stages
+    of `stage_bytes` (the weights of one step, at most [128, 128] bf16, and
+    each consumer's input tiles, at most 64 points x 128 bf16), `smem` bytes
+    of dynamic shared memory in all (the ring, the biases, the barriers and
+    1,024 bytes of alignment slack)."""
+    legacy: bool
+    tile: int
+    n_tiles: int
+    grid: int
+    consumers: int
+    stages: int
+    stage_bytes: int
+    smem: int
+
+    def tiles(self, block: int) -> range:
+        """The tiles block `block` computes, in order."""
+        return range(block, self.n_tiles, self.grid)
+
+
+FWD_DH, FWD_K_IN, FWD_OUT_COLS = 128, 64, 64  # the wgmma kernel's widths
+FWD_SMEM_MAX = 232448  # shared memory a block may use on the H100
+
+
+def fwd_bias_floats(n_blocks: int, n_lin_z: int) -> int:
+    """Length of `_pack_fwd`'s bias vector."""
+    return FWD_DH * (1 + n_lin_z + 2 * n_blocks) + FWD_OUT_COLS
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(n: int, d_in: int, dh: int, n_blocks: int, n_lin_z: int, d_out: int,
+             widths: tuple | None = None, sms: int = SMS) -> FwdPlan:
+    """The plan of one trunk forward over n points; `widths` the latent
+    levels' widths (projection mode) or None (tz mode). The wgmma kernel
+    takes d_hidden 128, d_in <= 64, d_out <= 64, 1 to 3 levels each a
+    multiple of 64 wide, and what fits its shared memory; one block per SM
+    (of `sms`), fewer when there are fewer tiles. Anything else takes the
+    legacy kernel."""
+    consumers, stages = 2, 3
+    stage_bytes = FWD_DH * FWD_DH * 2 + consumers * 64 * FWD_DH * 2
+    smem = 1024 + stages * stage_bytes + 4 * fwd_bias_floats(n_blocks, n_lin_z) + 16 * stages
+    ok = (dh == FWD_DH and 0 < d_in <= FWD_K_IN and 0 < d_out <= FWD_OUT_COLS
+          and 0 <= n_lin_z <= n_blocks and smem <= FWD_SMEM_MAX
+          and (widths is None or (1 <= len(widths) <= 3
+                                  and all(w > 0 and w % 64 == 0 for w in widths))))
+    if not ok:
+        n_tiles = -(-n // 64)
+        return FwdPlan(True, 64, n_tiles, n_tiles, 0, 0, 0, 0)
+    n_tiles = -(-n // 128)
+    return FwdPlan(False, 128, n_tiles, max(1, min(n_tiles, sms)), consumers, stages,
+                   stage_bytes, smem)
+
+
+def fwd_weight_rows(n_blocks: int, n_lin_z: int, d_lat: int = 0) -> list:
+    """The rows of `_pack_fwd`'s weight matrix [rows, 128], in order: (layer,
+    first row, rows). W_in padded to 64 rows, W0 and W1 of each block,
+    W_out (its columns padded to 128), then in projection mode (d_lat > 0)
+    lin_z_i's kernel [d_lat, 128] for i < n_lin_z."""
+    rows, r = [], 0
+    for layer, k in ([("lin_in", FWD_K_IN)]
+                     + [(f"blocks_{i}_fc_{j}", FWD_DH) for i in range(n_blocks) for j in (0, 1)]
+                     + [("lin_out", FWD_DH)]
+                     + [(f"lin_z_{i}", d_lat) for i in range(n_lin_z if d_lat else 0)]):
+        rows.append((layer, r, k))
+        r += k
+    return rows
+
+
+def _pack_fwd(params, cfg, d_in: int, d_out: int, device, projection: bool):
+    """The wgmma kernel's weights and biases: one bf16 [rows, 128] matrix in
+    the order of `fwd_weight_rows` (zero rows after d_in in W_in, zero
+    columns after d_out in W_out), and the float32 biases (bf16 values)
+    b_in, b_z, per block b0 and b1, then b_out padded to 64."""
+    n_lin_z = _n_lin_z(cfg)
+    mats = [F.pad(params["lin_in"]["kernel"], (0, 0, 0, FWD_K_IN - d_in))]
+    for i in range(cfg.n_blocks):
+        mats += [params[f"blocks_{i}_fc_0"]["kernel"], params[f"blocks_{i}_fc_1"]["kernel"]]
+    mats.append(F.pad(params["lin_out"]["kernel"], (0, FWD_DH - d_out)))
+    if projection:
+        mats += [params[f"lin_z_{i}"]["kernel"] for i in range(n_lin_z)]
+    biases = [params["lin_in"]["bias"]] + [params[f"lin_z_{i}"]["bias"] for i in range(n_lin_z)]
+    for i in range(cfg.n_blocks):
+        biases += [params[f"blocks_{i}_fc_0"]["bias"], params[f"blocks_{i}_fc_1"]["bias"]]
+    biases.append(F.pad(params["lin_out"]["bias"], (0, FWD_OUT_COLS - d_out)))
+    # one concatenation and one cast each (a few launches: this runs per call)
+    w = torch.cat(mats).to(device=device, dtype=_BF)
+    b = torch.cat(biases).to(device=device, dtype=_BF).float()
+    return w, b
+
+
+def _pad_x(x: torch.Tensor, d_in: int) -> torch.Tensor:
+    """x_pe as the wgmma kernel reads it: a bf16 [N, 64] copy, zeros after
+    column d_in (126-byte rows cannot be a TMA map)."""
+    return F.pad(x.reshape(-1, d_in).to(_BF), (0, FWD_K_IN - d_in)).contiguous()
+
+
 # ------------------------------------------------------------------ CUDA wrappers
 
 def _pack(params, cfg, d_in: int, d_out: int, device):
@@ -244,23 +358,36 @@ def _fused_resnet_fc_tz_cuda(params, cfg, tz, x, d_out):
     d_in = x.shape[-1]
     _check_tz(tz, cfg)
     _check_trunk("K7-tz", cfg, d_in, d_out)
-    x2 = x.reshape(-1, d_in).to(_BF).contiguous()
-    n = x2.shape[0]
+    n = x.numel() // d_in
     if tz.numel() != n * tz.shape[-1]:
         raise ValueError(f"point counts differ: tz {tuple(tz.shape)}, x {tuple(x.shape)}")
-    tz2 = tz.reshape(n, tz.shape[-1]).to(_BF).contiguous()
-    check_cuda_tensor(tz2, "K7-tz tz", _BF, 2)
-    check_cuda_tensor(x2, "K7-tz x", _BF, 2)
-    wbuf, bbuf = _pack(params, cfg, d_in, d_out, x2.device)
-    out = torch.empty((n, d_out), dtype=torch.float32, device=x2.device)
+    dev = x.device
+    out = torch.empty((n, d_out), dtype=torch.float32, device=dev)
     if n == 0:
         return out.reshape(*lead, d_out)
+    tz2 = tz.reshape(n, tz.shape[-1]).to(_BF).contiguous()
+    check_cuda_tensor(tz2, "K7-tz tz", _BF, 2)
+    n_lin_z = _n_lin_z(cfg)
+    plan = fwd_plan(n, d_in, cfg.d_hidden, cfg.n_blocks, n_lin_z, d_out, sms=_sms(dev.index))
     lib = load_kernels()
-    with torch.cuda.device(x2.device):
-        fused_resnet_fc_tz.launches += 1
-        lib.call("njf_field_mlp_tz_fwd", tz2.data_ptr(), x2.data_ptr(),
-                 wbuf.data_ptr(), bbuf.data_ptr(), out.data_ptr(), n, d_in, cfg.d_hidden,
-                 cfg.n_blocks, _n_lin_z(cfg), d_out, stream_of(x2))
+    if plan.legacy:
+        x2 = x.reshape(-1, d_in).to(_BF).contiguous()
+        check_cuda_tensor(x2, "K7-tz x", _BF, 2)
+        wbuf, bbuf = _pack(params, cfg, d_in, d_out, dev)
+        with _on_device(x2):
+            _count(fused_resnet_fc_tz, True)
+            lib.call("njf_field_mlp_tz_fwd", tz2.data_ptr(), x2.data_ptr(),
+                     wbuf.data_ptr(), bbuf.data_ptr(), out.data_ptr(), n, d_in, cfg.d_hidden,
+                     cfg.n_blocks, n_lin_z, d_out, stream_of(x2))
+        return out.reshape(*lead, d_out)
+    xp = _pad_x(x, d_in)
+    check_cuda_tensor(xp, "K7-tz x", _BF, 2)
+    wf, bf = _pack_fwd(params, cfg, d_in, d_out, dev, projection=False)
+    with _on_device(xp):
+        _count(fused_resnet_fc_tz, False)
+        lib.call("njf_field_mlp_tz_fwd_wg", tz2.data_ptr(), xp.data_ptr(), wf.data_ptr(),
+                 bf.data_ptr(), out.data_ptr(), n, cfg.n_blocks, n_lin_z, d_out, plan.grid,
+                 plan.smem, stream_of(xp))
     return out.reshape(*lead, d_out)
 
 
@@ -366,10 +493,11 @@ def fused_resnet_fc_tz_bwd(params, cfg, tz: torch.Tensor, x: torch.Tensor,
                     lambda: fused_resnet_fc_tz_bwd_plain(params, cfg, tz, x, g, d_out))
 
 
-def _latent_args(params, cfg, z, n, dev):
+def _latent_args(params, cfg, z, n, dev, stack: bool = True):
     """The levels as the projection-mode kernels take them: (the [n, c_l]
     arrays, the three pointer / width slots, the float32 mask, W_z packed
-    [n_lin_z, d_latent, d_hidden] bf16 or None)."""
+    [n_lin_z, d_latent, d_hidden] bf16, or None without injection or
+    without `stack`)."""
     levels = _levels(z)
     if not 1 <= len(levels) <= 3:
         raise ValueError(f"K7 takes 1 to 3 latent levels, got {len(levels)}")
@@ -387,34 +515,51 @@ def _latent_args(params, cfg, z, n, dev):
     ptrs = [z2.data_ptr() for z2 in zs] + [0] * (3 - len(zs))
     widths = [z2.shape[1] for z2 in zs] + [0] * (3 - len(zs))
     n_lin_z = _n_lin_z(cfg)
+    for i in range(n_lin_z):
+        shape = tuple(params[f"lin_z_{i}"]["kernel"].shape)
+        if shape != (sum(widths), cfg.d_hidden):
+            raise ValueError(f"lin_z kernels {shape} do not match the latent "
+                             f"width {sum(widths)} x d_hidden {cfg.d_hidden}")
     wz = None
-    if n_lin_z:
+    if n_lin_z and stack:
         wz = torch.stack([params[f"lin_z_{i}"]["kernel"].to(device=dev, dtype=_BF)
                           for i in range(n_lin_z)]).contiguous()
-        if wz.shape[1:] != (sum(widths), cfg.d_hidden):
-            raise ValueError(f"lin_z kernels {tuple(wz.shape[1:])} do not match the latent "
-                             f"width {sum(widths)} x d_hidden {cfg.d_hidden}")
     return zs, ptrs, widths, mask, wz
 
 
 def _fused_resnet_fc_cuda(params, cfg, z, x, d_out):
     d_in = x.shape[-1]
     _check_trunk("K7", cfg, d_in, d_out)
-    x2 = x.reshape(-1, d_in).to(_BF).contiguous()
-    n = x2.shape[0]
-    check_cuda_tensor(x2, "K7 x", _BF, 2)
-    out = torch.empty((n, d_out), dtype=torch.float32, device=x2.device)
+    n = x.numel() // d_in
+    dev = x.device
+    out = torch.empty((n, d_out), dtype=torch.float32, device=dev)
     if n == 0:
         return out.reshape(*x.shape[:-1], d_out)
-    zs, ptrs, widths, mask, wz = _latent_args(params, cfg, z, n, x2.device)
-    wbuf, bbuf = _pack(params, cfg, d_in, d_out, x2.device)
+    n_lin_z = _n_lin_z(cfg)
+    levels = _levels(z)
+    plan = fwd_plan(n, d_in, cfg.d_hidden, cfg.n_blocks, n_lin_z, d_out,
+                    tuple(zl.shape[-1] for zl in levels), sms=_sms(dev.index))
+    zs, ptrs, widths, mask, wz = _latent_args(params, cfg, z, n, dev, stack=plan.legacy)
     lib = load_kernels()
-    with torch.cuda.device(x2.device):
-        fused_resnet_fc.launches += 1
-        lib.call("njf_field_mlp_fwd", *ptrs, *widths, len(zs), mask, x2.data_ptr(),
-                 wbuf.data_ptr(), 0 if wz is None else wz.data_ptr(), bbuf.data_ptr(),
-                 out.data_ptr(), n, d_in, cfg.d_hidden, cfg.n_blocks, _n_lin_z(cfg), d_out,
-                 stream_of(x2))
+    if plan.legacy:
+        x2 = x.reshape(-1, d_in).to(_BF).contiguous()
+        check_cuda_tensor(x2, "K7 x", _BF, 2)
+        wbuf, bbuf = _pack(params, cfg, d_in, d_out, dev)
+        with _on_device(x2):
+            _count(fused_resnet_fc, True)
+            lib.call("njf_field_mlp_fwd", *ptrs, *widths, len(zs), mask, x2.data_ptr(),
+                     wbuf.data_ptr(), 0 if wz is None else wz.data_ptr(), bbuf.data_ptr(),
+                     out.data_ptr(), n, d_in, cfg.d_hidden, cfg.n_blocks, n_lin_z, d_out,
+                     stream_of(x2))
+        return out.reshape(*x.shape[:-1], d_out)
+    xp = _pad_x(x, d_in)
+    check_cuda_tensor(xp, "K7 x", _BF, 2)
+    wf, bf = _pack_fwd(params, cfg, d_in, d_out, dev, projection=True)
+    with _on_device(xp):
+        _count(fused_resnet_fc, False)
+        lib.call("njf_field_mlp_fwd_wg", *ptrs, *widths, len(zs), mask, xp.data_ptr(),
+                 wf.data_ptr(), bf.data_ptr(), out.data_ptr(), n, cfg.n_blocks, n_lin_z, d_out,
+                 plan.grid, plan.smem, stream_of(xp))
     return out.reshape(*x.shape[:-1], d_out)
 
 
@@ -476,10 +621,14 @@ def fused_resnet_fc_bwd(params, cfg, z, x: torch.Tensor, g: torch.Tensor, d_out:
                     lambda: fused_resnet_fc_bwd_plain(params, cfg, z, x, g, d_out))
 
 
+# launches, and for the forward wrappers those among them that went to the
+# legacy kernel, which no main-path shape should reach
 fused_resnet_fc.launches = 0
 fused_resnet_fc_bwd.launches = 0
 fused_resnet_fc_tz.launches = 0
 fused_resnet_fc_tz_bwd.launches = 0
+fused_resnet_fc.legacy_launches = 0
+fused_resnet_fc_tz.legacy_launches = 0
 
 
 # --------------------------------------------------------- autograd.Functions
