@@ -14,9 +14,10 @@ K7 trunks that project the latent themselves):
 
   1. card and build: the card's name and power limit, the kernels built from
      csrc/ with nvcc, and where the toolkit has cuobjdump the HGMMA /
-     UTMALDG / HMMA counts of the K9 and K7 forward kernels' SASS (every
-     TMA kernel and both K7 wgmma kernels must hold wgmma and TMA loads and
-     no legacy mma) (TF32 off for every float32 reference);
+     UTMALDG / HMMA counts of the K9 and K7 kernels' SASS (every TMA
+     kernel, both K7 forward wgmma kernels, both gradient chains and the
+     weight-gradient pass of the K7 backward must hold wgmma and TMA loads
+     and no legacy mma) (TF32 off for every float32 reference);
   2. each hand-written kernel against its plain PyTorch version at the
      shapes the main paths give it, with error, tolerance, median CUDA-event
      times of both, the least time the card could take (bound: the larger
@@ -28,8 +29,11 @@ K7 trunks that project the latent themselves):
      statistics) at the 24 convs of a batch-7 encode, its y bit for bit
      K9-fwd's, its yardstick F.conv2d followed by the two reductions; the
      backward kernels (K9-dgrad, K9-wgrad, K6-bwd, K7-tz-bwd and K7-bwd at
-     d_out 1, 16 and 24, K1-bwd) at the train step's; K10, K1-bwd and K7-bwd
-     twice, for identical bits (K7-tz-fwd and K7-fwd too). The conv rows
+     d_out 1, 16 and 24, K1-bwd) at the train step's; K10, K1-bwd, K7-tz-bwd
+     and K7-bwd twice, for identical bits (K7-tz-fwd and K7-fwd too). The
+     K7 backward rows print each pass's device time (the gradient chain,
+     the weight-gradient pass, the ordered sums) with its TFLOP/s, and the
+     chunks and operand scratch of the plan. The conv rows
      take bf16 weights, as the model passes them, and print beside the
      wrapper time the kernels' device time (torch.profiler) and the
      achieved TFLOP/s; so do the K7 forward rows, per trunk and summed,
@@ -62,8 +66,9 @@ K7 trunks that project the latent themselves):
      unchanged and the BatchNorm running statistics moved;
   7. timings and peak memory.
 Every main path also checks that no K9 wrapper went to its legacy kernel
-(C or Cout not a multiple of 8), and no K7 forward wrapper to its legacy
-WMMA kernel (shapes off fwd_plan's wgmma kernel). Any failed phase exits non-zero.
+(C or Cout not a multiple of 8), and no K7 wrapper to its legacy WMMA
+kernel (shapes off fwd_plan's or bwd_plan's wgmma kernels). Any failed
+phase exits non-zero.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result. The last three lines are the card line, the
 kernel table and the device record, the last two each one JSON object; the
@@ -76,6 +81,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +108,10 @@ COARSE_HW, LATENT = (30, 40), (128, 128, 256)
 # H100 SXM, NVIDIA's data sheet: dense bf16 tensor rate and memory bandwidth
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 MODES = ("epipolar", "exact")
+# the K7 backward's passes by kernel name (the wgmma path: the gradient
+# chain, the weight-gradient pass, the ordered sums)
+K7_BWD_PASSES = {"chain": r"field_mlp_bwd_chain_kernel", "weight gradients": r"field_mlp_dw_kernel",
+                 "sums": r"reduce_bwd_kernel"}
 
 
 class PhaseError(RuntimeError):
@@ -144,11 +154,12 @@ def cuda_time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=5):
+def device_ms(fn, reps=5, groups=None):
     """Device milliseconds of fn() per call: the sum of the device intervals
     of its kernels (and copies and fills) under torch.profiler, over reps
     calls after one warm-up. Spans the profiler mirrors from host ranges are
-    dropped."""
+    dropped. With `groups` ({label: regex}), also the milliseconds per call
+    of the kernels whose names match each: (total, {label: ms})."""
     import warnings
 
     import torch
@@ -157,25 +168,32 @@ def device_ms(fn, reps=5):
 
     fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():  # "clears events at the end of each cycle"
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    events = prof.events()
-    host = {e.name for e in events if e.device_type == DeviceType.CPU}
-    us = sum(e.time_range.elapsed_us() for e in events
-             if e.device_type == DeviceType.CUDA and e.name not in host)
+    for _ in range(3):  # a trace that caught no device event is taken again
+        with warnings.catch_warnings():  # "clears events at the end of each cycle"
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        host = {e.name for e in events if e.device_type == DeviceType.CPU}
+        dev_events = [e for e in events
+                      if e.device_type == DeviceType.CUDA and e.name not in host]
+        us = sum(e.time_range.elapsed_us() for e in dev_events)
+        if us > 0:
+            break
     check(us > 0, "the profiler recorded no device time")
-    return us / reps / 1e3
+    if groups is None:
+        return us / reps / 1e3
+    return us / reps / 1e3, {
+        label: sum(e.time_range.elapsed_us() for e in dev_events if re.search(rx, e.name))
+        / reps / 1e3 for label, rx in groups.items()}
 
 
 def sass_counts(lib_path) -> dict:
     """{kernel: (HGMMA, UTMALDG, HMMA)} for the K9 kernels and the K7
-    forward kernels in the built library's SASS, or {} where the toolkit
-    has no cuobjdump."""
-    import re
+    kernels in the built library's SASS, or {} where the toolkit has no
+    cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -187,8 +205,8 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if re.search(r"conv3x3|wgrad|field_mlp_(wg|fwd)", m.group(1)) \
-                else None
+            fn = m.group(1) if re.search(r"conv3x3|wgrad|field_mlp_(wg|fwd|bwd_chain|dw_k)",
+                                         m.group(1)) else None
             if fn:
                 counts[fn] = [0, 0, 0]
         elif fn:
@@ -198,14 +216,36 @@ def sass_counts(lib_path) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled entry-function name (the last
+    length-prefixed identifier ending in "kernel"), with its template
+    arguments' code when it has them."""
+    name, i = mangled, 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        n, start = int(m.group(0)), i + len(m.group(0))
+        ident = mangled[start:start + n]
+        if ident.endswith("kernel") and re.fullmatch(r"\w+", ident):
+            rest, j = mangled[start + n:], 1
+            while rest.startswith("I") and rest[j:j + 1] == "L":  # literal template args
+                j = rest.index("E", j) + 1
+            name = ident + (rest[:j + 1] if rest.startswith("I") else "")
+        i = start + n if re.fullmatch(r"[A-Za-z_]\w*", ident) else start
+    return name
+
+
 def check_no_legacy(label):
     """The legacy kernels of the K9 wrappers (C or Cout not a multiple of 8)
-    and of the K7 forward wrappers (shapes off fwd_plan's wgmma kernel) ran
-    no time since the counters were reset."""
+    and of the K7 wrappers (shapes off fwd_plan's or bwd_plan's wgmma
+    kernels) ran no time since the counters were reset."""
     from neural_jacobian_field_torch.ops import kernels as K
 
     legacy = K.legacy_launch_counts()
-    check(set(legacy) >= {"K9-fwd", "K10", "K9-dgrad", "K9-wgrad", "K7-tz-fwd", "K7-fwd"},
+    check(set(legacy) >= {"K9-fwd", "K10", "K9-dgrad", "K9-wgrad", "K7-tz-fwd", "K7-fwd",
+                          "K7-tz-bwd", "K7-bwd"},
           f"{label}: legacy counters {sorted(legacy)}")
     check(not any(legacy.values()), f"{label}: legacy kernels launched {legacy}")
 
@@ -557,6 +597,7 @@ def backward_kernel_checks(dev):
 
     from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
     from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.ops.kernels import field_mlp
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows = {}
@@ -714,6 +755,7 @@ def backward_kernel_checks(dev):
                 return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
             (leaf_max, max_name), (leaf_l2, l2_name) = worst(rel_err, grads), worst(l2, grads)
+            dname = "dz (each level)" if proj else "dtz"
             l2_tol = 1e-2
             if proj:
                 # the plain version again with the latent as one float32 array:
@@ -732,7 +774,6 @@ def backward_kernel_checks(dev):
                 dfar = max(dfar, float((derr > 2e-2 * ref.float().abs().max()).float().mean()))
             err = max(float((grads[k][leaf] - v).abs().max()) for k, p in pgrads.items()
                       for leaf, v in p.items())
-            dname = "dz (each level)" if proj else "dtz"
             print(f"{name} N={npts} d_out={d_out}: dW/db max_abs_err {err:.3e}, worst leaf "
                   f"{max_name} {leaf_max:.3e} of scale (tol 2e-2), {l2_name} {leaf_l2:.3e} in "
                   f"l2 (tol {l2_tol:.3e}); {dname} {dl2:.3e} in l2 (tol 1e-2), share beyond "
@@ -740,24 +781,33 @@ def backward_kernel_checks(dev):
                   f"ReLU mask")
             check(leaf_max <= 2e-2 and leaf_l2 <= l2_tol and dl2 <= 1e-2 and dfar <= 1e-3,
                   f"{name} disagrees with its plain version")
-            if proj:
-                again, dagain = wrapper(params, cfg, lat, x, gy, d_out)
-                same = (all(torch.equal(again[k][leaf], v) for k, p in grads.items()
-                            for leaf, v in p.items())
-                        and all(torch.equal(a, c) for a, c in zip(dlat, dagain)))
-                print(f"  {name} two calls bit-identical (every leaf and dz)={same}")
-                check(same, f"{name} does not repeat bit for bit")
-                del again, dagain
-            del grads, dlat, pgrads, pdlat
+            again, dagain = wrapper(params, cfg, lat, x, gy, d_out)
+            same = (all(torch.equal(again[k][leaf], v) for k, p in grads.items()
+                        for leaf, v in p.items())
+                    and all(torch.equal(a, c) for a, c in zip(dlat if proj else (dlat,),
+                                                              dagain if proj else (dagain,))))
+            print(f"  {name} two calls bit-identical (every leaf and {dname})={same}")
+            check(same, f"{name} does not repeat bit for bit")
+            del again, dagain, grads, dlat, pgrads, pdlat
             k_ms = cuda_time_ms(lambda: wrapper(params, cfg, lat, x, gy, d_out), reps=3,
                                 warmup=1)
             p_ms = cuda_time_ms(lambda: plain(params, cfg, lat, x, gy, d_out), reps=3, warmup=1)
-            d_ms = device_ms(lambda: wrapper(params, cfg, lat, x, gy, d_out), reps=3)
+            d_ms, parts = device_ms(lambda: wrapper(params, cfg, lat, x, gy, d_out), reps=3,
+                                    groups=K7_BWD_PASSES)
             dev_sum += d_ms
-            # forward recompute + input gradients + weight gradients
+            # forward recompute + input gradients (the chain) + weight gradients
             flops = 3 * trunk_flops(npts, d_out, proj)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = field_mlp.bwd_plan(npts, 63, 128, 5, 3, d_out, LATENT if proj else None,
+                                      sms=sms)
             print_times("", k_ms, p_ms, extra=f" ({flops / k_ms / 1e9:.1f} TFLOP/s; device "
                         f"{d_ms:.4f}, {flops / d_ms / 1e9:.1f} TFLOP/s)")
+            rate = {"chain": 2 * flops / 3, "weight gradients": flops / 3}
+            print(f"  {name} passes (device ms per call): " + ", ".join(
+                f"{k} {v:.4f}" + (f" ({rate[k] / v / 1e9:.1f} TFLOP/s)" if k in rate and v else "")
+                for k, v in parts.items()) + f"; {len(plan.chunks(npts))} chunks of <= "
+                f"{plan.chunk} points, operand scratch {plan.scratch_bytes / 2**20:.1f} MiB, "
+                f"{len(plan.jobs)} weight-gradient jobs x {plan.splits} splits")
             inputs = z if proj else (tz,)
             row.add(err, k_ms, p_ms, 2 * nbytes(*inputs) + nbytes(x, gy), flops)
         rows[name] = row.record()
@@ -1366,7 +1416,6 @@ def profile_train(dev, mode, top=15):
     and launches of the stride-1 conv kernels (K9-fwd or K10, K9-dgrad,
     K9-wgrad and their ordered sums) by kernel."""
     import collections
-    import re
 
     import torch
     from torch.autograd import DeviceType
@@ -1416,19 +1465,25 @@ def profile_train(dev, mode, top=15):
             print(f"profile {mode} {kind}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<5d} "
                   f"{name[:90]}")
         # the stride-1 conv kernels (K9-fwd / K10, K9-dgrad, K9-wgrad) and
-        # their ordered-sum passes
-        conv = collections.defaultdict(lambda: [0.0, 0])
-        for name, (us, n) in by_name.items():
-            m = re.search(r"(conv3x3_(tma|legacy)_kernel|wgrad_(tma|legacy)_kernel|"
-                          r"stats_sum_kernel|sum_splits_kernel)(<[^>]*>)?", name)
-            if m:
-                conv[m.group(0)][0] += us
-                conv[m.group(0)][1] += n
-        print(f"profile {mode} {kind} conv kernels: "
-              f"{sum(v[0] for v in conv.values()) / 1e3:.3f} ms in "
-              f"{sum(v[1] for v in conv.values())} launches; "
-              + "; ".join(f"{k} {v[0] / 1e3:.3f} ms x{v[1]}"
-                          for k, v in sorted(conv.items(), key=lambda kv: -kv[1][0])))
+        # their ordered-sum passes; the K7 trunk kernels (forward, the
+        # backward's gradient chain, weight-gradient pass and ordered sums,
+        # or the legacy ones)
+        for label, rx in (
+                ("conv", r"(conv3x3_(tma|legacy)_kernel|wgrad_(tma|legacy)_kernel|"
+                         r"stats_sum_kernel|sum_splits_kernel)(<[^>]*>)?"),
+                ("K7", r"(field_mlp_(wg|fwd|bwd_chain|bwd|dw|dwz)_kernel|"
+                       r"reduce_(bwd|partials|splits)_kernel)(<[^>]*>)?")):
+            group = collections.defaultdict(lambda: [0.0, 0])
+            for name, (us, n) in by_name.items():
+                m = re.search(rx, name)
+                if m:
+                    group[m.group(0)][0] += us
+                    group[m.group(0)][1] += n
+            print(f"profile {mode} {kind} {label} kernels: "
+                  f"{sum(v[0] for v in group.values()) / 1e3:.3f} ms in "
+                  f"{sum(v[1] for v in group.values())} launches; "
+                  + "; ".join(f"{k} {v[0] / 1e3:.3f} ms x{v[1]}"
+                              for k, v in sorted(group.items(), key=lambda kv: -kv[1][0])))
 
 
 def main() -> int:
@@ -1472,19 +1527,27 @@ def main() -> int:
               "float32)")
         lib = load_kernels()
         print(f"kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
+        kernel = ""  # the entry function ptxas reports on
         for line in lib.build_log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = kernel_name(m.group(1))
             if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+                print(f"  ptxas: {line.strip()} [{kernel}]")
         sass = sass_counts(lib.path)
         for fn, (hgmma, utmaldg, hmma) in sass.items():
             print(f"  SASS {fn[:96]}: HGMMA {hgmma} UTMALDG {utmaldg} HMMA {hmma}")
-        tma = {fn: c for fn, c in sass.items() if "tma_kernel" in fn or "wg_kernel" in fn}
+        tma = {fn: c for fn, c in sass.items()
+               if re.search(r"tma_kernel|wg_kernel|bwd_chain_kernel|field_mlp_dw_kernel", fn)}
         check(not sass or (sum("wg_kernel" in fn for fn in tma) == 2
+                           and sum("bwd_chain_kernel" in fn for fn in tma) == 2
+                           and sum("field_mlp_dw_kernel" in fn for fn in tma) == 1
                            and all(c[0] and c[1] and not c[2] for c in tma.values())),
               "a K9 TMA kernel or K7 wgmma kernel lacks HGMMA or UTMALDG in its SASS, or kept "
               "HMMA")
-        print(f"SASS: {len(tma)} TMA / wgmma kernels (K9 and K7 forward) with HGMMA and UTMALDG"
-              if sass else "SASS: no cuobjdump in this toolkit")
+        print(f"SASS: {len(tma)} TMA / wgmma kernels (K9, the K7 forward and the K7 backward's "
+              f"two passes) with HGMMA and UTMALDG" if sass else
+              "SASS: no cuobjdump in this toolkit")
         if args.profile:
             profile_train(dev, args.profile)
             return 0

@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the K9 kernels (conv3x3_s1.cu,
-// conv3x3_wgrad.cu) and the K7 forward (field_mlp.cu), as raw PTX: TMA
-// tensor maps and tile loads, the mbarrier ring, wgmma shared-memory
-// descriptors, warpgroup fences, register rebalancing and the bf16 wgmma
-// shapes the kernels issue (A from shared memory or from registers).
-// sm_90a only.
+// conv3x3_wgrad.cu) and the K7 kernels (field_mlp.cu, field_mlp_bwd.cu), as
+// raw PTX: TMA tensor maps and tile loads, the mbarrier ring, wgmma
+// shared-memory descriptors, warpgroup fences, register rebalancing, named
+// barriers and the bf16 wgmma shapes the kernels issue (A from shared memory
+// or from registers). sm_90a only.
 //
 // Every operand tile is a TMA box whose innermost extent is 64 bf16 = 128
 // bytes, stored with the 128-byte swizzle: a tile of R rows is R x 128 B,
@@ -213,7 +213,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers (the bf16x2
 // fragment a0..a3 of mma.sync's m16n8k16 A, per warp its 16 rows), B an
-// MN-major tile (the transpose bit); scale_d 0 overwrites D.
+// MN-major tile (kTransB 1, the transpose bit) or a K-major one (kTransB 0:
+// a row-major [in, out] weight tile read as its transpose); scale_d 0
+// overwrites D.
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, uint32_t a1,
                                                  uint32_t a2, uint32_t a3, uint64_t db,
                                                  int scale_d) {
@@ -226,7 +229,7 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, ui
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
       "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -239,10 +242,11 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], as wgmma_m64n128_rs.
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uint32_t a1,
                                                 uint32_t a2, uint32_t a3, uint64_t db,
                                                 int scale_d) {
@@ -253,14 +257,20 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uin
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a multiple
+// of 32: one warpgroup's own synchronisation.
+__device__ __forceinline__ void named_bar(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 }  // namespace njf_hopper

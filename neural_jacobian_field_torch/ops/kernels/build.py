@@ -4,7 +4,7 @@ All CUDA sources under `neural_jacobian_field_torch/csrc/` are compiled by
 `nvcc`, one process per source, all started together, and linked into ONE
 shared library with a plain C interface, loaded through `ctypes` (no PyTorch
 headers, so a build takes seconds, not minutes), against the CUDA driver
-library (`-lcuda`: the K9 and K7-fwd kernels encode TMA tensor maps). The
+library (`-lcuda`: the K9 and K7 kernels encode TMA tensor maps). The
 library is built at first use into `build/torch_kernels/` at the repository
 root (listed in .gitignore), under a name that hashes the sources and flags,
 so an edited source is rebuilt and concurrent processes never load a half-
@@ -54,6 +54,9 @@ _SIGNATURES = {
                              _I, _P),
     "njf_field_mlp_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "njf_field_mlp_bwd_wg": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
     "njf_onehot_gather_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "njf_onehot_scatter_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -25,9 +25,13 @@ csrc/field_mlp_bwd.cu) say in their headers what bounds them.
 The forward kernels run by `fwd_plan`: the flagship's shapes (d_hidden 128,
 d_in <= 64, latent levels in multiples of 64) take the persistent wgmma
 kernel, which reads a forward-only packing of the weights (`_pack_fwd`) and
-x_pe padded to 64 columns; other shapes take the legacy WMMA kernel, counted
-apart in each forward wrapper's `legacy_launches`. The backward kernels read
-`_pack`'s layout.
+x_pe padded to 64 columns. The backward runs by `bwd_plan`: the same shapes
+take two wgmma passes over chunks of points (a gradient chain that reads the
+forward packing, x_pe and g padded to 64 columns, and writes the weight
+gradients' bf16 operands to a scratch; then a split-K weight-gradient pass
+with the job table of `bwd_jobs`), whose output `_unpack_bwd` unpacks. Other
+shapes take the legacy WMMA kernels, which read `_pack`'s layout, counted
+apart in each wrapper's `legacy_launches`.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes the plain version. The Functions look their wrappers up in this
@@ -35,6 +39,7 @@ module at call time, so swapping a wrapper for its plain version here swaps
 it for the forward and the backward alike.
 """
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -306,6 +311,210 @@ def _pad_x(x: torch.Tensor, d_in: int) -> torch.Tensor:
     return F.pad(x.reshape(-1, d_in).to(_BF), (0, FWD_K_IN - d_in)).contiguous()
 
 
+# ----------------------------------------------------------- the backward plan
+
+class BwdPlan(NamedTuple):
+    """How K7-bwd / K7-tz-bwd run one shape (csrc/field_mlp_bwd.cu). legacy:
+    the WMMA kernel (tiles of 64 points). Otherwise two wgmma passes over
+    chunks of `chunk` points (the last may be shorter), each chunk's sums
+    added to the previous ones in order:
+      - the gradient chain: `grid` persistent blocks (of a full chunk) walk
+        tiles of `tile` = 128 points, `consumers` warpgroups of 64 points and
+        one producer, a ring of `stages` stages of `stage_bytes`, `smem`
+        bytes of dynamic shared memory; it writes the weight gradients'
+        operands to a bf16 scratch [chunk, `n_slots` x 128] (`scratch_bytes`)
+        and each consumer's `db_total` bias-gradient sums;
+      - the weight gradients: `jobs` (a_map, a_col, a_halves, g_map, g_col,
+        g_halves, out) x `splits` blocks (of a full chunk), each summing one
+        job's dW = A^T G over a range of 64-point tiles into its split's
+        `w_total` floats, `dw_smem` bytes of shared memory;
+      - an ordered sum over the splits and the chain's consumers."""
+    legacy: bool
+    chunk: int
+    tile: int
+    grid: int
+    consumers: int
+    stages: int
+    stage_bytes: int
+    smem: int
+    n_slots: int
+    scratch_bytes: int
+    db_total: int
+    jobs: tuple
+    w_total: int
+    splits: int
+    dw_smem: int
+
+    def chunks(self, n: int) -> list:
+        """Per chunk, in order: (first point, points, chain grid, splits,
+        64-point tiles per split), as the kernel derives them."""
+        out = []
+        for c0 in range(0, n, self.chunk):
+            nc = min(self.chunk, n - c0)
+            tiles64 = -(-nc // 64)
+            splits = min(self.splits, tiles64)
+            out.append((c0, nc, min(self.grid, -(-nc // self.tile)), splits, -(-tiles64 // splits)))
+        return out
+
+
+BWD_CHUNK = 1 << 18            # points per chunk at most
+BWD_SCRATCH_CAP = 3 << 29      # bytes of operand scratch at most (1.5 GiB)
+BWD_MAX_JOBS = 64              # the weight-gradient pass's job table
+BWD_MAX_BLOCKS = 7             # residual blocks whose ReLU masks the chain holds
+# the weight-gradient pass's maps
+MAP_SCRATCH, MAP_DT, MAP_X, MAP_G, MAP_Z = 0, 1, 2, 3, 4
+
+
+def bwd_db_floats(n_blocks: int) -> int:
+    """The chain's bias gradients: db_in [128], per block db0 and db1 [128],
+    db_out [64]."""
+    return FWD_DH * (1 + 2 * n_blocks) + FWD_OUT_COLS
+
+
+def bwd_slots(n_blocks: int, n_lin_z: int) -> dict:
+    """The scratch slots (128 bf16 columns each) the chain writes, by name:
+    ax_i = relu(x_i) (block i's input after the injection), ax_L =
+    relu(x_L), an_i = relu(net_i), dnet_i = bf16(dnet_i), dxe_i = bf16 of the
+    gradient entering block i's backward unless it is dt_{i + 1}, and dx_in
+    (the gradient at lin_in's output) without injection; dt_i lives in dt."""
+    nb, skip = n_blocks, max(n_lin_z - 1, 0)
+    slots = {f"ax_{i}": i for i in range(nb)}
+    slots["ax_L"] = nb
+    slots.update({f"an_{i}": nb + 1 + i for i in range(nb)})
+    slots.update({f"dnet_{i}": 2 * nb + 1 + i for i in range(nb)})
+    slots.update({f"dxe_{i}": 3 * nb + 1 + i - skip for i in range(skip, nb)})
+    if n_lin_z == 0:
+        slots["dx_in"] = 4 * nb + 1
+    return slots
+
+
+def bwd_jobs(n_blocks: int, n_lin_z: int, widths: tuple | None = None) -> tuple:
+    """The weight-gradient pass's jobs, in the order of its output:
+    lin_in [64, 128], per block fc_0 and fc_1 [128, 128], lin_out [128, 64],
+    then in projection mode each lin_z_i's kernel [d_lat, 128] in 128-row
+    jobs (64 at the end of a level 64 mod 128 wide). A job is (a_map, a_col,
+    a_halves, g_map, g_col, g_halves, out): dW [64 a_halves, 64 g_halves] of
+    the A columns from a_col against the G columns from g_col, written at
+    float `out`. The gradient entering block i's backward is dt_{i + 1} for
+    i + 1 < n_lin_z, and lin_in's is dt_0 with any injection."""
+    slots = bwd_slots(n_blocks, n_lin_z)
+
+    def scr(name):
+        return (MAP_SCRATCH, FWD_DH * slots[name], 2)
+
+    def dt(i):
+        return (MAP_DT, FWD_DH * i, 2)
+
+    jobs, out = [], 0
+
+    def add(a, g):
+        nonlocal out
+        jobs.append((*a, *g, out))
+        out += 64 * a[2] * 64 * g[2]
+
+    add((MAP_X, 0, 1), dt(0) if n_lin_z else scr("dx_in"))
+    for i in range(n_blocks):
+        add(scr(f"ax_{i}"), scr(f"dnet_{i}"))
+        add(scr(f"an_{i}"), dt(i + 1) if i + 1 < n_lin_z else scr(f"dxe_{i}"))
+    add(scr("ax_L"), (MAP_G, 0, 1))
+    for i in range(n_lin_z if widths else 0):
+        for lvl, w in enumerate(widths):
+            for c0 in range(0, w, 128):
+                add((MAP_Z + lvl, c0, min(128, w - c0) // 64), dt(i))
+    return tuple(jobs)
+
+
+def bwd_w_total(jobs) -> int:
+    """Floats of the weight-gradient pass's output (the jobs' blocks)."""
+    return jobs[-1][6] + 64 * jobs[-1][2] * 64 * jobs[-1][5]
+
+
+def legacy_bwd_plan(n: int, sms: int = SMS) -> BwdPlan:
+    """The legacy kernel over n points: tiles of 64, two persistent blocks
+    per SM."""
+    return BwdPlan(True, n, 64, min(-(-n // 64), 2 * sms), 0, 0, 0, 0, 0, 0, 0, (), 0, 0, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(n: int, d_in: int, dh: int, n_blocks: int, n_lin_z: int, d_out: int,
+             widths: tuple | None = None, sms: int = SMS) -> BwdPlan:
+    """The plan of one trunk backward over n points; `widths` the latent
+    levels' widths (projection mode) or None (tz mode). The wgmma passes
+    take the forward kernel's shapes (d_hidden 128, d_in <= 64, d_out <= 64,
+    1 to 3 levels each a multiple of 64 wide) with at most 7 residual blocks
+    (the chain keeps their ReLU masks in registers) where the chain's shared
+    memory and the job table fit; anything else takes the legacy kernel.
+    Chunks: 2^18 points, halved while the scratch would pass its cap. The
+    chain keeps one block per SM (of `sms`); the weight-gradient pass splits
+    the points so that jobs x splits fills the SMs once."""
+    consumers, stages = 2, 3
+    stage_bytes = FWD_DH * FWD_DH * 2 + consumers * 64 * FWD_DH * 2
+    db_total = bwd_db_floats(n_blocks)
+    smem = (1024 + stages * stage_bytes + 4 * fwd_bias_floats(n_blocks, n_lin_z)
+            + 4 * consumers * (db_total + 2 * 4 * 128) + 16 * stages)
+    ok = (dh == FWD_DH and 0 < d_in <= FWD_K_IN and 0 < d_out <= FWD_OUT_COLS
+          and 0 <= n_lin_z <= n_blocks <= BWD_MAX_BLOCKS and smem <= FWD_SMEM_MAX
+          and (widths is None or (1 <= len(widths) <= 3
+                                  and all(w > 0 and w % 64 == 0 for w in widths))))
+    jobs = bwd_jobs(n_blocks, n_lin_z, widths) if ok else ()
+    if not ok or len(jobs) > BWD_MAX_JOBS:
+        return legacy_bwd_plan(n, sms)
+    n_slots = len(bwd_slots(n_blocks, n_lin_z))
+    chunk = BWD_CHUNK
+    while chunk > 128 and chunk * n_slots * FWD_DH * 2 > BWD_SCRATCH_CAP:
+        chunk //= 2
+    rows = min(n, chunk)
+    grid = max(1, min(-(-rows // 128), sms))
+    splits = max(1, min(sms // len(jobs), -(-rows // 64)))
+    dw_smem = 1024 + 6 * 4 * 64 * 128 + 16 * 6
+    return BwdPlan(False, chunk, 128, grid, consumers, stages, stage_bytes, smem, n_slots,
+                   rows * n_slots * FWD_DH * 2, db_total, jobs, bwd_w_total(jobs), splits,
+                   dw_smem)
+
+
+def _pad_g(g: torch.Tensor, d_out: int) -> torch.Tensor:
+    """The upstream gradient as the wgmma backward reads it: a bf16 [N, 64]
+    copy, zeros after column d_out (2- to 48-byte rows cannot be a TMA map)."""
+    return F.pad(g.reshape(-1, d_out).to(_BF), (0, FWD_OUT_COLS - d_out)).contiguous()
+
+
+def _unpack_bwd(flat, plan: BwdPlan, params, cfg, d_in: int, d_out: int, d_lat: int = 0):
+    """The wgmma backward's float32 output (every job's dW, then the chain's
+    bias sums) -> the params' layout; the lin_z kernels where d_lat > 0."""
+    nb, dh = cfg.n_blocks, FWD_DH
+    n_lin_z = _n_lin_z(cfg)
+    blocks = [flat[o:o + 64 * ah * 64 * gh].reshape(64 * ah, 64 * gh)
+              for _, _, ah, _, _, gh, o in plan.jobs[:2 * nb + 2]]
+    grads = {"lin_in": {"kernel": blocks[0][:d_in]},
+             "lin_out": {"kernel": blocks[-1][:, :d_out]}}
+    db = flat[plan.w_total:]
+    grads["lin_in"]["bias"] = db[:dh]
+    for i in range(nb):
+        b0 = db[dh * (1 + 2 * i):dh * (2 + 2 * i)]
+        b1 = db[dh * (2 + 2 * i):dh * (3 + 2 * i)]
+        grads[f"blocks_{i}_fc_0"] = {"kernel": blocks[1 + 2 * i], "bias": b0}
+        grads[f"blocks_{i}_fc_1"] = {"kernel": blocks[2 + 2 * i], "bias": b1}
+    grads["lin_out"]["bias"] = db[dh * (1 + 2 * nb):dh * (1 + 2 * nb) + d_out]
+    # dt_0 is lin_in's gradient, dt_i (i > 0) the one entering block i - 1's
+    # backward: their sums are db_in and that block's db1
+    for i in range(n_lin_z):
+        same = grads["lin_in"] if i == 0 else grads[f"blocks_{i - 1}_fc_1"]
+        grads[f"lin_z_{i}"] = {"bias": same["bias"].clone()}
+    if d_lat:
+        base = plan.jobs[2 * nb + 2][6]
+        wz = flat[base:base + n_lin_z * d_lat * dh].reshape(n_lin_z, d_lat, dh)
+        for i in range(n_lin_z):
+            grads[f"lin_z_{i}"]["kernel"] = wz[i]
+    return grads
+
+
+def _job_table(jobs):
+    """The job table as the kernel reads it: 8 ints a job, in host memory
+    (copied into the launch's parameters)."""
+    flat = [v for job in jobs for v in (*job, 0)]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
 # ------------------------------------------------------------------ CUDA wrappers
 
 def _pack(params, cfg, d_in: int, d_out: int, device):
@@ -433,21 +642,20 @@ def _unpack_grads(flat, params, cfg, d_in: int, d_out: int):
     return grads
 
 
-def _bwd_scratch(cfg, n, d_in, d_out, dev):
-    """The trunk backward's scratch (csrc/field_mlp_bwd.cu): the block-input
-    stash, per-block dW and per-warp db partials (zeroed), the reduced dW ++
-    db, and the number of persistent blocks (two per SM)."""
+def _bwd_scratch(cfg, n, d_in, d_out, grid, dev):
+    """The legacy backward's scratch (csrc/field_mlp_bwd.cu): the block-input
+    stash, per-block dW and per-warp db partials of its `grid` persistent
+    blocks (zeroed) and the reduced dW ++ db."""
     dh, nb = cfg.d_hidden, cfg.n_blocks
     k_in, n_out = (d_in + 15) // 16 * 16, (d_out + 15) // 16 * 16
     w_total = k_in * dh + 2 * nb * dh * dh + dh * n_out
     b_total = dh * (1 + _n_lin_z(cfg) + 2 * nb) + n_out
     n_tiles = -(-n // 64)
-    grid = min(n_tiles, 2 * torch.cuda.get_device_properties(dev).multi_processor_count)
     stash = torch.empty((n_tiles * 64, max(nb, 1), dh), dtype=_BF, device=dev)
     wpart = torch.zeros((grid, w_total), dtype=torch.float32, device=dev)
     bpart = torch.zeros((grid * 4, b_total), dtype=torch.float32, device=dev)
     flat = torch.empty(w_total + b_total, dtype=torch.float32, device=dev)
-    return stash, wpart, bpart, flat, grid
+    return stash, wpart, bpart, flat
 
 
 def _zero_grads(params):
@@ -455,32 +663,77 @@ def _zero_grads(params):
             for k, p in params.items()}
 
 
+def _bwd_wg(plan, params, cfg, x, g, d_out, lat_ptrs, dt, proj, levels=()):
+    """Launch the wgmma backward (both passes over every chunk) and unpack
+    its output: lat_ptrs the chain's latent (tz, or the levels), dt its dt
+    output; `levels` (projection mode): (the [n, c_l] levels, their dz)."""
+    n, d_in = dt.shape[0], x.shape[-1]
+    dev = dt.device
+    xp = _pad_x(x, d_in)
+    gp = _pad_g(g, d_out)
+    for t, name in ((xp, "x"), (gp, "g")):
+        check_cuda_tensor(t, f"K7 backward {name}", _BF, 2)
+    wf, bf = _pack_fwd(params, cfg, d_in, d_out, dev, projection=proj)
+    scratch = torch.empty((min(n, plan.chunk), plan.n_slots * FWD_DH), dtype=_BF, device=dev)
+    wpart = torch.empty((plan.splits, plan.w_total), dtype=torch.float32, device=dev)
+    bpart = torch.empty((plan.consumers * plan.grid, plan.db_total), dtype=torch.float32,
+                        device=dev)
+    flat = torch.empty(plan.w_total + plan.db_total, dtype=torch.float32, device=dev)
+    zs, dzs = levels if proj else ((), ())
+    # the weight-gradient pass reads the latent in bf16
+    zbs = [z2 if z2.dtype == _BF else z2.to(_BF) for z2 in zs]
+
+    def ptr3(ts):
+        return [t.data_ptr() for t in ts] + [0] * (3 - len(ts))
+
+    mask = sum(1 << i for i, z2 in enumerate(zs) if z2.dtype == torch.float32)
+    widths = [z2.shape[1] for z2 in zs] + [0] * (3 - len(zs))
+    table = _job_table(plan.jobs)
+    load_kernels().call(
+        "njf_field_mlp_bwd_wg", int(proj), *lat_ptrs, *ptr3(zbs), *ptr3(dzs), *widths, len(zs),
+        mask, xp.data_ptr(), gp.data_ptr(), wf.data_ptr(), bf.data_ptr(), scratch.data_ptr(),
+        dt.data_ptr(), ctypes.addressof(table), len(plan.jobs), plan.w_total, wpart.data_ptr(),
+        bpart.data_ptr(), flat.data_ptr(), n, cfg.n_blocks, _n_lin_z(cfg), plan.chunk,
+        plan.grid, plan.smem, plan.splits, plan.dw_smem, stream_of(xp))
+    return _unpack_bwd(flat, plan, params, cfg, d_in, d_out,
+                       sum(widths) if proj and _n_lin_z(cfg) else 0)
+
+
 def _fused_resnet_fc_tz_bwd_cuda(params, cfg, tz, x, g, d_out):
     d_in = x.shape[-1]
     _check_tz(tz, cfg)
     _check_trunk("K7-tz-bwd", cfg, d_in, d_out)
-    x2 = x.reshape(-1, d_in).to(_BF).contiguous()
-    n = x2.shape[0]
+    n = x.numel() // d_in
     if tz.numel() != n * tz.shape[-1] or g.numel() != n * d_out:
         raise ValueError(f"point counts differ: tz {tuple(tz.shape)}, x {tuple(x.shape)}, "
                          f"g {tuple(g.shape)}")
     tz2 = tz.reshape(n, tz.shape[-1]).to(_BF).contiguous()
-    g2 = g.reshape(n, d_out).to(_BF).contiguous()
-    for t, name in ((tz2, "tz"), (x2, "x"), (g2, "g")):
-        check_cuda_tensor(t, f"K7-tz-bwd {name}", _BF, 2)
-    dev = x2.device
+    check_cuda_tensor(tz2, "K7-tz-bwd tz", _BF, 2)
+    dev = tz2.device
     dtz = torch.empty((n, tz.shape[-1]), dtype=_BF, device=dev)
     if n == 0:
         return _zero_grads(params), dtz.to(tz.dtype).reshape(tz.shape)
+    n_lin_z = _n_lin_z(cfg)
+    plan = bwd_plan(n, d_in, cfg.d_hidden, cfg.n_blocks, n_lin_z, d_out, sms=_sms(dev.index))
+    if not plan.legacy:
+        with _on_device(tz2):
+            _count(fused_resnet_fc_tz_bwd, False)
+            grads = _bwd_wg(plan, params, cfg, x, g, d_out,
+                            [tz2.data_ptr(), 0, 0], dtz, proj=False)
+        return grads, dtz.to(tz.dtype).reshape(tz.shape)
+    x2 = x.reshape(-1, d_in).to(_BF).contiguous()
+    g2 = g.reshape(n, d_out).to(_BF).contiguous()
+    for t, name in ((x2, "x"), (g2, "g")):
+        check_cuda_tensor(t, f"K7-tz-bwd {name}", _BF, 2)
     wbuf, bbuf = _pack(params, cfg, d_in, d_out, dev)
-    stash, wpart, bpart, flat, grid = _bwd_scratch(cfg, n, d_in, d_out, dev)
+    stash, wpart, bpart, flat = _bwd_scratch(cfg, n, d_in, d_out, plan.grid, dev)
     lib = load_kernels()
-    with torch.cuda.device(dev):
-        fused_resnet_fc_tz_bwd.launches += 1
+    with _on_device(x2):
+        _count(fused_resnet_fc_tz_bwd, True)
         lib.call("njf_field_mlp_tz_bwd", tz2.data_ptr(), x2.data_ptr(), g2.data_ptr(),
                  wbuf.data_ptr(), bbuf.data_ptr(), stash.data_ptr(), dtz.data_ptr(),
                  wpart.data_ptr(), bpart.data_ptr(), flat.data_ptr(), n, d_in, cfg.d_hidden,
-                 cfg.n_blocks, _n_lin_z(cfg), d_out, grid, stream_of(x2))
+                 cfg.n_blocks, n_lin_z, d_out, plan.grid, stream_of(x2))
     return (_unpack_grads(flat, params, cfg, d_in, d_out),
             dtz.to(tz.dtype).reshape(tz.shape))
 
@@ -573,44 +826,54 @@ def fused_resnet_fc(params, cfg, z, x: torch.Tensor, d_out: int) -> torch.Tensor
 def _fused_resnet_fc_bwd_cuda(params, cfg, z, x, g, d_out):
     d_in = x.shape[-1]
     _check_trunk("K7-bwd", cfg, d_in, d_out)
-    x2 = x.reshape(-1, d_in).to(_BF).contiguous()
-    n = x2.shape[0]
+    n = x.numel() // d_in
     if g.numel() != n * d_out:
         raise ValueError(f"point counts differ: x {tuple(x.shape)}, g {tuple(g.shape)}")
+    levels = _levels(z)
+    n_lin_z, dh = _n_lin_z(cfg), cfg.d_hidden
+    # without injection the latent gets no gradient and no kernel writes dz
+    new = torch.zeros_like if n_lin_z == 0 else torch.empty_like
+    dzs = [new(zl, memory_format=torch.contiguous_format) for zl in levels]
+    dev = x.device
+    if n == 0:
+        grads = _zero_grads(params)
+        return grads, (tuple(dzs) if isinstance(z, (tuple, list)) else dzs[0])
+    plan = bwd_plan(n, d_in, dh, cfg.n_blocks, n_lin_z, d_out,
+                    tuple(zl.shape[-1] for zl in levels), sms=_sms(dev.index))
+    zs, ptrs, widths, mask, wz = _latent_args(params, cfg, z, n, dev, stack=plan.legacy)
+    d_lat = sum(widths)
+    dt = torch.empty((n, n_lin_z * dh), dtype=_BF, device=dev)
+    if not plan.legacy:
+        with _on_device(dt):
+            _count(fused_resnet_fc_bwd, False)
+            grads = _bwd_wg(plan, params, cfg, x, g, d_out, ptrs, dt, proj=True,
+                            levels=(zs, [d.reshape(n, -1) for d in dzs]))
+        return grads, (tuple(dzs) if isinstance(z, (tuple, list)) else dzs[0])
+    x2 = x.reshape(-1, d_in).to(_BF).contiguous()
     g2 = g.reshape(n, d_out).to(_BF).contiguous()
     check_cuda_tensor(x2, "K7-bwd x", _BF, 2)
     check_cuda_tensor(g2, "K7-bwd g", _BF, 2)
-    dev = x2.device
-    levels = _levels(z)
-    dzs = [torch.empty_like(zl, memory_format=torch.contiguous_format) for zl in levels]
-    if n == 0:
-        grads = _zero_grads(params)
-    else:
-        zs, ptrs, widths, mask, wz = _latent_args(params, cfg, z, n, dev)
-        wbuf, bbuf = _pack(params, cfg, d_in, d_out, dev)
-        stash, wpart, bpart, flat, grid = _bwd_scratch(cfg, n, d_in, d_out, dev)
-        n_lin_z, dh, d_lat = _n_lin_z(cfg), cfg.d_hidden, sum(widths)
-        dt = torch.empty((n, n_lin_z * dh), dtype=_BF, device=dev)
-        dwz = torch.empty((n_lin_z, d_lat, dh), dtype=torch.float32, device=dev)
-        # dW_z: point ranges for about four blocks of 64 latent rows per SM,
-        # each range at least 256 points
-        blocks = max(1, -(-d_lat // 64) * n_lin_z)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = max(1, min(-(-4 * sms // blocks), n // 256))
-        dwz_part = (torch.empty((splits, n_lin_z, d_lat, dh), dtype=torch.float32, device=dev)
-                    if splits > 1 else dwz)
-        lib = load_kernels()
-        with torch.cuda.device(dev):
-            fused_resnet_fc_bwd.launches += 1
-            lib.call("njf_field_mlp_bwd", *ptrs, *[d.data_ptr() for d in dzs],
-                     *[0] * (3 - len(dzs)), *widths, len(zs), mask, x2.data_ptr(),
-                     g2.data_ptr(), wbuf.data_ptr(), 0 if wz is None else wz.data_ptr(),
-                     bbuf.data_ptr(), stash.data_ptr(), dt.data_ptr(), wpart.data_ptr(),
-                     bpart.data_ptr(), flat.data_ptr(), dwz_part.data_ptr(), dwz.data_ptr(),
-                     n, d_in, dh, cfg.n_blocks, n_lin_z, d_out, grid, splits, stream_of(x2))
-        grads = _unpack_grads(flat, params, cfg, d_in, d_out)
-        for i in range(n_lin_z):
-            grads[f"lin_z_{i}"]["kernel"] = dwz[i]
+    wbuf, bbuf = _pack(params, cfg, d_in, d_out, dev)
+    stash, wpart, bpart, flat = _bwd_scratch(cfg, n, d_in, d_out, plan.grid, dev)
+    dwz = torch.empty((n_lin_z, d_lat, dh), dtype=torch.float32, device=dev)
+    # dW_z: point ranges for about four blocks of 64 latent rows per SM, each
+    # range at least 256 points
+    blocks = max(1, -(-d_lat // 64) * n_lin_z)
+    splits = max(1, min(-(-4 * _sms(dev.index) // blocks), n // 256))
+    dwz_part = (torch.empty((splits, n_lin_z, d_lat, dh), dtype=torch.float32, device=dev)
+                if splits > 1 else dwz)
+    lib = load_kernels()
+    with _on_device(x2):
+        _count(fused_resnet_fc_bwd, True)
+        lib.call("njf_field_mlp_bwd", *ptrs, *[d.data_ptr() for d in dzs],
+                 *[0] * (3 - len(dzs)), *widths, len(zs), mask, x2.data_ptr(),
+                 g2.data_ptr(), wbuf.data_ptr(), 0 if wz is None else wz.data_ptr(),
+                 bbuf.data_ptr(), stash.data_ptr(), dt.data_ptr(), wpart.data_ptr(),
+                 bpart.data_ptr(), flat.data_ptr(), dwz_part.data_ptr(), dwz.data_ptr(),
+                 n, d_in, dh, cfg.n_blocks, n_lin_z, d_out, plan.grid, splits, stream_of(x2))
+    grads = _unpack_grads(flat, params, cfg, d_in, d_out)
+    for i in range(n_lin_z):
+        grads[f"lin_z_{i}"]["kernel"] = dwz[i]
     return grads, (tuple(dzs) if isinstance(z, (tuple, list)) else dzs[0])
 
 
@@ -621,14 +884,11 @@ def fused_resnet_fc_bwd(params, cfg, z, x: torch.Tensor, g: torch.Tensor, d_out:
                     lambda: fused_resnet_fc_bwd_plain(params, cfg, z, x, g, d_out))
 
 
-# launches, and for the forward wrappers those among them that went to the
-# legacy kernel, which no main-path shape should reach
-fused_resnet_fc.launches = 0
-fused_resnet_fc_bwd.launches = 0
-fused_resnet_fc_tz.launches = 0
-fused_resnet_fc_tz_bwd.launches = 0
-fused_resnet_fc.legacy_launches = 0
-fused_resnet_fc_tz.legacy_launches = 0
+# launches, and those among them that went to the legacy kernel, which no
+# main-path shape should reach
+for _wrapper in (fused_resnet_fc, fused_resnet_fc_bwd, fused_resnet_fc_tz, fused_resnet_fc_tz_bwd):
+    _wrapper.launches = 0
+    _wrapper.legacy_launches = 0
 
 
 # --------------------------------------------------------- autograd.Functions

@@ -748,9 +748,9 @@ def test_k7_fwd_wgmma_matches_plain_and_repeats(dev, proj, n, n_blocks, combine,
 def test_k7_functions_forward_through_wgmma(dev, proj):
     """fused_resnet_fc_train{,_tz} at d_hidden 128: the forward inside
     autograd runs the wgmma kernel and agrees with the plain forward (1e-2
-    of scale). The backward (the legacy-layout backward kernel, recomputing
-    the forward) then reaches a few leaves and the latent: within 5e-2 in
-    l2 of plain autograd, whose backward rounds the gradient to bf16 at
+    of scale). The backward (the wgmma backward, recomputing the forward)
+    then reaches a few leaves and the latent: within 5e-2 in l2 of plain
+    autograd, whose backward rounds the gradient to bf16 at
     every cast (through 5 blocks single elements move further: 9.5e-2 of
     scale measured on an H100)."""
     widths = (128, 128, 256) if proj else None
@@ -802,3 +802,180 @@ def test_k7_fwd_legacy_counter_moves_only_off_the_plan(dev, proj, dh, widths, le
     assert wrapper.legacy_launches - l0 == int(legacy)
     want = plain(params, cfg, lat, x, d_out)
     assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+# ------------------------------------ K7-bwd / K7-tz-bwd: the wgmma passes
+
+_K7_BWD_WG = [  # (projection mode, n, n_blocks, combine, d_out, latent widths)
+    (False, 50, 5, 3, 24, None),               # fewer points than one tile
+    (False, 4099, 5, 3, 1, None),              # ragged tile, the proposal trunk
+    (False, 65537, 5, 3, 16, None),            # one point past a tile
+    (False, 4099, 5, 0, 24, None),             # no injection
+    (False, 4099, 0, 3, 16, None),             # lin_in and lin_out only
+    (False, 263169, 5, 3, 24, None),           # crosses the 2^18-point chunk
+    (True, 50, 5, 3, 1, (128, 128, 256)),
+    (True, 4099, 5, 3, 24, (128, 128, 256)),   # the f32 coarse level
+    (True, 65537, 5, 3, 16, (128, 128, 256)),
+    (True, 4099, 5, 0, 16, (128, 128, 256)),
+    (True, 4099, 5, 3, 16, (512,)),            # one bf16 level
+    (True, 263169, 5, 3, 1, (128, 128, 256)),  # crosses the chunk
+]
+
+
+def _seq(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def _leaf_err(grads, want, fn):
+    """The worst leaf of grads against want under fn."""
+    return max(fn(grads[k][leaf], v) for k, p in want.items() for leaf, v in p.items())
+
+
+def _l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def _bwd_errors(grads, dlat, pgrads, pdlat, levels, max_tol=2e-2, l2_tol=1e-2):
+    """Asserts the K7 backward bounds: every dW/db leaf finite, within
+    max_tol of its scale and l2_tol in l2; dtz / each level's dz, in its
+    dtype, within 1e-2 in l2 and at most 1e-3 of its elements further than
+    2e-2 of scale."""
+    assert set(grads) == set(pgrads)
+    for layer, leaves in pgrads.items():
+        assert set(grads[layer]) == set(leaves), layer
+        for leaf, want in leaves.items():
+            got = grads[layer][leaf]
+            assert got.dtype == torch.float32 and got.shape == want.shape, (layer, leaf)
+            assert bool(torch.isfinite(got).all()), (layer, leaf)
+            assert _rel(got, want) <= max_tol, (layer, leaf, _rel(got, want))
+            assert _l2(got, want) <= l2_tol, (layer, leaf, _l2(got, want))
+    for lvl, a, b in zip(levels, dlat, pdlat):
+        assert a.dtype == lvl.dtype and a.shape == lvl.shape
+        if not b.numel() or not b.float().abs().max():
+            assert not a.numel() or not a.float().abs().max()
+            continue
+        err = (a.float() - b.float()).abs()
+        assert float(err.norm() / b.float().norm()) <= 1e-2
+        assert float((err > 2e-2 * b.float().abs().max()).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("proj,n,n_blocks,combine,d_out,widths", _K7_BWD_WG)
+def test_k7_bwd_wgmma_matches_plain_and_repeats(dev, monkeypatch, proj, n, n_blocks, combine,
+                                                d_out, widths):
+    """The two wgmma passes (d_hidden 128) against the legacy kernel on the
+    same inputs, which recomputes the same bf16 forward (so the same ReLU
+    masks) and sums the same float32 products in another order: every leaf
+    within 1e-4 of its scale, dtz / dz within 1e-3 in l2. Against the plain
+    backward: the legacy tests' bounds (2e-2 of scale, 1e-2 in l2), or the
+    legacy kernel's own distance from the plain version on these inputs
+    plus 1e-4 of scale, where that is larger: the plain version sums in
+    another order, which can round a recomputed bf16 activation the other
+    way and so move a ReLU mask, in both kernels alike (a few 1e-2 of
+    scale at 4,099 points on an H100). No launch reaches the legacy
+    kernel, and two calls give identical bits (split-K partials and bias
+    sums added in a fixed order, no atomics)."""
+    from neural_jacobian_field_torch.ops.kernels import field_mlp
+
+    if proj:
+        params, cfg, lat, x, gy = _k7_exact_case(dev, n, 128, n_blocks, combine, d_out, widths, 40)
+        wrapper, plain = K.fused_resnet_fc_bwd, K.fused_resnet_fc_bwd_plain
+    else:
+        params, cfg, lat, x, gy = _k7_case(dev, n, 128, n_blocks, combine, d_out, 40)
+        wrapper, plain = K.fused_resnet_fc_tz_bwd, K.fused_resnet_fc_tz_bwd_plain
+    plan = field_mlp.bwd_plan(n, 63, 128, n_blocks, min(combine, n_blocks), d_out, widths)
+    assert not plan.legacy
+    n0, l0 = wrapper.launches, wrapper.legacy_launches
+    grads, dlat = wrapper(params, cfg, lat, x, gy, d_out)
+    again, dagain = wrapper(params, cfg, lat, x, gy, d_out)
+    torch.cuda.synchronize()
+    assert (wrapper.launches - n0, wrapper.legacy_launches - l0) == (2, 0)
+    for layer, leaves in grads.items():
+        for leaf, v in leaves.items():
+            assert torch.equal(again[layer][leaf], v), (layer, leaf)
+    for a, b in zip(_seq(dlat), _seq(dagain)):
+        assert torch.equal(a, b)
+    levels = _seq(lat)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    legacy = field_mlp.legacy_bwd_plan(n, sms)
+    monkeypatch.setattr(field_mlp, "bwd_plan", lambda *a, **k: legacy)
+    lgrads, ldlat = wrapper(params, cfg, lat, x, gy, d_out)
+    monkeypatch.undo()
+    assert wrapper.legacy_launches - l0 == 1
+    assert _leaf_err(grads, lgrads, _rel) <= 1e-4
+    for a, b in zip(_seq(dlat), _seq(ldlat)):
+        assert not b.numel() or _l2(a, b) <= 1e-3
+
+    pgrads, pdlat = plain(params, cfg, lat, x, gy, d_out)
+    _bwd_errors(grads, _seq(dlat), pgrads, _seq(pdlat), levels,
+                max(2e-2, _leaf_err(lgrads, pgrads, _rel) + 1e-4),
+                max(1e-2, _leaf_err(lgrads, pgrads, _l2) + 1e-4))
+
+
+@pytest.mark.parametrize("proj", [False, True])
+def test_k7_functions_backward_through_wgmma(dev, proj):
+    """fused_resnet_fc_train{,_tz} at d_hidden 128: autograd's backward runs
+    the wgmma passes (one launch, no legacy one) and hands every leaf and
+    the latent exactly what the backward wrapper gives for the same inputs
+    (the passes are deterministic)."""
+    widths = (128, 128, 256) if proj else None
+    bwd = K.fused_resnet_fc_bwd if proj else K.fused_resnet_fc_tz_bwd
+    _, _, params, cfg, lat, x, gy = _k7_wg_case(dev, proj, 4099, 5, 3, 24, widths, 41)
+    from neural_jacobian_field_torch.ops.kernels.field_mlp import _leaf_names
+
+    names = _leaf_names(cfg, not proj)
+    want, wlat = bwd(params, cfg, lat, x, gy, 24)
+    leaves = [params[layer][leaf].requires_grad_() for layer, leaf in names]
+    lats = list(lat) if proj else [lat]
+    for t in lats:
+        t.requires_grad_()
+    fn = K.fused_resnet_fc_train if proj else K.fused_resnet_fc_train_tz
+    out = fn(params, cfg, lat, x, 24)
+    n0, l0 = bwd.launches, bwd.legacy_launches
+    got = torch.autograd.grad(out, (*leaves, *lats), gy)
+    torch.cuda.synchronize()
+    assert (bwd.launches - n0, bwd.legacy_launches - l0) == (1, 0)
+    for (layer, leaf), a in zip(names, got[:len(names)]):
+        assert torch.equal(a, want[layer][leaf]), (layer, leaf)
+    for a, b in zip(got[len(names):], _seq(wlat)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("proj,dh,widths,legacy", [
+    (False, 128, None, False),
+    (False, 64, None, True),
+    (True, 128, (128, 128, 256), False),
+    (True, 128, (16, 32, 48), True),     # levels not multiples of 64
+    (True, 32, (64,), True),
+])
+def test_k7_bwd_legacy_counter_moves_only_off_the_plan(dev, monkeypatch, proj, dh, widths,
+                                                       legacy):
+    """The legacy backward runs exactly where bwd_plan says. The legacy
+    kernel agrees with the plain version (the legacy tests' bounds); the
+    wgmma passes agree with the legacy kernel forced onto the same inputs
+    (1e-4 of scale: the same recompute, float32 sums reordered)."""
+    from neural_jacobian_field_torch.ops.kernels import field_mlp
+
+    n, d_out = 1000, 16
+    if proj:
+        params, cfg, lat, x, gy = _k7_exact_case(dev, n, dh, 3, 3, d_out, widths, 42)
+        wrapper, plain = K.fused_resnet_fc_bwd, K.fused_resnet_fc_bwd_plain
+    else:
+        params, cfg, lat, x, gy = _k7_case(dev, n, dh, 3, 3, d_out, 42)
+        wrapper, plain = K.fused_resnet_fc_tz_bwd, K.fused_resnet_fc_tz_bwd_plain
+    plan = field_mlp.bwd_plan(n, 63, dh, 3, 3, d_out, widths)
+    assert plan.legacy == legacy
+    l0 = wrapper.legacy_launches
+    grads, dlat = wrapper(params, cfg, lat, x, gy, d_out)
+    torch.cuda.synchronize()
+    assert wrapper.legacy_launches - l0 == int(legacy)
+    if legacy:
+        pgrads, pdlat = plain(params, cfg, lat, x, gy, d_out)
+        _bwd_errors(grads, _seq(dlat), pgrads, _seq(pdlat), _seq(lat))
+        return
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    monkeypatch.setattr(field_mlp, "bwd_plan", lambda *a, **k: field_mlp.legacy_bwd_plan(n, sms))
+    lgrads, ldlat = wrapper(params, cfg, lat, x, gy, d_out)
+    assert _leaf_err(grads, lgrads, _rel) <= 1e-4
+    for a, b in zip(_seq(dlat), _seq(ldlat)):
+        assert _l2(a, b) <= 1e-3
