@@ -29,8 +29,10 @@ K7 trunks that project the latent themselves):
      statistics) at the 24 convs of a batch-7 encode, its y bit for bit
      K9-fwd's, its yardstick F.conv2d followed by the two reductions; the
      backward kernels (K9-dgrad, K9-wgrad, K6-bwd, K7-tz-bwd and K7-bwd at
-     d_out 1, 16 and 24, K1-bwd) at the train step's; K10, K1-bwd, K7-tz-bwd
-     and K7-bwd twice, for identical bits (K7-tz-fwd and K7-fwd too). The
+     d_out 1, 16 and 24, K1-bwd) at the train step's, K1-bwd also onto a
+     45x80 map (a 720x1280 image's layer3, on a line of its own); K10, K5,
+     K1-bwd, K7-tz-bwd and K7-bwd twice, for identical bits (K7-tz-fwd and
+     K7-fwd too). The
      K7 backward rows print each pass's device time (the gradient chain,
      the weight-gradient pass, the ordered sums) with its TFLOP/s, and the
      chunks and operand scratch of the plan. The conv rows
@@ -39,7 +41,8 @@ K7 trunks that project the latent themselves):
      achieved TFLOP/s; so do the K7 forward rows, per trunk and summed,
      with the time per call of 20 calls back to back and the host's time
      to enqueue one (the wrapper's host cost); the other rows print their
-     device time (the K7 backward rows with their TFLOP/s);
+     device time (the K7 backward rows with their TFLOP/s; K5 and K1-bwd
+     their bound over it and the host's time to enqueue one call);
   3. serving, per mode: a full 480x640 target view rendered in 2048-ray
      chunks from a 480x640 context image (launch counters reset just
      before, read just after), then one chunk again, stage by stage, with
@@ -112,6 +115,13 @@ MODES = ("epipolar", "exact")
 # chain, the weight-gradient pass, the ordered sums)
 K7_BWD_PASSES = {"chain": r"field_mlp_bwd_chain_kernel", "weight gradients": r"field_mlp_dw_kernel",
                  "sums": r"reduce_bwd_kernel"}
+
+
+# K1-bwd's stages by kernel name: the bucket sort's count, scan and place,
+# the piece sums, the ordered merge
+K1_BWD_STAGES = {"count": r"bucket_count_kernel", "scan": r"bucket_scan_kernel",
+                 "place": r"bucket_place_kernel", "piece sums": r"segment_sum_kernel",
+                 "merge": r"merge_parts_kernel"}
 
 
 class PhaseError(RuntimeError):
@@ -248,6 +258,20 @@ def check_no_legacy(label):
                           "K7-tz-bwd", "K7-bwd"},
           f"{label}: legacy counters {sorted(legacy)}")
     check(not any(legacy.values()), f"{label}: legacy kernels launched {legacy}")
+
+
+def host_ms(fn, calls=20):
+    """The host's milliseconds to enqueue one fn() (the wrapper's host cost):
+    20 calls back to back on the host clock, from and to an idle card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def nbytes(*tensors) -> int:
@@ -459,13 +483,18 @@ def kernel_checks(dev):
           f"{frac:.2e} (tol: 1e-4 but for <= 1e-4 of elements at bin ties, each "
           f"within one bin width {width:.3e})")
     check(frac <= 1e-4 and float(err.max()) <= width, "K5 disagrees with its plain version")
+    again = K.fused_sample_pdf(bins, wts, u)
+    check(bool(torch.equal(got, again)), "K5 does not repeat bit for bit")
     row = Row()
     row.add(err.max(), cuda_time_ms(lambda: K.fused_sample_pdf(bins, wts, u)),
             cuda_time_ms(lambda: K.fused_sample_pdf_plain(bins, wts, u)),
             nbytes(bins, wts, u, got))
     rows["K5"] = row.record()
+    d_ms = device_ms(lambda: K.fused_sample_pdf(bins, wts, u))
+    host = host_ms(lambda: K.fused_sample_pdf(bins, wts, u))
     print_times("", row.ms, row.plain_ms,
-                extra=f" (device {device_ms(lambda: K.fused_sample_pdf(bins, wts, u)):.4f})")
+                extra=f" (device {d_ms:.4f}, bound/device {rows['K5']['bound_ms'] / d_ms:.1%}; "
+                      f"host enqueue {host:.4f} per call); two calls bit-identical=True")
 
     # K7-tz-fwd and K7-fwd: the three trunks of one chunk (2048 rays x 256
     # samples); K7-fwd takes the latent levels and projects them itself
@@ -503,12 +532,7 @@ def kernel_checks(dev):
             # 20 calls back to back: per call on the device's clock, and the
             # host's enqueue time per call (the wrapper's host cost)
             b2b = cuda_time_ms(lambda: [call() for _ in range(20)], reps=3, warmup=1) / 20
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                call()
-            host = (time.perf_counter() - t0) / 20 * 1e3
-            torch.cuda.synchronize()
+            host = host_ms(call)
             flops = trunk_flops(npts, d_out, proj)
             print_times("", k_ms, p_ms, extra=f" (device {d_ms:.4f}, {flops / d_ms / 1e9:.1f} "
                         f"TFLOP/s; 20 back to back {b2b:.4f} per call, host {host:.4f} per "
@@ -598,6 +622,7 @@ def backward_kernel_checks(dev):
     from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
     from neural_jacobian_field_torch.ops import kernels as K
     from neural_jacobian_field_torch.ops.kernels import field_mlp
+    from neural_jacobian_field_torch.ops.pixel_gather import _corner_ids
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows = {}
@@ -723,9 +748,36 @@ def backward_kernel_checks(dev):
             library_ms=cuda_time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                 gy_nchw, nchw, grid, 0, 1, True, [True, False])))
     rows["K1-bwd"] = row.record()
-    print_times("", row.ms, row.plain_ms, row.library_ms, extra=f" (device "
-                f"{device_ms(lambda: K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1])):.4f})")
-    del flat, idx, w4, nchw, grid, gy, got, want, again
+    d_ms, stages = device_ms(lambda: K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1]),
+                             groups=K1_BWD_STAGES)
+    print("  K1-bwd stages (device ms per call): " + ", ".join(
+        f"{label} {ms:.4f}" for label, ms in stages.items()))
+    print_times("", row.ms, row.plain_ms, row.library_ms, extra=f" (device {d_ms:.4f}, "
+                f"bound/device {rows['K1-bwd']['bound_ms'] / d_ms:.1%}; host enqueue "
+                f"{host_ms(lambda: K.onehot_scatter_bwd(gy, idx, w4, flat.shape[1])):.4f} "
+                f"per call)")
+    del flat, idx, w4, nchw, grid, got, want, again
+    # the same points onto a 720x1280 image's layer3 (45x80 = 3,600 texels)
+    hc, wc = 45, 80
+    cx = torch.rand((b, n), generator=g, device=dev) * (wc - 1)
+    cy = torch.rand((b, n), generator=g, device=dev) * (hc - 1)
+    idx, w4 = _corner_ids(cx, cy, wc, hc)
+    got = K.onehot_scatter_bwd(gy, idx, w4, hc * wc)
+    want = K.onehot_scatter_bwd_plain(gy, idx, w4, hc * wc)
+    again = K.onehot_scatter_bwd(gy, idx, w4, hc * wc)
+    err, same = rel_err(got, want), bool(torch.equal(got, again))
+    print(f"K1-bwd {b}x{n}x256 onto a 45x80 map: max_abs_err "
+          f"{float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} (tol 1e-4 of scale); "
+          f"two calls bit-identical={same}")
+    check(err <= 1e-4 and same, "K1-bwd at 45x80 disagrees with its plain version or does "
+          "not repeat")
+    k_ms = cuda_time_ms(lambda: K.onehot_scatter_bwd(gy, idx, w4, hc * wc))
+    p_ms = cuda_time_ms(lambda: K.onehot_scatter_bwd_plain(gy, idx, w4, hc * wc))
+    d_ms = device_ms(lambda: K.onehot_scatter_bwd(gy, idx, w4, hc * wc))
+    bound = nbytes(gy, idx, w4, got) / PEAK_BYTES_PER_S * 1e3
+    print_times("", k_ms, p_ms, extra=f" (device {d_ms:.4f}, bound {bound:.4f}, bound/device "
+                f"{bound / d_ms:.1%})")
+    del idx, w4, gy, got, want, again
     torch.cuda.empty_cache()
 
     # K7-tz-bwd and K7-bwd: the proposal (d_out 1) and density (d_out 16)
@@ -1413,8 +1465,9 @@ def profile_train(dev, mode, top=15):
     set intervals, so overlapping work counts once), the idle share 1 - busy
     / wall, the number of device events, the device time under the
     optimizer step, the `top` kernels by device time, and the device time
-    and launches of the stride-1 conv kernels (K9-fwd or K10, K9-dgrad,
-    K9-wgrad and their ordered sums) by kernel."""
+    and launches by kernel of the stride-1 conv kernels (K9-fwd or K10,
+    K9-dgrad, K9-wgrad and their ordered sums), the K7 trunks, K1-bwd and
+    K5."""
     import collections
 
     import torch
@@ -1467,12 +1520,15 @@ def profile_train(dev, mode, top=15):
         # the stride-1 conv kernels (K9-fwd / K10, K9-dgrad, K9-wgrad) and
         # their ordered-sum passes; the K7 trunk kernels (forward, the
         # backward's gradient chain, weight-gradient pass and ordered sums,
-        # or the legacy ones)
+        # or the legacy ones); K1-bwd's stages; K5
         for label, rx in (
                 ("conv", r"(conv3x3_(tma|legacy)_kernel|wgrad_(tma|legacy)_kernel|"
                          r"stats_sum_kernel|sum_splits_kernel)(<[^>]*>)?"),
                 ("K7", r"(field_mlp_(wg|fwd|bwd_chain|bwd|dw|dwz)_kernel|"
-                       r"reduce_(bwd|partials|splits)_kernel)(<[^>]*>)?")):
+                       r"reduce_(bwd|partials|splits)_kernel)(<[^>]*>)?"),
+                ("K1-bwd", r"(bucket_(count|scan|place)_kernel|segment_sum_kernel|"
+                           r"merge_parts_kernel)(<[^>]*>)?"),
+                ("K5", r"pdf_resample_kernel")):
             group = collections.defaultdict(lambda: [0.0, 0])
             for name, (us, n) in by_name.items():
                 m = re.search(rx, name)

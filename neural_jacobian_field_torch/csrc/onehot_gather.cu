@@ -22,32 +22,24 @@
 //    channels of one point (16-byte loads of each corner, two 16-byte
 //    stores), so a warp covers one point's 256 channels with coalesced rows.
 //  - K1-bwd scatters ~65,536 x 4 contributions per image onto 1,200 texels;
-//    along the epipolar lines some texels take thousands. Float atomics would
-//    make the sum's order, and so its bits, change from run to run. Instead a
-//    block owns one image, a 32-channel slice and a contiguous range of
-//    points, and keeps that slice of the whole map in shared memory (1,200 x
-//    32 float32 = 150 KB). Its 16 warps walk the same points in order; warp w
-//    applies the corners whose texel k has k % 16 == w, lane l channel l of
-//    the slice, so every shared-memory element has one writer and takes its
-//    contributions in point and corner order. The block stages 256 points at
-//    a time in shared memory (their corner ids, rounded weights and gradient
-//    slice, loaded coalesced); each warp compacts the corners it owns into a
-//    list, in order, with a ballot, and walks only that list.
-//    Each block writes its partial map, and a second kernel sums the partials
-//    of the point ranges in range order. The result repeats bit for bit. K is
-//    limited by shared memory (1,240 texels; a 480x640 image's layer3 has
-//    1,200); the bound of the scatter is the
-//    258 MB it reads and writes, but the shared-memory read-modify-write
-//    chains make it latency bound at one block per SM: a later PR's work.
+//    along the epipolar lines some texels take thousands. Its bound is the
+//    266 MB it must read and write (g 235 MB in bf16, idx, w4, gF), 0.079
+//    ms. Float atomics would make the sum's order, and so its bits, change
+//    from run to run; a map kept in shared memory caps K and serialises a
+//    hot texel's contributions. Instead the corner entries are sorted by
+//    texel (a stable integer counting sort), and warps sum fixed-length
+//    pieces of the sorted list, so a hot texel spreads over many warps and
+//    every warp does the same work; g is read row by row as 16-byte loads,
+//    about once from HBM when one image's g fits in L2 (33.5 MB of bf16 at
+//    the train shapes), and the 4 corners' reads of a row hit L2. Partial
+//    rows of texels cut by piece boundaries are added in piece order by a
+//    last pass. The stages are described below, at the kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // the corner weight as the TPU kernel's one-hot row holds it: in T
 __device__ __forceinline__ float round_w(float w, float) { return w; }
@@ -120,103 +112,343 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-constexpr int kBwdWarps = 16;   // texel owners: k % kBwdWarps
-constexpr int kSlice = 32;      // channels of a block (one per lane)
-constexpr int kStagePts = 256;  // points staged at a time
+// ---------------------------------------------------------------- K1-bwd
+//
+// Three stages on the current stream, planned by onehot_gather.bwd_plan:
+//  (a) bucket: per image, a stable counting sort of the 4n corner entries
+//      (entry id p * 4 + q, int32) by texel, into CSR order: integer
+//      histograms per tile of entries (bucket_count), the exclusive scan over
+//      (texel, tile) (bucket_scan), and stable in-tile ranks by
+//      __match_any_sync and a running count per texel (bucket_place). A
+//      texel's entries keep their (point, corner) order.
+//  (b) segment sums: each image's CSR list is cut into pieces of `piece`
+//      entries; one warp walks a piece, lane l holding channels 8l..8l+7 of
+//      the running float32 sum (one 16-byte bf16 load per lane and entry at
+//      C = 256), products and sums in list order. A texel that lies inside
+//      one piece writes its gF row; the texel open at a piece's start (one
+//      that began in an earlier piece) or at its end writes a partial row
+//      into the piece's slot 0 or 1. Pieces are walked image by image, and
+//      the plan makes them short enough (64 entries at the train shapes)
+//      that one image has more warps than the card holds at once: the warps
+//      in flight read about one image's g, which stays in L2 while its four
+//      corners read it (with 512-entry pieces five images were in flight,
+//      and g was read from HBM about four times: 0.62 against 0.21 ms of
+//      this stage's device time on an H100 SXM at 700 W).
+//  (c) merge: a texel cut by piece boundaries is the sum of its partials in
+//      piece order (slot 1 of its first piece, then slot 0 of each later
+//      one); a texel no point touches is a row of zeros.
+// No floating-point atomics and no order that depends on timing: the result
+// repeats bit for bit. Integer shared-memory (or, for large K, global)
+// counters add in any order to the same counts. K is limited only by int32
+// entry ids and offsets.
 
-size_t bwd_smem_bytes(int k) {
-  return static_cast<size_t>(k) * kSlice * sizeof(float) +
-         kStagePts * (4 * (sizeof(int) + sizeof(float)) + kSlice * sizeof(float)) +
-         kBwdWarps * kStagePts * 4 * sizeof(unsigned short);
+constexpr int kSlabCh = 256;  // channels of a warp: 8 per lane
+constexpr int kUnroll = 8;    // g rows in flight per warp
+constexpr int kPlaceWarps = 4;
+constexpr int kPlaceBatch = 8;  // steps of 32 entries whose texel ids load at once
+constexpr int kMergeBatch = 4;  // partial rows in flight per warp in the merge
+
+// (a1) cnt[b][t][k] = entries of tile t (entries [t * tile, (t + 1) * tile))
+// on texel k. kSmem: counted in shared memory, then written; else counted
+// straight into cnt (zeroed beforehand).
+template <bool kSmem>
+__global__ void __launch_bounds__(256)
+    bucket_count_kernel(const long long* __restrict__ idx, int* __restrict__ cnt, int e_total,
+                        int k, int tile, int tiles) {
+  extern __shared__ int hist_smem[];
+  const int t = blockIdx.x, b = blockIdx.y;
+  int* col = cnt + (static_cast<size_t>(b) * tiles + t) * k;
+  int* h = kSmem ? hist_smem : col;
+  if (kSmem) {
+    for (int i = threadIdx.x; i < k; i += blockDim.x) h[i] = 0;
+    __syncthreads();
+  }
+  const long long* ib = idx + static_cast<size_t>(b) * e_total;
+  const int e1 = min(e_total, (t + 1) * tile);
+  for (int e = t * tile + threadIdx.x; e < e1; e += blockDim.x)
+    atomicAdd(h + static_cast<int>(ib[e]), 1);
+  if (kSmem) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < k; i += blockDim.x) col[i] = h[i];
+  }
 }
 
-// grid (B, ceil(C / 32), S): block (b, slice, s) scatters points
-// [s * chunk, min(n, (s + 1) * chunk)) of image b onto channels
-// [32 slice, 32 slice + 32) of its partial map part[b][s] ([K, C] float32).
-template <typename T>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-    onehot_scatter_bwd_kernel(const T* __restrict__ g, const long long* __restrict__ idx,
-                              const float* __restrict__ w4, float* __restrict__ part, int n,
-                              int k, int c, int chunk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // disjoint regions of shared memory
-  float* __restrict__ map = reinterpret_cast<float*>(smem_raw);  // [k][kSlice]
-  int* __restrict__ sidx = reinterpret_cast<int*>(map + static_cast<size_t>(k) * kSlice);
-  float* __restrict__ sw = reinterpret_cast<float*>(sidx + kStagePts * 4);  // rounded weights
-  float* __restrict__ sg = sw + kStagePts * 4;  // [kStagePts][kSlice]
-  // each warp's own corners of the staged points, in point and corner order
-  unsigned short* __restrict__ list =
-      reinterpret_cast<unsigned short*>(sg + kStagePts * kSlice) +
-      (threadIdx.x >> 5) * kStagePts * 4;
+// (a2) per image (one block): rowptr[b][kk] = entries on texels < kk, and
+// cnt[b][t][kk] := rowptr[b][kk] + entries of tiles < t on texel kk (the
+// first CSR position of tile t's entries on kk); rowptr[b][k] = e_total.
+__global__ void __launch_bounds__(1024)
+    bucket_scan_kernel(int* __restrict__ cnt, int* __restrict__ rowptr, int k, int tiles,
+                       int e_total) {
+  __shared__ int warp_sums[32];
   const int b = blockIdx.x;
-  const int s = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int e = threadIdx.x; e < k * kSlice; e += blockDim.x) map[e] = 0.f;
-  const long long base = static_cast<long long>(b) * n;
-  const int p_begin = s * chunk;
-  const int p_end = min(n, p_begin + chunk);
-  for (int p0 = p_begin; p0 < p_end; p0 += kStagePts) {
-    const int cnt = min(kStagePts, p_end - p0);
-    __syncthreads();  // the previous batch of corners is consumed
-    for (int e = threadIdx.x; e < cnt * 4; e += blockDim.x) {
-      sidx[e] = static_cast<int>(idx[(base + p0) * 4 + e]);
-      sw[e] = round_w(w4[(base + p0) * 4 + e], T());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* cb = cnt + static_cast<size_t>(b) * tiles * k;
+  int* rp = rowptr + static_cast<size_t>(b) * (k + 1);
+  int carry = 0;
+  for (int k0 = 0; k0 < k; k0 += blockDim.x) {
+    const int kk = k0 + threadIdx.x;
+    int tot = 0;
+    if (kk < k)
+      for (int t = 0; t < tiles; ++t) tot += cb[static_cast<size_t>(t) * k + kk];
+    int incl = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
     }
-    for (int e = threadIdx.x; e < cnt * kSlice; e += blockDim.x) {
-      const int cc = blockIdx.y * kSlice + e % kSlice;
-      sg[e] = cc < c ? to_f(g[(base + p0 + e / kSlice) * c + cc]) : 0.f;
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int s = lane < static_cast<int>(blockDim.x >> 5) ? warp_sums[lane] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, s, off);
+        if (lane >= off) s += v;
+      }
+      warp_sums[lane] = s;  // inclusive over warps
     }
     __syncthreads();
-    int owned = 0;
-    for (int e0 = 0; e0 < cnt * 4; e0 += 32) {
-      const int e = e0 + lane;
-      const bool mine = e < cnt * 4 && sidx[e] % kBwdWarps == warp;
-      const unsigned m = __ballot_sync(0xffffffffu, mine);
-      if (mine) list[owned + __popc(m & ((1u << lane) - 1u))] = static_cast<unsigned short>(e);
-      owned += __popc(m);
-    }
-    __syncwarp();
-    // a run of corners on one texel (consecutive samples of a ray) is summed
-    // in a register and stored once: the same additions in the same order
-    int cur = -1;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < owned; ++i) {
-      const int e = list[i];  // the same for the whole warp
-      const int kk = sidx[e];
-      const float prod = __fmul_rn(sw[e], sg[(e >> 2) * kSlice + lane]);
-      if (kk != cur) {
-        if (cur >= 0) map[cur * kSlice + lane] = acc;
-        cur = kk;
-        acc = map[kk * kSlice + lane];
+    const int excl = carry + (warp ? warp_sums[warp - 1] : 0) + incl - tot;
+    if (kk < k) {
+      rp[kk] = excl;
+      int run = excl;
+      for (int t = 0; t < tiles; ++t) {
+        int* p = cb + static_cast<size_t>(t) * k + kk;
+        const int c = *p;
+        *p = run;
+        run += c;
       }
-      acc = __fadd_rn(acc, prod);
     }
-    if (cur >= 0) map[cur * kSlice + lane] = acc;
+    carry += warp_sums[(blockDim.x >> 5) - 1];
+    __syncthreads();
   }
-  __syncthreads();
-  float* dst = part + (static_cast<size_t>(b) * gridDim.z + s) * k * static_cast<size_t>(c);
-  for (int e = threadIdx.x; e < k * kSlice; e += blockDim.x) {
-    const int kk = e / kSlice;
-    const int cc = blockIdx.y * kSlice + e % kSlice;
-    if (cc < c) dst[static_cast<size_t>(kk) * c + cc] = map[e];
+  if (threadIdx.x == 0) rp[k] = e_total;
+}
+
+// (a3) one warp per tile walks its entries in order, 32 at a time: equal
+// texels in the step are grouped by __match_any_sync, each entry's slot is
+// its texel's running position plus its rank in the group, and the group's
+// lowest lane advances the position. ent[b][slot] = entry id. The texel ids
+// of kPlaceBatch steps are loaded at once, so a warp waits on one load per
+// batch, not per step.
+template <bool kSmem>
+__global__ void __launch_bounds__(kPlaceWarps * 32)
+    bucket_place_kernel(const long long* __restrict__ idx, int* __restrict__ cnt,
+                        int* __restrict__ ent, int e_total, int k, int tile, int tiles) {
+  extern __shared__ int cur_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kPlaceWarps + warp, b = blockIdx.y;
+  if (t >= tiles) return;  // warp-level synchronisation only below
+  int* col = cnt + (static_cast<size_t>(b) * tiles + t) * k;
+  int* cur = kSmem ? cur_smem + static_cast<size_t>(warp) * k : col;
+  if (kSmem)
+    for (int i = lane; i < k; i += 32) cur[i] = col[i];
+  __syncwarp();
+  const long long* ib = idx + static_cast<size_t>(b) * e_total;
+  int* eb = ent + static_cast<size_t>(b) * e_total;
+  const int e1 = min(e_total, (t + 1) * tile);
+  for (int base = t * tile; base < e1; base += 32 * kPlaceBatch) {
+    int keys[kPlaceBatch];
+#pragma unroll
+    for (int u = 0; u < kPlaceBatch; ++u) {
+      const int e = base + 32 * u + lane;
+      keys[u] = e < e1 ? static_cast<int>(ib[e]) : k;  // k: past the tile
+    }
+#pragma unroll
+    for (int u = 0; u < kPlaceBatch; ++u) {
+      const int kk = keys[u];
+      const unsigned group = __match_any_sync(0xffffffffu, kk);
+      const int slot = kk < k ? cur[kk] + __popc(group & ((1u << lane) - 1u)) : 0;
+      __syncwarp();
+      if (kk < k && lane == __ffs(group) - 1) cur[kk] += __popc(group);
+      __syncwarp();
+      if (kk < k) eb[slot] = base + 32 * u + lane;
+    }
   }
 }
 
-// out[b][e] = sum over s, in order, of part[b][s][e] (e < k * c)
-__global__ void reduce_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int b_count, int s_count, long long kc) {
-  const long long total = static_cast<long long>(b_count) * kc;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const long long b = t / kc;
-    const long long e = t - b * kc;
-    const float* p = part + b * s_count * kc + e;
-    float acc = 0.f;
-    for (int s = 0; s < s_count; ++s) acc = __fadd_rn(acc, p[s * kc]);
-    out[t] = acc;
+// 8 channels of a row of g from channel ch, kept as loaded (16 bytes of
+// bf16, 32 of float32) and read as float; zeros past c. vec: c % 8 == 0.
+template <typename T>
+struct Row8;
+
+template <>
+struct Row8<__nv_bfloat16> {
+  uint4 q;
+  template <bool kVec>
+  __device__ __forceinline__ void load(const __nv_bfloat16* row, int ch, int c) {
+    if (kVec) {
+      q = ch < c ? *reinterpret_cast<const uint4*>(row + ch) : make_uint4(0, 0, 0, 0);
+    } else {
+      __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&q);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i] = ch + i < c ? row[ch + i] : __float2bfloat16(0.f);
+    }
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&q)[i]);
+  }
+};
+
+template <>
+struct Row8<float> {
+  float4 lo, hi;
+  template <bool kVec>
+  __device__ __forceinline__ void load(const float* row, int ch, int c) {
+    if (kVec) {
+      const bool in = ch < c;
+      lo = in ? *reinterpret_cast<const float4*>(row + ch) : make_float4(0.f, 0.f, 0.f, 0.f);
+      hi = in ? *reinterpret_cast<const float4*>(row + ch + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      float f[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = ch + i < c ? row[ch + i] : 0.f;
+      lo = make_float4(f[0], f[1], f[2], f[3]);
+      hi = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  }
+  __device__ __forceinline__ float get(int i) const {
+    const float4& v = i < 4 ? lo : hi;
+    const int j = i & 3;
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+  }
+};
+
+template <bool kVec>
+__device__ __forceinline__ void store_row8(float* row, int ch, int c, const float (&a)[8]) {
+  if (kVec) {
+    if (ch < c) {
+      *reinterpret_cast<float4*>(row + ch) = make_float4(a[0], a[1], a[2], a[3]);
+      *reinterpret_cast<float4*>(row + ch + 4) = make_float4(a[4], a[5], a[6], a[7]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (ch + i < c) row[ch + i] = a[i];
+  }
+}
+
+// (b) warp gw = ((b * chunks) + piece) * slabs + slab walks CSR entries
+// [piece * len, min(4n, (piece + 1) * len)) of image b on channels
+// [256 slab, 256 slab + 256). part[b][piece][slot][c].
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(128)
+    segment_sum_kernel(const T* __restrict__ g, const float* __restrict__ w4,
+                       const int* __restrict__ rowptr, const int* __restrict__ ent,
+                       float* __restrict__ part, float* __restrict__ out, int b_count, int n,
+                       int k, int c, int len, int chunks, int slabs) {
+  const int lane = threadIdx.x & 31;
+  const long long gw = static_cast<long long>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (gw >= static_cast<long long>(b_count) * chunks * slabs) return;
+  const int b = static_cast<int>(gw / (static_cast<long long>(chunks) * slabs));
+  const int r = static_cast<int>(gw - static_cast<long long>(b) * chunks * slabs);
+  const int piece = r / slabs, slab = r - piece * slabs;
+  const int e_total = 4 * n;
+  const int i0 = piece * len, i1 = min(e_total, i0 + len);
+  const int* rp = rowptr + static_cast<size_t>(b) * (k + 1);
+  const int* eb = ent + static_cast<size_t>(b) * e_total;
+  const float* wb = w4 + static_cast<size_t>(b) * e_total;
+  const T* gb = g + static_cast<size_t>(b) * n * c;
+  const int ch = slab * kSlabCh + 8 * lane;
+  // the texel of entry i0: the last kk with rp[kk] <= i0 (it is not empty)
+  int lo = 0, hi = k - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (rp[mid] <= i0)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  int kk = lo, bound = rp[kk + 1];
+  float acc[8] = {};
+  bool fresh = true;  // acc holds no term of texel kk yet
+  auto flush = [&]() {
+    float* dst;
+    if (rp[kk] < i0)
+      dst = part + (static_cast<size_t>(b) * chunks + piece) * 2 * c;
+    else if (rp[kk + 1] > i1)
+      dst = part + ((static_cast<size_t>(b) * chunks + piece) * 2 + 1) * c;
+    else
+      dst = out + (static_cast<size_t>(b) * k + kk) * c;
+    store_row8<kVec>(dst, ch, c, acc);
+  };
+  // the entry ids of the next 32 positions load while this step's rows do
+  int next_e = i0 + lane < i1 ? eb[i0 + lane] : 0;
+  for (int base = i0; base < i1; base += 32) {
+    const int cnt = min(32, i1 - base);
+    const int my_e = next_e;
+    if (base + 32 < i1) next_e = base + 32 + lane < i1 ? eb[base + 32 + lane] : 0;
+    const float my_w = lane < cnt ? round_w(wb[my_e], T()) : 0.f;
+    for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
+      Row8<T> rows[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = __shfl_sync(0xffffffffu, my_e, j0 + u);
+        if (j0 + u < cnt) rows[u].template load<kVec>(gb + static_cast<size_t>(e >> 2) * c, ch, c);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (j0 + u >= cnt) break;
+        const float wv = __shfl_sync(0xffffffffu, my_w, j0 + u);
+        const int ii = base + j0 + u;
+        while (ii == bound) {  // texel kk ends before entry ii
+          if (!fresh) flush();
+          fresh = true;
+          ++kk;
+          bound = rp[kk + 1];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float prod = __fmul_rn(wv, rows[u].get(i));
+          acc[i] = fresh ? prod : __fadd_rn(acc[i], prod);
+        }
+        fresh = false;
+      }
+    }
+  }
+  if (!fresh) flush();
+}
+
+// (c) one warp per (image, texel): zeros for an untouched texel, the sum of
+// its partials in piece order for a texel cut by piece boundaries, nothing
+// (the segment pass wrote it) for a texel inside one piece.
+template <bool kVec>
+__global__ void __launch_bounds__(256)
+    merge_parts_kernel(const int* __restrict__ rowptr, const float* __restrict__ part,
+                       float* __restrict__ out, int b_count, int k, int c, int len, int chunks) {
+  const int lane = threadIdx.x & 31;
+  const long long gw = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  if (gw >= static_cast<long long>(b_count) * k) return;
+  const int b = static_cast<int>(gw / k), kk = static_cast<int>(gw - static_cast<long long>(b) * k);
+  const int s = rowptr[static_cast<size_t>(b) * (k + 1) + kk];
+  const int e = rowptr[static_cast<size_t>(b) * (k + 1) + kk + 1];
+  float* dst = out + static_cast<size_t>(gw) * c;
+  if (s == e) {
+    for (int i = lane; i < c; i += 32) dst[i] = 0.f;
+    return;
+  }
+  const int first = s / len, last = (e - 1) / len;
+  if (first == last) return;
+  const float* pb = part + static_cast<size_t>(b) * chunks * 2 * c;
+  for (int ch = 8 * lane; ch < c; ch += 8 * 32) {
+    Row8<float> row;
+    row.load<kVec>(pb + (static_cast<size_t>(first) * 2 + 1) * c, ch, c);
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = row.get(i);
+    for (int p0 = first + 1; p0 <= last; p0 += kMergeBatch) {  // slot 0 of later pieces
+      Row8<float> rows[kMergeBatch];
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u)
+        if (p0 + u <= last) rows[u].load<kVec>(pb + static_cast<size_t>(p0 + u) * 2 * c, ch, c);
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u) {
+        if (p0 + u > last) break;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = __fadd_rn(acc[i], rows[u].get(i));
+      }
+    }
+    store_row8<kVec>(dst, ch, c, acc);
   }
 }
 
@@ -247,25 +479,60 @@ int gather_fwd(const void* flat, const void* idx, const void* w4, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
+
 template <typename T>
-int scatter_bwd(const void* g, const void* idx, const void* w4, void* part, void* out, int b,
-                int k, int c, int n, int splits, cudaStream_t s) {
-  const size_t smem = bwd_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(onehot_scatter_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+int scatter_bwd(const void* g, const void* idx, const void* w4, void* iscratch, void* part,
+                void* out, int b, int k, int c, int n, int tile, int tiles, int len,
+                bool smem_hist, cudaStream_t s) {
+  const int e_total = 4 * n;
+  int* cnt = static_cast<int*>(iscratch);  // [b][tiles][k]
+  int* rowptr = cnt + static_cast<size_t>(b) * tiles * k;  // [b][k + 1]
+  int* ent = rowptr + static_cast<size_t>(b) * (k + 1);     // [b][4n]
+  const auto* ix = static_cast<const long long*>(idx);
+  const dim3 tgrid(tiles, b);
+  if (smem_hist) {
+    bucket_count_kernel<true><<<tgrid, 256, k * sizeof(int), s>>>(ix, cnt, e_total, k, tile, tiles);
+  } else {
+    cudaMemsetAsync(cnt, 0, static_cast<size_t>(b) * tiles * k * sizeof(int), s);
+    bucket_count_kernel<false><<<tgrid, 256, 0, s>>>(ix, cnt, e_total, k, tile, tiles);
+  }
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunk = (n + splits - 1) / splits;
-  const dim3 grid(b, (c + kSlice - 1) / kSlice, splits);
-  float* dst = splits == 1 ? static_cast<float*>(out) : static_cast<float*>(part);
-  onehot_scatter_bwd_kernel<T><<<grid, kBwdWarps * 32, smem, s>>>(
-      static_cast<const T*>(g), static_cast<const long long*>(idx),
-      static_cast<const float*>(w4), dst, n, k, c, chunk);
+  bucket_scan_kernel<<<b, 1024, 0, s>>>(cnt, rowptr, k, tiles, e_total);
+  const dim3 pgrid((tiles + kPlaceWarps - 1) / kPlaceWarps, b);
+  if (smem_hist) {
+    const size_t smem = static_cast<size_t>(kPlaceWarps) * k * sizeof(int);
+    err = cudaFuncSetAttribute(bucket_place_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bucket_place_kernel<true><<<pgrid, kPlaceWarps * 32, smem, s>>>(ix, cnt, ent, e_total, k, tile,
+                                                                    tiles);
+  } else {
+    bucket_place_kernel<false><<<pgrid, kPlaceWarps * 32, 0, s>>>(ix, cnt, ent, e_total, k, tile,
+                                                                 tiles);
+  }
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long kc = static_cast<long long>(k) * c;
-  reduce_parts_kernel<<<grid_for(b * kc, 256), 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), b, splits, kc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (e_total + len - 1) / len, slabs = (c + kSlabCh - 1) / kSlabCh;
+  const long long warps = static_cast<long long>(b) * chunks * slabs;
+  const unsigned sblocks = static_cast<unsigned>((warps + 3) / 4);
+  const auto* gg = static_cast<const T*>(g);
+  const auto* w = static_cast<const float*>(w4);
+  auto* pp = static_cast<float*>(part);
+  auto* o = static_cast<float*>(out);
+  if (c % 8 == 0)
+    segment_sum_kernel<T, true><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n, k, c,
+                                                        len, chunks, slabs);
+  else
+    segment_sum_kernel<T, false><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n, k, c,
+                                                         len, chunks, slabs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned mblocks = static_cast<unsigned>((static_cast<long long>(b) * k + 7) / 8);
+  if (c % 8 == 0)
+    merge_parts_kernel<true><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks);
+  else
+    merge_parts_kernel<false><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -283,15 +550,25 @@ extern "C" int njf_onehot_gather_fwd(const void* flat, const void* idx, const vo
                 : gather_fwd<__nv_bfloat16>(flat, idx, w4, out, b, k, c, n, s);
 }
 
-// g [b, n, c] (bf16 when is_f32 == 0, else float32), idx / w4 as above ->
-// out [b, k, c] float32. part: scratch [b, splits, k, c] float32 (unused when
-// splits == 1). k <= 1240; 1 <= splits <= n.
-extern "C" int njf_onehot_scatter_bwd(const void* g, const void* idx, const void* w4, void* part,
-                                      void* out, int b, int k, int c, int n, int splits,
+// g [b, n, c] (bf16 when is_f32 == 0, else float32), idx [b, n, 4] int64
+// corner ids in [0, k), w4 [b, n, 4] float32 -> out [b, k, c] float32, by
+// onehot_gather.bwd_plan's stages: bucket tiles of `tile` entries (`tiles`
+// per image, tiles * tile >= 4n), pieces of `len` entries; smem_hist != 0:
+// the bucket's counters in shared memory (k <= 12288). iscratch: int32
+// [b * tiles * k + b * (k + 1) + b * 4n]; part: float32 [b, ceil(4n / len),
+// 2, c]. 4n <= 2^30.
+extern "C" int njf_onehot_scatter_bwd(const void* g, const void* idx, const void* w4,
+                                      void* iscratch, void* part, void* out, int b, int k, int c,
+                                      int n, int tile, int tiles, int len, int smem_hist,
                                       int is_f32, void* stream) {
-  if (b <= 0 || k <= 0 || k > 1240 || c <= 0 || n <= 0 || splits <= 0 || splits > n)
+  if (b <= 0 || k <= 0 || c <= 0 || n <= 0 || n > (1 << 28) || tile <= 0 || tiles <= 0 ||
+      static_cast<long long>(tile) * tiles < 4LL * n ||
+      static_cast<long long>(tile) * tiles > (1LL << 31) - 1 || len <= 0 ||
+      (smem_hist && k > 12288))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return is_f32 ? scatter_bwd<float>(g, idx, w4, part, out, b, k, c, n, splits, s)
-                : scatter_bwd<__nv_bfloat16>(g, idx, w4, part, out, b, k, c, n, splits, s);
+  return is_f32 ? scatter_bwd<float>(g, idx, w4, iscratch, part, out, b, k, c, n, tile, tiles,
+                                     len, smem_hist != 0, s)
+                : scatter_bwd<__nv_bfloat16>(g, idx, w4, iscratch, part, out, b, k, c, n, tile,
+                                             tiles, len, smem_hist != 0, s);
 }

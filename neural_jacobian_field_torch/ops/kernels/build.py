@@ -58,7 +58,8 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P),
     "njf_onehot_gather_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "njf_onehot_scatter_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "njf_onehot_scatter_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
 }
 
 

@@ -10,19 +10,28 @@ compute the same function directly:
   gF[b, k]  = sum_{p, q: idx[b, p, q] == k} rw[b, p, q] * g[b, p]
 with rw the weight rounded to the map's dtype, the products and sums in
 float32, the corners in order (y0x0, y0x1, y1x0, y1x1). The kernels
-(csrc/onehot_gather.cu) say in their header what bounds them; the scatter
-uses no atomics, so it repeats bit for bit. The differentiable entry point is
+(csrc/onehot_gather.cu) say in their header what bounds them. The scatter
+sorts the corner entries by texel and sums fixed-length pieces of the sorted
+list, then adds the pieces of each texel in order (`bwd_plan` sizes the
+stages and the scratch): no floating-point atomics, so it repeats bit for
+bit, and no limit on K but int32 entry ids. The differentiable entry point is
 `ops/pixel_gather.gather_bilinear_onehot`.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes the plain version.
 """
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .build import check_cuda_tensor, dispatch, load_kernels, stream_of
+from .conv_suite import SMS, _on_device, _sms
 
-MAX_TEXELS = 1240  # K1-bwd keeps a 32-channel slice of the whole map in shared memory
+SMEM_TEXELS = 12288  # the bucket's counters in shared memory up to this K
+COUNTERS = 1 << 21   # bucket counters per image (K x tiles) at most
+MAX_ENTRIES = 1 << 30  # corner entries per image (4N): int32 ids and offsets
 
 
 def onehot_gather_fwd_plain(flat: torch.Tensor, idx: torch.Tensor,
@@ -95,32 +104,65 @@ def onehot_gather_fwd(flat: torch.Tensor, idx: torch.Tensor, w4: torch.Tensor) -
                     lambda: onehot_gather_fwd_plain(flat, idx, w4))
 
 
+class BwdPlan(NamedTuple):
+    """K1-bwd's stages for g [b, n, c] onto k texels (csrc/onehot_gather.cu):
+    the bucket sort's tiles of corner entries, the segment pass's pieces of
+    the sorted list, and the scratch, in elements."""
+    entries: int     # corner entries per image, 4n
+    tile: int        # entries per bucket tile (a multiple of 32)
+    tiles: int       # bucket tiles per image
+    smem_hist: bool  # the bucket's counters in shared memory
+    piece: int       # entries per piece of the segment pass
+    pieces: int      # pieces per image
+    int_elems: int   # int32: counters [b, tiles, k], row pointers [b, k + 1], ids [b, 4n]
+    part_elems: int  # float32: two partial rows per piece, [b, pieces, 2, c]
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS) -> BwdPlan:
+    """Tiles of 4096 entries (fewer, longer ones where K x tiles would pass
+    COUNTERS). Pieces: the largest power of two in [64, 2048] that gives an
+    image at least 24 warps per SM, more than the card holds at once, so the
+    warps in flight work on about one image and its g stays in L2 (the
+    pieces are walked image by image)."""
+    entries = 4 * n
+    if min(b, n, k, c) <= 0 or entries > MAX_ENTRIES:
+        raise ValueError(f"K1-bwd: b {b}, n {n}, k {k}, c {c} (4n <= {MAX_ENTRIES})")
+    tiles = max(1, min(-(-entries // 4096), COUNTERS // k))
+    tile = -(-entries // tiles)
+    tile = -(-tile // 32) * 32
+    tiles = -(-entries // tile)
+    piece = 2048
+    while piece > 64 and -(-entries // piece) < 24 * sms:
+        piece //= 2
+    pieces = -(-entries // piece)
+    return BwdPlan(entries, tile, tiles, k <= SMEM_TEXELS, piece, pieces,
+                   b * tiles * k + b * (k + 1) + b * entries, b * pieces * 2 * c)
+
+
 def _onehot_scatter_bwd_cuda(g, idx, w4, k):
     if g.dim() != 3:
         raise ValueError(f"K1-bwd: expected g [B, N, C], got {tuple(g.shape)}")
-    if not 0 < k <= MAX_TEXELS:
-        raise ValueError(f"K1-bwd takes maps of 1..{MAX_TEXELS} texels, got {k}")
+    if k <= 0:
+        raise ValueError(f"K1-bwd: the map needs texels, got k = {k}")
     g = g.contiguous()
     b, n, c = g.shape
     is_f32 = _dtype_flag("K1-bwd g", g)
     check_cuda_tensor(g, "K1-bwd g", g.dtype, 3)
     idx, w4 = _check_points("K1-bwd", idx, w4, b, n)
     dev = g.device
-    out = torch.empty((b, k, c), dtype=torch.float32, device=dev)
     if n == 0 or c == 0:
-        return out.zero_()
-    # point ranges per (image, 32-channel slice): about three blocks per SM
-    # (one block fits an SM), each range at least 1024 points
-    slices = -(-c // 32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-3 * sms // (b * slices)), n // 1024))
-    part = (torch.empty((b, splits, k, c), dtype=torch.float32, device=dev) if splits > 1
-            else out)
+        return torch.zeros((b, k, c), dtype=torch.float32, device=dev)
+    plan = bwd_plan(b, n, k, c, _sms(dev.index))
+    out = torch.empty((b, k, c), dtype=torch.float32, device=dev)
+    iscratch = torch.empty(plan.int_elems, dtype=torch.int32, device=dev)
+    part = torch.empty(plan.part_elems, dtype=torch.float32, device=dev)
     lib = load_kernels()
-    with torch.cuda.device(dev):
+    with _on_device(g):
         onehot_scatter_bwd.launches += 1
         lib.call("njf_onehot_scatter_bwd", g.data_ptr(), idx.data_ptr(), w4.data_ptr(),
-                 part.data_ptr(), out.data_ptr(), b, k, c, n, splits, is_f32, stream_of(g))
+                 iscratch.data_ptr(), part.data_ptr(), out.data_ptr(), b, k, c, n, plan.tile,
+                 plan.tiles, plan.piece, int(plan.smem_hist), is_f32, stream_of(g))
     return out
 
 

@@ -72,18 +72,22 @@ def test_k6_kernel_is_bit_exact(dev, shape, dtype):
     assert torch.equal(got, K.pack_2x2_flat_plain(x))
 
 
-@pytest.mark.parametrize("n,s,q", [(10, 16, 9), (2048, 256, 257)])
+@pytest.mark.parametrize("n,s,q", [(10, 16, 9), (64, 48, 49), (64, 255, 256), (2048, 256, 257)])
 def test_k5_kernel_matches_plain(dev, n, s, q):
-    """1e-4 everywhere but at bin ties: the kernel's CDF is a sequential
-    float32 sum, the plain version's a parallel scan, ~1e-7 apart per step,
-    and the interpolation divides that by the bin's pdf (as small as ~4e-5
-    here). At a tie a query may change bin: at most one bin width, for at
-    most 1e-4 of the queries."""
+    """1e-4 everywhere but at bin ties: the kernel's CDF is a warp scan, the
+    plain version's a sequential cumsum, ~1e-7 apart per step, and the
+    interpolation divides that by the bin's pdf (as small as ~4e-5 here). At
+    a tie a query may change bin: at most one bin width, for at most 1e-4 of
+    the queries. Ray 0 has all-zero weights. The kernel equals its order's
+    emulation on the CPU bit for bit, and two calls give identical bits."""
+    from test_torch_port_k5_k1bwd_plan import k5_emulate
+
     from neural_jacobian_field_torch.ops.pdf import pdf_queries
 
     g = _gen(2)
     bins = torch.sort(torch.rand((n, s + 1), generator=g, device=dev), dim=-1).values
     w = torch.rand((n, s), generator=g, device=dev)
+    w[0] = 0.0
     u = pdf_queries((n,), q - 1, stratified=True, generator=g, device=dev)
     n0 = K.fused_sample_pdf.launches
     got = K.fused_sample_pdf(bins, w, u)
@@ -93,6 +97,8 @@ def test_k5_kernel_matches_plain(dev, n, s, q):
     err = (got - want).abs()
     assert (err > 1e-4).float().mean() <= 1e-4
     assert err.max() <= torch.diff(bins, dim=-1).max()
+    assert torch.equal(got.cpu(), k5_emulate(bins.cpu(), w.cpu(), u.cpu()))
+    assert torch.equal(K.fused_sample_pdf(bins, w, u), got)
 
 
 def _trunk(dev, d_in, dh, n_blocks, combine, d_out, g):
@@ -368,9 +374,13 @@ def test_kernels_reject_what_they_do_not_take(dev):
 
 # ------------------------------------------------- the exact path: K1 and K7
 
-def _corner_inputs(dev, b, n, hc, wc, g):
-    from neural_jacobian_field_torch.ops.pixel_gather import _corner_ids
+def _corner_ids(cx, cy, wc, hc):
+    from neural_jacobian_field_torch.ops.pixel_gather import _corner_ids as corner_ids
 
+    return corner_ids(cx, cy, wc, hc)
+
+
+def _corner_inputs(dev, b, n, hc, wc, g):
     cx = torch.rand((b, n), generator=g, device=dev) * (wc + 3) - 2
     cy = torch.rand((b, n), generator=g, device=dev) * (hc + 3) - 2
     return _corner_ids(cx, cy, wc, hc)
@@ -522,11 +532,49 @@ def test_exact_functions_carry_grad_fn(dev):
     assert K.fused_resnet_fc_train(params, cfg, z, x, 16).grad_fn is not None
 
 
-def test_k1_bwd_rejects_a_map_too_large(dev):
-    idx = torch.zeros((1, 4, 4), dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError):
-        K.onehot_scatter_bwd(torch.randn((1, 4, 8), device=dev), idx,
-                             torch.zeros((1, 4, 4), device=dev), K.onehot_gather.MAX_TEXELS + 1)
+@pytest.mark.parametrize("b,n,hc,wc,c,dtype,hot", [
+    (7, 65536, 45, 80, 256, torch.bfloat16, 0),   # a 720x1280 image's layer3: K = 3,600
+    (2, 5000, 30, 40, 16, torch.bfloat16, 5000),  # every point on one spot
+    (1, 4000, 100, 200, 8, torch.float32, 500),   # K = 20,000: the counters in global memory
+])
+def test_k1_bwd_takes_large_maps_and_hot_texels(dev, b, n, hc, wc, c, dtype, hot):
+    """Large maps (a 720x1280 image's layer3; 20,000 texels, past the
+    shared-memory counters), one texel whose entries span many pieces,
+    untouched texels: 1e-5 of scale against the plain version,
+    untouched texels zero, two calls bit-identical."""
+    g = _gen(19)
+    cx = torch.rand((b, n), generator=g, device=dev) * (wc + 3) - 2
+    cy = torch.rand((b, n), generator=g, device=dev) * (hc + 3) - 2
+    cx[:, :hot], cy[:, :hot] = 3.3, 4.6
+    idx, w4 = _corner_ids(cx, cy, wc, hc)
+    gy = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    got = K.onehot_scatter_bwd(gy, idx, w4, hc * wc)
+    want = K.onehot_scatter_bwd_plain(gy, idx, w4, hc * wc)
+    assert got.shape == want.shape == (b, hc * wc, c)
+    assert _rel(got, want) <= 1e-5
+    assert not got[want.abs().sum(-1) == 0].any()
+    assert torch.equal(K.onehot_scatter_bwd(gy, idx, w4, hc * wc), got)
+
+
+@pytest.mark.parametrize("b,n,hc,wc,c,dtype,hot", [
+    (2, 2100, 6, 9, 40, torch.bfloat16, 700),
+    (1, 3000, 45, 80, 6, torch.float32, 0),
+])
+def test_k1_bwd_is_its_emulation(dev, b, n, hc, wc, c, dtype, hot):
+    """The bucket sort, the piece sums and the ordered merge, emulated on the
+    CPU in the kernels' order, equal the kernels' output bit for bit."""
+    from test_torch_port_k5_k1bwd_plan import k1_emulate
+
+    g = _gen(20)
+    cx = torch.rand((b, n), generator=g, device=dev) * (wc + 3) - 2
+    cy = torch.rand((b, n), generator=g, device=dev) * (hc + 3) - 2
+    cx[:, :hot], cy[:, :hot] = 1.5, 2.5
+    idx, w4 = _corner_ids(cx, cy, wc, hc)
+    gy = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    got = K.onehot_scatter_bwd(gy, idx, w4, hc * wc)
+    plan = K.onehot_gather.bwd_plan(b, n, hc * wc, c, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert torch.equal(got.cpu(), k1_emulate(gy.cpu(), idx.cpu(), w4.cpu(), hc * wc, plan))
 
 
 def test_stage2_step_on_the_card_freezes_all_but_the_head(dev):
