@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile [MODE]  # only: where a train step's device
                                             # time goes (MODE epipolar, exact,
                                             # fused or action)
+    python3 chip_smoke.py --profile serve [MODE]  # only: one render and one
+                                            # 100-step solve, eager and
+                                            # captured (MODE epipolar or exact)
 
 Drives the port's main paths (neural_jacobian_field_torch, never JAX) at the
 flagship configuration with seeded random weights, in both pixel-feature
@@ -42,14 +45,23 @@ K7 trunks that project the latent themselves):
      with the time per call of 20 calls back to back and the host's time
      to enqueue one (the wrapper's host cost); the other rows print their
      device time (the K7 backward rows with their TFLOP/s; K5 and K1-bwd
-     their bound over it and the host's time to enqueue one call);
-  3. serving, per mode: a full 480x640 target view rendered in 2048-ray
-     chunks from a 480x640 context image (launch counters reset just
-     before, read just after), then one chunk again, stage by stage, with
-     the plain versions swapped in;
-  4. inverse dynamics on 4096 rays, per mode: encode_image, a
-     model-realisable target flow, 100 Adam steps, and the least-squares
-     solve;
+     their bound over it and the host's time to enqueue one call, K6-fwd
+     that host time too);
+  3. serving, per mode, each entry point eager (inside
+     model.programs.eager()) and through its captured CUDA graphs
+     (inference/programs.py), timed both ways, the captured outputs equal
+     to the eager ones bit for bit and two replays bit-identical: the
+     encoder; a full 480x640 target view rendered in 2048-ray chunks from a
+     480x640 context image (launch counters reset just before the captured
+     run, read just after: counted through replay, and equal to the eager
+     run's); the whole render as one graph of 150 chunks against the chunk
+     program's replays; replays that follow a new image, camera and action,
+     weights loaded in place (the same programs) and reassigned (captured
+     again); then one chunk again, eagerly, stage by stage, with the plain
+     versions swapped in;
+  4. inverse dynamics on 4096 rays, per mode, eager and captured as in 3:
+     encode_image, a model-realisable target flow, 100 Adam steps, and the
+     least-squares solve; the solvers' replays follow a new target flow;
   5. training, per mode: the stage-1 train step at batch 7 x 256 rays with
      480x640 context images (bf16, forward + backward + Adam): launch counts
      of an update step and of a frozen step (counters reset before each),
@@ -82,6 +94,7 @@ those of stage 2 on the lines that start with "action".
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -451,7 +464,7 @@ def kernel_checks(dev):
             rows["K9-fwd"] = rec
 
     # K6-fwd: fine + mid per encode, coarse per chunk (epipolar)
-    row, dev_sum = Row(), 0.0
+    row, dev_sum, host_sum = Row(), 0.0, 0.0
     for hh, ww, c in ((240, 320, 128), (60, 80, 128), (30, 40, 256)):
         x = torch.randn((1, hh, ww, c), generator=g, device=dev).to(torch.bfloat16)
         got, want = K.pack_2x2_flat(x), K.pack_2x2_flat_plain(x)
@@ -461,11 +474,14 @@ def kernel_checks(dev):
         k_ms = cuda_time_ms(lambda: K.pack_2x2_flat(x))
         p_ms = cuda_time_ms(lambda: K.pack_2x2_flat_plain(x))
         d_ms = device_ms(lambda: K.pack_2x2_flat(x))
-        dev_sum += d_ms
-        print_times("", k_ms, p_ms, extra=f" (device {d_ms:.4f})")
+        host = host_ms(lambda: K.pack_2x2_flat(x))
+        dev_sum, host_sum = dev_sum + d_ms, host_sum + host
+        print_times("", k_ms, p_ms, extra=f" (device {d_ms:.4f}, host enqueue {host:.4f} per "
+                                          f"call)")
         row.add(err, k_ms, p_ms, nbytes(x, got))
     rows["K6-fwd"] = row.record()
-    print(f"K6-fwd fine + mid + coarse: kernel {row.ms:.4f} ms, device {dev_sum:.4f} ms")
+    print(f"K6-fwd fine + mid + coarse: kernel {row.ms:.4f} ms, device {dev_sum:.4f} ms, host "
+          f"enqueue {host_sum:.4f} ms")
 
     # K5: one 2048-ray chunk, 256 proposal bins -> 256 NeRF samples
     n, s = PATCH, 256
@@ -901,18 +917,18 @@ def build_model(dev, mode):
     return model.to(dev).eval()
 
 
-def cameras(dev):
+def cameras(dev, seed=SEED, degrees=10.0):
     import numpy as np
     import torch
 
     from neural_jacobian_field_torch.models.model import CameraInput, RobotInput
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     image = torch.from_numpy(rng.uniform(size=(1, H, W, 3)).astype(np.float32))
     intr = torch.tensor([[[1.2, 0.0, 0.5], [0.0, 1.6, 0.5], [0.0, 0.0, 1.0]]])
     # target camera: 10 degrees about the y axis through a focus point 2 m in
     # front of the context camera, so every epipolar segment has length
-    t = math.radians(10.0)
+    t = math.radians(degrees)
     rot = torch.tensor([[math.cos(t), 0.0, math.sin(t)], [0.0, 1.0, 0.0],
                         [-math.sin(t), 0.0, math.cos(t)]])
     focus = torch.tensor([0.0, 0.0, 2.0])
@@ -973,35 +989,171 @@ def chunk_stages(model, cam, robot, ri, given=None):
     return out
 
 
+def same_bits(got, want) -> bool:
+    """Every tensor of got equal to want's, bit for bit."""
+    import torch
+
+    return len(got) == len(want) and all(g.shape == w.shape and bool(torch.equal(g, w))
+                                         for g, w in zip(got, want))
+
+
+def outputs_of(x) -> tuple:
+    """The tensors of an entry point's result (a dataclass or a tuple)."""
+    import torch
+
+    values = vars(x).values() if dataclasses.is_dataclass(x) else x
+    return tuple(v for v in values if isinstance(v, torch.Tensor))
+
+
+def captured_vs_eager(label, model, fn, reps=3, timer=None):
+    """fn() through its captured programs against fn() inside
+    model.programs.eager(): the eager time, the first captured call (it
+    captures), the captured time, and bit-for-bit agreement of the outputs
+    and of two replays. Timed on the host clock around a synchronised call
+    (median of reps), or by `timer`. Returns (captured outputs, times)."""
+    import torch
+
+    def wall_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    timer = timer or (lambda: statistics.median(wall_ms()[0] for _ in range(reps)))
+    with model.programs.eager():
+        fn()  # warm-up: allocator, handles
+        eager_ms = timer()
+        want = outputs_of(fn())
+    capture_ms, _ = wall_ms()
+    captured_ms = timer()
+    got, again = outputs_of(fn()), outputs_of(fn())
+    same, repeat = same_bits(got, want), same_bits(again, got)
+    print(f"{label}: eager {eager_ms:.3f} ms, captured {captured_ms:.3f} ms "
+          f"(eager/captured {eager_ms / captured_ms:.2f}x; first call with the capture "
+          f"{capture_ms:.1f} ms); captured == eager bit for bit: {same}; two replays "
+          f"bit-identical: {repeat}")
+    check(same and repeat, f"{label}: the captured program disagrees with eager execution "
+                           f"or does not repeat")
+    return got, dict(eager_ms=eager_ms, captured_ms=captured_ms, capture_ms=capture_ms)
+
+
+def follows(label, model, fn):
+    """fn() replayed on new inputs or weights equals fn() run eagerly."""
+    got = outputs_of(fn())
+    with model.programs.eager():
+        want = outputs_of(fn())
+    same = same_bits(got, want)
+    print(f"{label}: captured == eager bit for bit: {same}")
+    check(same, f"{label}: a replay did not follow its new inputs")
+
+
+def sweep_program(model, cam, robot):
+    """The whole 480x640 render as ONE captured program (every chunk in one
+    graph, as JAX's lax.map sweeps them in one jit), reading the encoder
+    program's outputs in place. Returns a function that renders through it."""
+    import torch
+
+    from neural_jacobian_field_torch.inference.programs import CapturedProgram
+    from neural_jacobian_field_torch.inference.render import _render_chunk, camera_rays
+    from neural_jacobian_field_torch.ops.pixel_gather import features_from_fields
+
+    image = cam.input_image
+    origins, dirs = camera_rays(H, W, cam.trgt_intrinsics, cam.trgt_extrinsics)
+    near = torch.full((1,), Z_NEAR, device=image.device)
+    far = torch.full((1,), Z_FAR, device=image.device)
+    encoder = model.features_program(image)
+    features = features_from_fields(encoder.replay(image))
+
+    def sweep(*xs):
+        *per_render, o, d = xs
+        outs = None
+        for s in range(0, H * W, PATCH):
+            part = _render_chunk(model, features, *per_render, o[:, s:s + PATCH],
+                                 d[:, s:s + PATCH])
+            if outs is None:
+                outs = [p.new_empty((1, H * W, *p.shape[2:])) for p in part]
+            for out, p in zip(outs, part):
+                out[:, s:s + PATCH].copy_(p)
+        return tuple(outs)
+
+    inputs = (cam.ctxt_extrinsics, cam.ctxt_intrinsics, cam.trgt_extrinsics,
+              cam.trgt_intrinsics, robot.robot_action, near, far, origins, dirs)
+    with torch.no_grad():  # as patch_render captures its chunk program
+        program = CapturedProgram(sweep, inputs, model.programs.backend)
+
+    def render():
+        encoder.replay(image)
+        return tuple(o.reshape(1, H, W, *o.shape[2:]) for o in program(*inputs))
+
+    return render
+
+
 def serve_phase(dev, model, cam, robot, timings, mode):
     import torch
 
     from neural_jacobian_field_torch.inference.render import camera_rays, render_camera
     from neural_jacobian_field_torch.models.model import RenderingInput
     from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.ops.pixel_gather import feature_fields
 
     tag = "" if mode == "epipolar" else "exact_"
-    with torch.no_grad():
-        # warm-up encode (allocator, cuBLAS handles), then the timed encode
-        model.compute_pixel_encoding(cam, robot)
-        torch.cuda.synchronize()
-        timings[tag + "encode_ms"] = cuda_time_ms(
-            lambda: model.compute_pixel_encoding(cam, robot), reps=5, warmup=1)
 
+    def encode():
+        with torch.no_grad():
+            return feature_fields(model.compute_pixel_encoding(cam, robot).features)[:3]
+
+    def render(c=cam, r=robot):
+        return render_camera(model, c, r, Z_NEAR, Z_FAR, H, W, patch_size=PATCH)
+
+    # the encoder: eager, then its captured program (CUDA events, median of 5)
+    _, t = captured_vs_eager(f"encode {mode} (24 K9 + 2 K6)", model, encode,
+                             timer=lambda: cuda_time_ms(encode, reps=5, warmup=1))
+    timings[tag + "eager_encode_ms"], timings[tag + "encode_ms"] = t["eager_ms"], t["captured_ms"]
+
+    # the render: eager (launch counters reset just before, read just after),
+    # then captured: the first call captures the chunk program, the main-path
+    # run after it is counted through replay
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with model.programs.eager():
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        want = render()
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        eager_launches = K.launch_counts()
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    t0 = time.perf_counter()
+    render()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    out = render_camera(model, cam, robot, Z_NEAR, Z_FAR, H, W, patch_size=PATCH)
+    out = render()
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = K.launch_counts()
     check_no_legacy(f"{mode} serving")
+    t0 = time.perf_counter()
+    again = render()
+    torch.cuda.synchronize()
+    render2_s = time.perf_counter() - t0
+    timings[tag + "eager_render_s"] = eager_s
     timings[tag + "render_s"] = render_s
     timings[tag + "render_rays_per_s"] = H * W / render_s
     timings[tag + "render_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    print(f"render {mode} {H}x{W}: {render_s:.3f} s, {H * W / render_s:.1f} rays/s, "
-          f"peak {timings[tag + 'render_peak_mem_gib']:.2f} GiB; launches {launches}")
+    timings[tag + "eager_render_peak_mem_gib"] = eager_peak
+    same, repeat = (same_bits(outputs_of(out), outputs_of(want)),
+                    same_bits(outputs_of(again), outputs_of(out)))
+    print(f"render {mode} {H}x{W}: captured {render_s:.3f} s and {render2_s:.3f} s "
+          f"({H * W / render_s:.1f} rays/s), eager {eager_s:.3f} s ({H * W / eager_s:.1f} "
+          f"rays/s; eager/captured {eager_s / render_s:.2f}x), first captured call "
+          f"{capture_s:.3f} s; peak {timings[tag + 'render_peak_mem_gib']:.2f} GiB captured "
+          f"(the programs' pools), {eager_peak:.2f} GiB eager; captured == eager bit for "
+          f"bit: {same}; two replays bit-identical: {repeat}; launches {launches}")
+    check(same and repeat, f"{mode} render: captured disagrees with eager or does not repeat")
 
     for name, shape in (("rgb", (1, H, W, 3)), ("depth_raw", (1, H, W, 1)),
                         ("flow_raw", (1, H, W, 2)), ("action_features", (1, H, W, 24))):
@@ -1013,11 +1165,60 @@ def serve_phase(dev, model, cam, robot, timings, mode):
           f"|flow| max {float(out.flow_raw.abs().max()):.4e}")
     n = H * W // PATCH
     if mode == "epipolar":  # K6 packs the coarse level per chunk for the knots
-        want = all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n, "K7-tz-fwd": 3 * n})
+        want_counts = all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n,
+                                    "K7-tz-fwd": 3 * n})
     else:
-        want = all_zero_but({"K9-fwd": 24, "K6-fwd": 2, "K5": n, "K7-fwd": 3 * n,
-                             "K1-fwd": 2 * n})
-    check(launches == want, f"{mode} serving launches {launches} != {want}")
+        want_counts = all_zero_but({"K9-fwd": 24, "K6-fwd": 2, "K5": n, "K7-fwd": 3 * n,
+                                    "K1-fwd": 2 * n})
+    check(launches == want_counts and eager_launches == want_counts,
+          f"{mode} serving launches {launches} (eager {eager_launches}) != {want_counts}")
+
+    # the whole sweep as one graph, against the chunk program's replays
+    t0 = time.perf_counter()
+    sweep = sweep_program(model, cam, robot)
+    sweep()
+    torch.cuda.synchronize()
+    sweep_capture_s = time.perf_counter() - t0
+    sweep_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swept = sweep()
+        torch.cuda.synchronize()
+        sweep_times.append(time.perf_counter() - t0)
+        chunked_t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        sweep_times.append(time.perf_counter() - chunked_t0)
+    timings[tag + "sweep_render_s"] = min(sweep_times[0::2])
+    same = same_bits(swept, outputs_of(out))
+    print(f"render {mode} as one graph of {n} chunks: {sweep_times[0]:.3f} / "
+          f"{sweep_times[2]:.3f} s against the chunk program's {sweep_times[1]:.3f} / "
+          f"{sweep_times[3]:.3f} s (alternating, same call); capture {sweep_capture_s:.1f} s; "
+          f"== the chunk program's bit for bit: {same}")
+    check(same, f"{mode}: the one-graph render disagrees with the chunk program's")
+    del sweep, swept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # replays follow new inputs (a new image, the target camera moved to 14
+    # degrees, a new action) and weights loaded in place (the same programs)
+    # or reassigned (captured again)
+    cam2, robot2 = cameras(dev, seed=SEED + 1, degrees=14.0)
+    follows(f"render {mode}, new image, camera and action", model,
+            lambda: render(cam2, robot2))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    perturbed = {k: v * 1.05 if v.is_floating_point() else v for k, v in state.items()}
+    programs = list(model.programs)
+    model.load_state_dict(perturbed)
+    follows(f"render {mode}, weights loaded in place", model, render)
+    check(list(model.programs) == programs,
+          "weights loaded in place changed the programs")
+    model.load_state_dict({k: v.clone() for k, v in perturbed.items()}, assign=True)
+    follows(f"render {mode}, weights reassigned", model, render)
+    check(not any(p in programs for p in model.programs),
+          "reassigned weights did not capture the programs again")
+    model.load_state_dict(state)
 
     # one chunk again, stage by stage, kernels vs plain versions. A random
     # field at bf16 is chaotic end to end (a 1e-4 m shift of a sample moves
@@ -1028,7 +1229,7 @@ def serve_phase(dev, model, cam, robot, timings, mode):
     ri = RenderingInput(origins=origins[:, lo:lo + PATCH], directions=dirs[:, lo:lo + PATCH],
                         z_near=torch.full((1,), Z_NEAR, device=dev),
                         z_far=torch.full((1,), Z_FAR, device=dev))
-    with torch.no_grad():
+    with torch.no_grad(), model.programs.eager():
         k = chunk_stages(model, cam, robot, ri)
         with plain_kernels():
             p = chunk_stages(model, cam, robot, ri, given=k)
@@ -1065,7 +1266,8 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings, mode):
     from neural_jacobian_field_torch.inference.action_opt import (
         optimize_actions, solve_actions_least_squares)
     from neural_jacobian_field_torch.inference.render import camera_rays
-    from neural_jacobian_field_torch.models.model import RenderingInput, RobotInput
+    from neural_jacobian_field_torch.models.model import (
+        ModelInferenceEncoding, RenderingInput, RobotInput)
 
     tag = "" if mode == "epipolar" else "exact_"
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1074,12 +1276,11 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings, mode):
     ri = RenderingInput(origins=origins[:, pick], directions=dirs[:, pick],
                         z_near=torch.full((1,), Z_NEAR, device=dev),
                         z_far=torch.full((1,), Z_FAR, device=dev))
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        enc = model.encode_image(cam, ri, robot)
-        torch.cuda.synchronize()
-    timings[tag + "id_encode_ms"] = (time.perf_counter() - t0) * 1e3
+    got, t = captured_vs_eager(f"encode_image {mode} ({ID_RAYS} rays)", model,
+                               lambda: model.encode_image(cam, ri, robot))
+    enc = ModelInferenceEncoding(*got)
+    timings[tag + "eager_id_encode_ms"], timings[tag + "id_encode_ms"] = (t["eager_ms"],
+                                                                          t["captured_ms"])
     # a small action keeps the target in the regime where the flow is close
     # to linear in the action (the least-squares step linearises at a = 0;
     # at 5x this action the projection's curvature alone leaves ~6%)
@@ -1087,28 +1288,33 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings, mode):
     with torch.no_grad():
         target = model.infer_optical_flow(enc, cam, RobotInput(a_star))
     action0 = 1e-3 * torch.randn((1, 8), generator=g, device=dev)
-    optimize_actions(model, enc, cam, target, action0=action0, num_iters=5)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = optimize_actions(model, enc, cam, target, action0=action0, num_iters=100)
-    torch.cuda.synchronize()
-    timings[tag + "inverse_dynamics_ms"] = (time.perf_counter() - t0) * 1e3
-    l0, lbest = float(res.losses[0]), float(res.loss)
-    print(f"inverse dynamics {mode} ({ID_RAYS} rays): encode "
-          f"{timings[tag + 'id_encode_ms']:.1f} ms, 100 Adam steps "
-          f"{timings[tag + 'inverse_dynamics_ms']:.1f} ms, loss {l0:.4e} -> {lbest:.4e} "
+    res, t = captured_vs_eager(
+        f"inverse dynamics {mode}, 100 Adam steps", model,
+        lambda: optimize_actions(model, enc, cam, target, action0=action0, num_iters=100))
+    timings[tag + "eager_inverse_dynamics_ms"] = t["eager_ms"]
+    timings[tag + "inverse_dynamics_ms"] = t["captured_ms"]
+    losses, best_loss = res[2], res[1]
+    l0, lbest = float(losses[0]), float(best_loss)
+    print(f"inverse dynamics {mode} ({ID_RAYS} rays): loss {l0:.4e} -> {lbest:.4e} "
           f"(bound: best < 0.5 x initial)")
     check(math.isfinite(lbest) and lbest < 0.5 * l0, "inverse dynamics loss did not fall")
-    t0 = time.perf_counter()
-    a = solve_actions_least_squares(model, enc, cam, target)
-    torch.cuda.synchronize()
-    timings[tag + "least_squares_ms"] = (time.perf_counter() - t0) * 1e3
+    (a,), t = captured_vs_eager(f"least squares {mode}", model,
+                                lambda: (solve_actions_least_squares(model, enc, cam, target),))
+    timings[tag + "eager_least_squares_ms"] = t["eager_ms"]
+    timings[tag + "least_squares_ms"] = t["captured_ms"]
     with torch.no_grad():
         flow = model.infer_optical_flow(enc, cam, RobotInput(a))
     resid = float(torch.linalg.norm(flow - target) / torch.linalg.norm(target))
-    print(f"least squares {mode}: {timings[tag + 'least_squares_ms']:.1f} ms, relative flow "
-          f"residual {resid:.3e} (bound 2e-2), |a - a*| {float((a - a_star).abs().max()):.3e}")
+    print(f"least squares {mode}: relative flow residual {resid:.3e} (bound 2e-2), "
+          f"|a - a*| {float((a - a_star).abs().max()):.3e}")
     check(resid < 2e-2, "least-squares residual above its bound")
+    # the solvers' replays follow a new target flow and a new action0
+    with torch.no_grad():
+        target2 = model.infer_optical_flow(enc, cam, RobotInput(-0.5 * a_star))
+    follows(f"inverse dynamics {mode}, new target and action0", model,
+            lambda: optimize_actions(model, enc, cam, target2, action0=-action0, num_iters=100))
+    follows(f"least squares {mode}, new target", model,
+            lambda: (solve_actions_least_squares(model, enc, cam, target2),))
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1455,6 +1661,86 @@ def action_phase(dev, timings, mode, supervision, stage1):
     return counts["update"]
 
 
+def trace(fn):
+    """torch.profiler around one fn() (ended by a synchronize): the profile,
+    the traced wall time (the first host event to the last device event),
+    the device's busy time (the union of its kernel, copy and set intervals,
+    so overlapping work counts once), the device events in order, and
+    {kernel name: [device us, launches]}; microseconds."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # a record_function range (the optimizer's, say) is mirrored on the
+    # device timeline under its host name; it is a span, not work
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    dev_ev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                     and e.name not in host_names), key=lambda e: e.time_range.start)
+    check(dev_ev, "the profiler recorded no device event")
+    busy, end = 0.0, -math.inf
+    for e in dev_ev:  # union of the device intervals, in microseconds
+        s, t = e.time_range.start, e.time_range.end
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    host_start = min(e.time_range.start for e in events if e.device_type == DeviceType.CPU)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev_ev:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    return prof, end - host_start, busy, dev_ev, by_name
+
+
+def print_top(prefix, by_name, busy, top):
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"{prefix}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<5d} {name[:90]}")
+
+
+def profile_serve(dev, mode, top=12):
+    """--profile serve [MODE]: torch.profiler around one 480x640 render and
+    one 100-step Adam solve through their captured programs (after the
+    captures), eager and captured: the traced wall time, the device's busy
+    time and idle share, the number of device events and the top kernels."""
+    import torch
+
+    from neural_jacobian_field_torch.inference.action_opt import optimize_actions
+    from neural_jacobian_field_torch.inference.render import camera_rays, render_camera
+    from neural_jacobian_field_torch.models.model import RenderingInput, RobotInput
+
+    model = build_model(dev, mode)
+    cam, robot = cameras(dev)
+    origins, dirs = camera_rays(H, W, cam.trgt_intrinsics, cam.trgt_extrinsics)
+    pick = torch.randperm(H * W, generator=torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)[:ID_RAYS]
+    ri = RenderingInput(origins=origins[:, pick], directions=dirs[:, pick],
+                        z_near=torch.full((1,), Z_NEAR, device=dev),
+                        z_far=torch.full((1,), Z_FAR, device=dev))
+    enc = model.encode_image(cam, ri, robot)
+    with torch.no_grad():
+        target = model.infer_optical_flow(enc, cam, RobotInput(0.02 * robot.robot_action))
+    action0 = torch.full((1, 8), 1e-3, device=dev)
+    for label, fn in (
+            ("render", lambda: render_camera(model, cam, robot, Z_NEAR, Z_FAR, H, W,
+                                             patch_size=PATCH)),
+            ("solve", lambda: optimize_actions(model, enc, cam, target, action0=action0,
+                                               num_iters=100))):
+        for kind, context in (("eager", model.programs.eager), ("captured",
+                                                                contextlib.nullcontext)):
+            with context():
+                fn()  # warm-up, or the capture
+                torch.cuda.synchronize()
+                _, wall, busy, dev_ev, by_name = trace(fn)
+            print(f"profile serve {mode} {label} {kind}: traced wall {wall / 1e3:.3f} ms, "
+                  f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall:.4f}, "
+                  f"{len(dev_ev)} device events")
+            print_top(f"profile serve {mode} {label} {kind}", by_name, busy, top)
+
+
 def profile_train(dev, mode, top=15):
     """--profile: torch.profiler around one frozen and one update train step
     (after the warm-up) of stage 1 in the given feature mode, of stage 1
@@ -1471,8 +1757,6 @@ def profile_train(dev, mode, top=15):
     import collections
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from neural_jacobian_field_torch.training import train_step
 
@@ -1487,36 +1771,13 @@ def profile_train(dev, mode, top=15):
     for kind, updated in (("frozen", False), ("update", True)):
         train_step(state, batch, g, updated)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            train_step(state, batch, g, updated)
-            torch.cuda.synchronize()
-        events = prof.events()
-        # a record_function range (the optimizer's, say) is mirrored on the
-        # device timeline under its host name; it is a span, not work
-        host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-        dev_ev = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                         and e.name not in host_names), key=lambda e: e.time_range.start)
-        check(dev_ev, "the profiler recorded no device event")
-        busy, end = 0.0, -math.inf
-        for e in dev_ev:  # union of the device intervals, in microseconds
-            s, t = e.time_range.start, e.time_range.end
-            busy += max(0.0, t - max(s, end))
-            end = max(end, t)
-        host_start = min(e.time_range.start for e in events
-                         if e.device_type == DeviceType.CPU)
-        wall = end - host_start
-        by_name = collections.defaultdict(lambda: [0.0, 0])
-        for e in dev_ev:
-            by_name[e.name][0] += e.time_range.elapsed_us()
-            by_name[e.name][1] += 1
+        prof, wall, busy, dev_ev, by_name = trace(lambda: train_step(state, batch, g, updated))
         opt_us = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages()
                      if a.key.startswith("Optimizer.step"))
         print(f"profile {mode} {kind} step: traced wall {wall / 1e3:.3f} ms, device busy "
               f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall:.4f}, {len(dev_ev)} device "
               f"events, optimizer step {opt_us / 1e3:.3f} ms of device time")
-        for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-            print(f"profile {mode} {kind}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<5d} "
-                  f"{name[:90]}")
+        print_top(f"profile {mode} {kind}", by_name, busy, top)
         # the stride-1 conv kernels (K9-fwd / K10, K9-dgrad, K9-wgrad) and
         # their ordered-sum passes; the K7 trunk kernels (forward, the
         # backward's gradient chain, weight-gradient pass and ordered sums,
@@ -1544,14 +1805,20 @@ def profile_train(dev, mode, top=15):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", nargs="?", const="epipolar",
-                        choices=MODES + ("fused", "action"),
-                        help="only profile one frozen and one update train step of the given "
-                             "feature mode, of the epipolar step under pallas_fused (fused) or "
-                             "of the stage-2 step (action) with torch.profiler, and print "
-                             "where the device time "
-                             "goes")
+    parser.add_argument("--profile", nargs="*", metavar="WHAT",
+                        help="only profile, with torch.profiler, one frozen and one update "
+                             "train step of the given feature mode (epipolar, the default, or "
+                             "exact), of the epipolar step under pallas_fused (fused) or of the "
+                             "stage-2 step (action); or, with 'serve [MODE]', one render and "
+                             "one 100-step solve, eager and captured; and print where the "
+                             "device time goes")
     args = parser.parse_args()
+    profile = args.profile
+    if profile is not None:
+        serve = profile[:1] == ["serve"]
+        what = (profile[1:] if serve else profile) or ["epipolar"]
+        if len(what) != 1 or what[0] not in (MODES if serve else MODES + ("fused", "action")):
+            parser.error(f"--profile {' '.join(profile)}: expected [serve] MODE")
     try:
         import torch
     except ImportError:
@@ -1604,8 +1871,8 @@ def main() -> int:
         print(f"SASS: {len(tma)} TMA / wgmma kernels (K9, the K7 forward and the K7 backward's "
               f"two passes) with HGMMA and UTMALDG" if sass else
               "SASS: no cuobjdump in this toolkit")
-        if args.profile:
-            profile_train(dev, args.profile)
+        if profile is not None:
+            (profile_serve if serve else profile_train)(dev, what[0])
             return 0
 
         rows = kernel_checks(dev)
@@ -1619,6 +1886,7 @@ def main() -> int:
                 dev, model, cam, robot, timings, mode)
             inverse_dynamics_phase(dev, model, cam, robot, timings, mode)
             del model
+            gc.collect()  # the model and its programs' cache refer to each other
             torch.cuda.empty_cache()
         timings["serve_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         for mode in MODES:

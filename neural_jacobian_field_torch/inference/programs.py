@@ -1,0 +1,188 @@
+"""Captured device programs: the port's counterpart of `jax.jit` for the
+serving entry points.
+
+In the JAX package each serving entry point is one compiled device program
+(`patch_render`: one jit sweeping the chunks with `lax.map`;
+`optimize_actions`: one jit over a `lax.scan`; `solve_actions_least_squares`
+and the encoders: one jit each). Here a function of CUDA tensors is captured
+once per input signature as a CUDA graph and replayed on every later call
+with that signature, so a call costs the host one graph launch instead of
+one launch per operation:
+
+- static input buffers: a call copies its inputs into them, so no address
+  baked into the graph (a kernel's pointer, a TMA tensor map) goes stale;
+- static outputs in the graph's private memory pool: a call returns copies
+  of them, or copies them into destinations the caller hands in, so a later
+  replay never overwrites a result the caller holds;
+- two warm-up calls on a side stream before the capture (the allocator,
+  cuBLAS and cuDNN handles, the kernels' once-per-process attributes);
+- launch accounting: a capture launches nothing, so the kernel wrappers'
+  counts made while capturing are taken back and added on every replay:
+  `ops.kernels.launch_counts()` counts what ran.
+
+A program is keyed by its function and static arguments (`key`), the shapes,
+dtypes and devices of its inputs, and the addresses, dtypes and shapes of
+what it reads in place: the parameters and buffers of every module in `key`
+and the `resident` tensors. Weights loaded in place (`load_state_dict`) are
+read by the next replay; weights reassigned move, and the program is
+captured again, replacing the one it supersedes. On CUDA a failed capture or
+replay raises: nothing falls back to eager execution. On the CPU, and inside
+`ProgramCache.eager()`, the entry points run the same Python eagerly.
+"""
+
+import contextlib
+import itertools
+
+import torch
+from torch import nn
+
+
+def _launch_state() -> dict:
+    from ..ops.kernels import KERNELS
+
+    return {name: (w.launches, getattr(w, "legacy_launches", 0))
+            for name, (w, *_) in KERNELS.items()}
+
+
+def _set_launches(state: dict, delta: dict | None = None) -> None:
+    """Set each kernel wrapper's counts to state (plus delta)."""
+    from ..ops.kernels import KERNELS
+
+    for name, (w, *_) in KERNELS.items():
+        n, legacy = state[name]
+        dn, dlegacy = delta[name] if delta else (0, 0)
+        w.launches = n + dn
+        if hasattr(w, "legacy_launches"):
+            w.legacy_launches = legacy + dlegacy
+
+
+class CudaGraphs:
+    """The capture backend: a CUDA graph per program, in a private pool."""
+
+    @staticmethod
+    def captures(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    @staticmethod
+    def warm_up(fn, inputs) -> None:
+        current = torch.cuda.current_stream(inputs[0].device)
+        side = torch.cuda.Stream(inputs[0].device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn(*inputs)
+        current.wait_stream(side)
+
+    @staticmethod
+    def capture(fn, inputs):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = fn(*inputs)
+        return graph, outputs
+
+    @staticmethod
+    def replay(graph) -> None:
+        graph.replay()
+
+
+class CapturedProgram:
+    """fn(*inputs) captured once by `backend` for inputs shaped like
+    `inputs`. fn returns a tuple: its tensors become the static outputs, any
+    other element is returned as it was at capture."""
+
+    def __init__(self, fn, inputs, backend):
+        self.backend = backend
+        self.inputs = tuple(t.detach().clone(memory_format=torch.contiguous_format)
+                            for t in inputs)
+        backend.warm_up(fn, self.inputs)
+        before = _launch_state()
+        try:
+            self._graph, outputs = backend.capture(fn, self.inputs)
+        finally:
+            after = _launch_state()
+            _set_launches(before)
+        self.launches = {name: (after[name][0] - n, after[name][1] - legacy)
+                         for name, (n, legacy) in before.items()}
+        self.outputs = tuple(outputs)
+
+    @torch.no_grad()
+    def replay(self, *inputs):
+        """Copy the inputs into the static buffers (None keeps a buffer as it
+        is), replay, count the launches; returns the static outputs, which
+        the next replay overwrites. Nothing is recorded for autograd."""
+        for buf, t in zip(self.inputs, inputs):
+            if t is not None and t is not buf:
+                buf.copy_(t)
+        self.backend.replay(self._graph)
+        _set_launches(_launch_state(), self.launches)
+        return self.outputs
+
+    @torch.no_grad()
+    def __call__(self, *inputs, out=None):
+        """Replay; returns copies of the outputs, or copies them into `out`
+        (one destination per output) and returns it."""
+        outputs = self.replay(*inputs)
+        if out is None:
+            return tuple(o.clone() if isinstance(o, torch.Tensor) else o for o in outputs)
+        for dst, o in zip(out, outputs):
+            dst.copy_(o)
+        return out
+
+
+def _resident(key, tensors) -> tuple:
+    """Address, dtype and shape of every tensor a program reads in place:
+    the parameters and buffers of the modules in `key`, then `tensors`."""
+    modules = [m for m in key if isinstance(m, nn.Module)]
+    params = itertools.chain.from_iterable(
+        itertools.chain(m.parameters(), m.buffers()) for m in modules)
+    return tuple((t.data_ptr(), t.dtype, tuple(t.shape))
+                 for t in itertools.chain(params, tensors))
+
+
+class ProgramCache:
+    """A model's captured programs, one per (key, input signature)."""
+
+    def __init__(self, backend=None):
+        self.backend = CudaGraphs() if backend is None else backend
+        self.enabled = True
+        self._programs = {}  # (key, signature) -> (resident signature, program)
+
+    def captures(self, t: torch.Tensor) -> bool:
+        """Whether a call on t's device runs as a captured program."""
+        return self.enabled and self.backend.captures(t.device)
+
+    @contextlib.contextmanager
+    def eager(self):
+        """Run the entry points eagerly on every device inside the block (the
+        reference the captured programs are held against)."""
+        enabled, self.enabled = self.enabled, False
+        try:
+            yield
+        finally:
+            self.enabled = enabled
+
+    def get(self, key: tuple, inputs, fn, resident=()) -> CapturedProgram:
+        """The program of `key` for inputs like `inputs`; fn (called as
+        fn(*inputs)) is captured only where no program matches."""
+        sig = (key, tuple((tuple(t.shape), t.dtype, t.device) for t in inputs))
+        res = _resident(key, resident)
+        entry = self._programs.get(sig)
+        if entry is None or entry[0] != res:
+            self._programs.pop(sig, None)  # free the superseded program's pool first
+            entry = (res, CapturedProgram(fn, inputs, self.backend))
+            self._programs[sig] = entry
+        return entry[1]
+
+    def run(self, key: tuple, inputs, fn, resident=()):
+        """fn(*inputs): replayed from its program (copies of the outputs)
+        where this cache captures inputs[0]'s device, else run eagerly."""
+        if self.captures(inputs[0]):
+            return self.get(key, inputs, fn, resident)(*inputs)
+        return fn(*inputs)
+
+    def __len__(self) -> int:
+        return len(self._programs)
+
+    def __iter__(self):
+        """The programs held."""
+        return (program for _, program in self._programs.values())

@@ -1,16 +1,26 @@
 """Whole-image chunked rendering (PyTorch counterpart of inference/render.py).
 
 The context image is encoded once; the target camera's rays are then
-rendered in fixed-size chunks (2048 rays by default) in a Python loop, which
-bounds memory the way the JAX package's lax.map does. Everything runs under
+rendered in fixed-size chunks (2048 rays by default), which bounds memory
+the way the JAX package's lax.map does. Everything runs under
 torch.no_grad(): serving takes no gradient.
+
+On the card `patch_render` is two captured programs (inference/programs.py),
+the counterpart of JAX's one jit: the encoder, replayed once per render into
+its static outputs, and one chunk (`_render_chunk`: ray bundle, features,
+proposal, decoder, compositing), which reads those outputs in place and is
+replayed per chunk: copy the chunk's rays in, replay, copy its eight outputs
+into slices of the full-image outputs. On the CPU the same Python runs
+eagerly.
 """
 
 from dataclasses import dataclass
 
 import torch
 
+from ..models.decoders import PixelEncoding
 from ..models.model import CameraInput, Model, RenderingInput, RobotInput
+from ..ops.pixel_gather import features_from_fields
 from ..rendering.geometry import get_pixel_coordinates, get_world_rays
 
 
@@ -35,6 +45,21 @@ def camera_rays(height: int, width: int, intrinsics: torch.Tensor,
     return get_world_rays(coords, intrinsics, cam2world)
 
 
+def _render_chunk(model: Model, features, ctxt_extrinsics, ctxt_intrinsics, trgt_extrinsics,
+                  trgt_intrinsics, action, z_near, z_far, origins, directions) -> tuple:
+    """One chunk of rays [B, P, 3] from the encoded context `features`: the
+    eight outputs of RenderingOutput, each [B, P, ...]."""
+    cam = CameraInput(input_image=None, ctxt_extrinsics=ctxt_extrinsics,
+                      ctxt_intrinsics=ctxt_intrinsics, trgt_extrinsics=trgt_extrinsics,
+                      trgt_intrinsics=trgt_intrinsics)
+    encoding = PixelEncoding(features=features, extrinsics=ctxt_extrinsics,
+                             intrinsics=ctxt_intrinsics, action=action)
+    ray_bundle = model.compute_ray_bundle(RenderingInput(origins, directions, z_near, z_far))
+    out = model.render_rays(encoding, ray_bundle, cam, compute_vis_features=True)
+    return (out.rgb, out.depth, out.optical_flow, out.action_features, out.ray_positions,
+            out.ray_positions_warped, out.weights, out.steps)
+
+
 @torch.no_grad()
 def patch_render(model: Model, camera_input: CameraInput, rendering_input: RenderingInput,
                  robot_input: RobotInput, patch_size: int = 2048,
@@ -46,25 +71,37 @@ def patch_render(model: Model, camera_input: CameraInput, rendering_input: Rende
     if num_rays % patch_size:
         raise ValueError("pad rays to a multiple of patch_size")
     b = rendering_input.origins.shape[0]
-    pixel_encoding = model.compute_pixel_encoding(camera_input, robot_input)
-    parts = []
-    for start in range(0, num_rays, patch_size):
-        ri = RenderingInput(origins=rendering_input.origins[:, start:start + patch_size],
-                            directions=rendering_input.directions[:, start:start + patch_size],
-                            z_near=rendering_input.z_near, z_far=rendering_input.z_far)
-        out = model.render_rays(pixel_encoding, model.compute_ray_bundle(ri), camera_input,
-                                compute_vis_features=True)
-        parts.append((out.rgb, out.depth, out.optical_flow, out.action_features,
-                      out.ray_positions, out.ray_positions_warped, out.weights, out.steps))
+    image = camera_input.input_image
+    # per render: the cameras, the action, the depth range; per chunk: the rays
+    per_render = (camera_input.ctxt_extrinsics, camera_input.ctxt_intrinsics,
+                  camera_input.trgt_extrinsics, camera_input.trgt_intrinsics,
+                  robot_input.robot_action, rendering_input.z_near, rendering_input.z_far)
+    starts = range(0, num_rays, patch_size)
+    rays = [(rendering_input.origins[:, s:s + patch_size],
+             rendering_input.directions[:, s:s + patch_size]) for s in starts]
+    if model.programs.captures(image):
+        # the encoder's static outputs, read in place by the chunk program
+        fields = model.features_program(image).replay(image)
+        features = features_from_fields(fields)
+        chunk = model.programs.get(
+            (_render_chunk, model), per_render + rays[0],
+            lambda *xs: _render_chunk(model, features, *xs),
+            resident=[t for t in fields if isinstance(t, torch.Tensor)])
+        outs = [o.new_empty((b, num_rays, *o.shape[2:])) for o in chunk.outputs]
+        keep = (None,) * len(per_render)  # already in the static buffers
+        for i, (s, chunk_rays) in enumerate(zip(starts, rays)):
+            chunk(*(keep if i else per_render), *chunk_rays,
+                  out=[o[:, s:s + patch_size] for o in outs])
+    else:
+        features = model.compute_pixel_encoding(camera_input, robot_input).features
+        parts = [_render_chunk(model, features, *per_render, *chunk_rays) for chunk_rays in rays]
+        outs = [torch.cat(xs, dim=1) for xs in zip(*parts)]
 
-    def unchunk(xs):
-        x = torch.cat(xs, dim=1)[:, :render_height * render_width]
+    def unchunk(x):
+        x = x[:, :render_height * render_width]
         return x.reshape(b, render_height, render_width, *x.shape[2:])
 
-    rgb, depth, flow, feats, pos, pos_warped, weights, steps = map(unchunk, zip(*parts))
-    return RenderingOutput(rgb=rgb, depth_raw=depth, flow_raw=flow, action_features=feats,
-                           ray_positions=pos, ray_positions_warped=pos_warped,
-                           weights=weights, steps=steps)
+    return RenderingOutput(*map(unchunk, outs))
 
 
 def render_camera(model: Model, camera_input: CameraInput, robot_input: RobotInput,
@@ -75,9 +112,10 @@ def render_camera(model: Model, camera_input: CameraInput, robot_input: RobotInp
     cam2world = camera_input.trgt_extrinsics
     b = cam2world.shape[0]
     intr = camera_input.trgt_intrinsics
-    norm = torch.tensor([[1.0 / width, 1.0, 1.0 / width],
-                         [1.0, 1.0 / height, 1.0 / height],
-                         [1.0, 1.0, 1.0]], dtype=intr.dtype, device=intr.device)
+    # filled on the device (a host tensor copied over would wait for the stream)
+    norm = torch.ones((3, 3), dtype=intr.dtype, device=intr.device)
+    norm[0, 0::2].fill_(1.0 / width)
+    norm[1, 1:].fill_(1.0 / height)
     intr_n = torch.where(intr[:, 0:1, 0:1] > 2.0, intr * norm, intr)
     origins, directions = camera_rays(height, width, intr_n, cam2world)
     pad = (-origins.shape[1]) % patch_size
@@ -86,7 +124,9 @@ def render_camera(model: Model, camera_input: CameraInput, robot_input: RobotInp
         directions = torch.cat([directions, directions[:, :pad]], dim=1)
 
     def per_camera(v):
-        return torch.as_tensor(v, dtype=origins.dtype, device=origins.device).expand(b)
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype=origins.dtype, device=origins.device).expand(b)
+        return torch.full((b,), float(v), dtype=origins.dtype, device=origins.device)
 
     ri = RenderingInput(origins=origins, directions=directions,
                         z_near=per_camera(z_near), z_far=per_camera(z_far))

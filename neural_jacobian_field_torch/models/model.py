@@ -17,7 +17,9 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..ops.pixel_gather import FeaturePyramid, PackedPyramid, pack_pyramid
+from ..inference.programs import ProgramCache
+from ..ops.pixel_gather import (
+    FeaturePyramid, PackedPyramid, feature_fields, features_from_fields, pack_pyramid)
 from ..rendering.geometry import project_world_coords_to_camera
 from ..rendering.samplers import (
     ProposalSamplerCfg, RayBundle, proposal_anneal, proposal_sample, sdist_edges,
@@ -214,6 +216,8 @@ class Model(nn.Module):
             single_jitter=cfg.rendering.single_jitter,
             initial_spacing="uniform",
             use_pallas_pdf=cfg.rendering.use_pallas_pdf)
+        # the serving entry points' captured programs (inference/programs.py)
+        self.programs = ProgramCache()
 
     @property
     def proposal_networks(self):
@@ -239,16 +243,32 @@ class Model(nn.Module):
                          nears=ones * rendering_input.z_near[:, None, None],
                          fars=ones * rendering_input.z_far[:, None, None])
 
-    def compute_pixel_encoding(self, camera_input: CameraInput,
-                               robot_input: RobotInput, train: bool = False) -> PixelEncoding:
-        """Encode the context image (the encoder in training mode with
+    def encode_features(self, image: torch.Tensor, train: bool = False):
+        """The context image's features (the encoder in training mode with
         `train`); in the pyramid layout the levels are packed here (K6) for
         the knot gathers."""
-        features = self.encoder(camera_input.input_image, train)
+        features = self.encoder(image, train)
         if self.compute_dtype is not None:
             features = features.to(self.compute_dtype)
         if isinstance(features, FeaturePyramid):
             features = pack_pyramid(features)
+        return features
+
+    def features_program(self, image: torch.Tensor):
+        """The serving encoder (`encode_features`) as a captured program for
+        images like `image`; its outputs are the features' `feature_fields`."""
+        return self.programs.get((Model.encode_features, self), (image,),
+                                 lambda x: feature_fields(self.encode_features(x)))
+
+    def compute_pixel_encoding(self, camera_input: CameraInput,
+                               robot_input: RobotInput, train: bool = False) -> PixelEncoding:
+        """Encode the context image (`encode_features`). Served (no `train`,
+        no gradient) on the card, the encoder runs as a captured program."""
+        image = camera_input.input_image
+        if not train and not torch.is_grad_enabled() and self.programs.captures(image):
+            features = features_from_fields(self.features_program(image)(image))
+        else:
+            features = self.encode_features(image, train)
         return PixelEncoding(features=features, extrinsics=camera_input.ctxt_extrinsics,
                              intrinsics=camera_input.ctxt_intrinsics,
                              action=robot_input.robot_action)
@@ -355,18 +375,28 @@ class Model(nn.Module):
     @torch.no_grad()
     def encode_image(self, camera_input: CameraInput, rendering_input: RenderingInput,
                      robot_input: RobotInput) -> ModelInferenceEncoding:
-        """Evaluate density + Jacobian once for inverse dynamics. No gradient:
-        the solvers differentiate only the action, downstream of this, so the
-        kernels' autograd Functions save nothing here."""
+        """Evaluate density + Jacobian once for inverse dynamics (one captured
+        program on the card). No gradient: the solvers differentiate only the
+        action, downstream of this, so the kernels' autograd Functions save
+        nothing here."""
         self._check_feature_mode()
-        ray_bundle = self.compute_ray_bundle(rendering_input)
-        pixel_encoding = self.compute_pixel_encoding(camera_input, robot_input)
+        inputs = (camera_input.input_image, camera_input.ctxt_extrinsics,
+                  camera_input.ctxt_intrinsics, robot_input.robot_action,
+                  rendering_input.origins, rendering_input.directions,
+                  rendering_input.z_near, rendering_input.z_far)
+        return ModelInferenceEncoding(*self.programs.run(
+            (Model._encode_image, self), inputs, self._encode_image))
+
+    def _encode_image(self, image, ctxt_extrinsics, ctxt_intrinsics, action, origins,
+                      directions, z_near, z_far):
+        ray_bundle = self.compute_ray_bundle(RenderingInput(origins, directions, z_near, z_far))
+        pixel_encoding = PixelEncoding(features=self.encode_features(image),
+                                       extrinsics=ctxt_extrinsics,
+                                       intrinsics=ctxt_intrinsics, action=action)
         pixel_encoding = self.attach_ray_features(pixel_encoding, ray_bundle)
         ray_samples, positions, _, _, _ = self.compute_proposal(ray_bundle, pixel_encoding)
         density, action_features = self.decoder.encode_image(positions, pixel_encoding)
-        return ModelInferenceEncoding(density=density, action_features=action_features,
-                                      weights=ray_samples.get_weights(density),
-                                      ray_samples_positions=positions)
+        return density, action_features, ray_samples.get_weights(density), positions
 
     def infer_optical_flow(self, encoding: ModelInferenceEncoding,
                            camera_input: CameraInput,

@@ -43,8 +43,11 @@ def _clip_segment(p0: torch.Tensor, p1: torch.Tensor, width: float, height: floa
     """Liang-Barsky clip of 2D segments to the padded image box [-1, W] x
     [-1, H]. Degenerate or fully-outside segments keep (p0, p1)."""
     d = p1 - p0
-    lo = torch.tensor([-1.0, -1.0], dtype=p0.dtype, device=p0.device)
-    hi = torch.tensor([width + 0.0, height + 0.0], dtype=p0.dtype, device=p0.device)
+    # filled on the device: a host tensor copied over would wait for the
+    # stream (and cannot be captured in a CUDA graph)
+    lo = p0.new_full((2,), -1.0)
+    hi = p0.new_full((2,), width + 0.0)
+    hi[1:].fill_(height + 0.0)
     parallel = torch.abs(d) < 1e-9
     safe_d = torch.where(parallel, torch.full_like(d, 1e-9), d)
     ta = (lo - p0) / safe_d

@@ -23,6 +23,7 @@ it for the forward and the backward alike.
 import torch
 
 from .build import check_cuda_tensor, dispatch, load_kernels, stream_of
+from .conv_suite import _on_device
 
 
 def pack_2x2_flat_plain(level: torch.Tensor) -> torch.Tensor:
@@ -67,7 +68,7 @@ def _pack_2x2_flat_cuda(level: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = load_kernels()
-    with torch.cuda.device(level.device):
+    with _on_device(level):
         pack_2x2_flat.launches += 1
         lib.call("njf_pack2x2_fwd", level.data_ptr(), out.data_ptr(), b, h, w,
                  c * level.element_size(), stream_of(level))
@@ -96,7 +97,7 @@ def _pack_2x2_flat_bwd_cuda(g: torch.Tensor, h: int) -> torch.Tensor:
     if d.numel() == 0:
         return d
     lib = load_kernels()
-    with torch.cuda.device(g.device):
+    with _on_device(g):
         pack_2x2_flat_bwd.launches += 1
         lib.call("njf_pack2x2_bwd", g.data_ptr(), d.data_ptr(), b, h, w, c,
                  _BWD_DTYPES[g.dtype], stream_of(g))

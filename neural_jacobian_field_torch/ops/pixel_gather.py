@@ -89,6 +89,20 @@ class PackedPyramid:
     mid_hw: Tuple[int, int]
 
 
+def feature_fields(features) -> tuple:
+    """Context features as a flat tuple (the encoder program's outputs,
+    inference/programs.py): a PackedPyramid's fields in order, or the one
+    map of the concat layout."""
+    if isinstance(features, PackedPyramid):
+        return features.fine2, features.mid2, features.coarse, features.fine_hw, features.mid_hw
+    return (features,)
+
+
+def features_from_fields(fields: tuple):
+    """The inverse of feature_fields."""
+    return PackedPyramid(*fields) if len(fields) > 1 else fields[0]
+
+
 def pack_pyramid(pyr: FeaturePyramid) -> PackedPyramid:
     """Pack the fine and mid levels through K6 (once per encoded image)."""
     from .kernels.pack2x2 import pack_2x2_flat_train

@@ -26,9 +26,16 @@ def transform_rigid(homogeneous_xyz: torch.Tensor,
     return torch.einsum("...ij,...j->...i", transformation, homogeneous_xyz)
 
 
+def inverse(a: torch.Tensor) -> torch.Tensor:
+    """Matrix inverse that, like jnp.linalg.inv, does not check for a singular
+    matrix (torch.linalg.inv's check reads a flag back on the host: a stream
+    sync, and an error inside a CUDA graph capture)."""
+    return torch.linalg.inv_ex(a).inverse
+
+
 def transform_world2cam(homogeneous_world_xyz: torch.Tensor,
                         cam2world: torch.Tensor) -> torch.Tensor:
-    return transform_rigid(homogeneous_world_xyz, torch.linalg.inv(cam2world))
+    return transform_rigid(homogeneous_world_xyz, inverse(cam2world))
 
 
 def transform_cam2world(homogeneous_cam_xyz: torch.Tensor,
@@ -41,7 +48,7 @@ def unproject(coordinates_xy: torch.Tensor, z: torch.Tensor,
     """Unproject normalized 2D coords at depth z. coordinates_xy [B, N, 2];
     z [B, N]; intrinsics [B, 3, 3]."""
     coords_h = homogenize_points(coordinates_xy)
-    k_inv = torch.linalg.inv(intrinsics)
+    k_inv = inverse(intrinsics)
     coords_xyz = torch.einsum("bij,bnj->bni", k_inv, coords_h)
     return coords_xyz * z[..., None]
 

@@ -11,7 +11,10 @@ and K10 (C or Cout not a multiple of 8), K6's narrow copy units, K7-tz at
 every d_hidden / d_out instantiation, and ragged tile edges. Each backward kernel
 is held against its plain version, each autograd.Function against plain
 autograd, and a CUDA output must carry a grad_fn (a kernel wrapper that cut
-the graph would train nothing and raise no error).
+the graph would train nothing and raise no error). The serving entry points'
+CUDA graphs (inference/programs.py; `-k serving`) are held against eager
+execution bit for bit, on new inputs and reloaded weights, and are captured
+with CUDA's sync debug mode raising.
 """
 
 import math
@@ -1027,3 +1030,153 @@ def test_k7_bwd_legacy_counter_moves_only_off_the_plan(dev, monkeypatch, proj, d
     assert _leaf_err(grads, lgrads, _rel) <= 1e-4
     for a, b in zip(_seq(dlat), _seq(ldlat)):
         assert _l2(a, b) <= 1e-3
+
+
+# ---------------------------------- the serving entry points as CUDA graphs
+
+def _serving_model(dev, mode):
+    """A small bf16 flagship-shaped model (ResNet-34 at full width, trunks of
+    2 x 128 so that K7 runs its wgmma kernels, 16 + 16 samples) in the given
+    feature mode, seeded weights with the Jacobian head at the density
+    head's scale."""
+    from dataclasses import replace
+
+    from neural_jacobian_field_torch.models.decoders import ActionDecoderJacobianMlpCfg
+    from neural_jacobian_field_torch.models.decoders import DensityDecoderMlpCfg
+    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
+
+    mlp = MlpCfg(n_blocks=2, d_hidden=128, combine_layer=3)
+    cfg = flagship_model_cfg(pixel_feature_mode=mode, num_proposal_samples=(16,),
+                             num_nerf_samples=16, epipolar_knots=(16, 8, 4))
+    cfg = replace(cfg, density_decoder=DensityDecoderMlpCfg(mlp=mlp),
+                  action_decoder=ActionDecoderJacobianMlpCfg(mlp=mlp))
+    g = torch.Generator().manual_seed(0)
+    model = Model(cfg, compute_dtype=torch.bfloat16).init_weights(g)
+    head = model.decoder.jacobian_head
+    head.near_zero_init = False
+    head.init_weights(g)
+    return model.to(dev).eval()
+
+
+def _serving_scene(dev, seed=0, deg=10.0, rays=96):
+    from neural_jacobian_field_torch.inference.render import camera_rays
+    from neural_jacobian_field_torch.models.model import CameraInput, RenderingInput, RobotInput
+
+    g = _gen(seed)
+    t = math.radians(deg)
+    trgt = torch.eye(4, device=dev)
+    trgt[0, 0], trgt[0, 2], trgt[2, 0], trgt[2, 2] = math.cos(t), math.sin(t), -math.sin(t), \
+        math.cos(t)
+    trgt[:3, 3] = torch.tensor([0.0, 0.0, 2.0], device=dev) - trgt[:3, :3] @ torch.tensor(
+        [0.0, 0.0, 2.0], device=dev)
+    intr = torch.tensor([[[1.2, 0.0, 0.5], [0.0, 1.6, 0.5], [0.0, 0.0, 1.0]]], device=dev)
+    cam = CameraInput(input_image=torch.rand((1, 64, 96, 3), generator=g, device=dev),
+                      ctxt_extrinsics=torch.eye(4, device=dev)[None], ctxt_intrinsics=intr,
+                      trgt_extrinsics=trgt[None], trgt_intrinsics=intr)
+    origins, dirs = camera_rays(8, 12, intr, trgt[None])
+    ri = RenderingInput(origins=origins[:, :rays], directions=dirs[:, :rays],
+                        z_near=torch.full((1,), 0.5, device=dev),
+                        z_far=torch.full((1,), 4.0, device=dev))
+    robot = RobotInput(0.1 * torch.randn((1, 8), generator=g, device=dev))
+    return cam, ri, robot
+
+
+def _serve(model, cam, ri, robot):
+    """Every serving entry point once: render, encoder, encode_image, the
+    Adam solve and the least-squares solve; all outputs, flat."""
+    from neural_jacobian_field_torch.inference.action_opt import (
+        optimize_actions, solve_actions_least_squares)
+    from neural_jacobian_field_torch.inference.render import render_camera
+    from neural_jacobian_field_torch.models.model import RobotInput
+
+    out = list(vars(render_camera(model, cam, robot, 0.5, 4.0, 8, 12, patch_size=32)).values())
+    with torch.no_grad():
+        pe = model.compute_pixel_encoding(cam, robot)
+    out += [pe.features.fine2, pe.features.mid2, pe.features.coarse]
+    enc = model.encode_image(cam, ri, robot)
+    out += [enc.density, enc.action_features, enc.weights, enc.ray_samples_positions]
+    with torch.no_grad():
+        target = model.infer_optical_flow(enc, cam, RobotInput(0.2 * robot.robot_action))
+    a0 = torch.full((1, 8), 1e-3, device=cam.input_image.device)
+    out += list(optimize_actions(model, enc, cam, target, action0=a0, num_iters=20))
+    out.append(solve_actions_least_squares(model, enc, cam, target))
+    return out
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("mode", ["epipolar", "exact"])
+def test_captured_serving_is_eager_serving(dev, mode):
+    """Render (3 chunks), encoder, encode_image and both solvers through their
+    five CUDA graphs (the render's encoder is compute_pixel_encoding's) equal the eager calls bit for bit (the same kernels on the
+    same inputs in the same order), repeat bit for bit, and count the
+    launches the eager calls count."""
+    model = _serving_model(dev, mode)
+    cam, ri, robot = _serving_scene(dev)
+    with model.programs.eager():
+        K.reset_launch_counts()
+        want = _serve(model, cam, ri, robot)
+        eager_counts = K.launch_counts()
+    assert len(model.programs) == 0
+    _serve(model, cam, ri, robot)  # captures every program
+    assert len(model.programs) == 5
+    K.reset_launch_counts()
+    got = _serve(model, cam, ri, robot)
+    assert K.launch_counts() == eager_counts
+    _same_bits(got, want)
+    _same_bits(_serve(model, cam, ri, robot), got)
+
+
+@pytest.mark.parametrize("mode", ["epipolar", "exact"])
+def test_captured_serving_follows_new_inputs_and_weights(dev, mode):
+    """Replays on a new image, a shifted camera and a new action; then on
+    weights loaded in place (the same programs) and on weights reassigned
+    (captured again): each equal to the eager calls on the same inputs."""
+    model = _serving_model(dev, mode)
+    _serve(model, *_serving_scene(dev))
+    programs = list(model.programs)
+    scene = _serving_scene(dev, seed=1, deg=14.0)
+    got = _serve(model, *scene)
+    with model.programs.eager():
+        _same_bits(got, _serve(model, *scene))
+    other = _serving_model(dev, mode)
+    with torch.no_grad():
+        for p in other.parameters():
+            p.mul_(1.1)
+    model.load_state_dict(other.state_dict())  # in place
+    got = _serve(model, *scene)
+    assert list(model.programs) == programs
+    with model.programs.eager():
+        _same_bits(got, _serve(model, *scene))
+    model.load_state_dict({k: v.clone() for k, v in other.state_dict().items()},
+                          assign=True)  # reassigned
+    got = _serve(model, *scene)
+    assert len(model.programs) == 5
+    assert not any(p in programs for p in model.programs)
+    with model.programs.eager():
+        _same_bits(got, _serve(model, *scene))
+
+
+@pytest.mark.parametrize("mode", ["epipolar", "exact"])
+def test_serving_capture_waits_on_no_host_sync(dev, mode):
+    """Every program is captured, and replayed, with CUDA's sync debug mode
+    raising on any operation that would wait for the device."""
+    model = _serving_model(dev, mode)
+    scene = _serving_scene(dev)
+    _serve(model, *scene)  # the kernels built and loaded, cuBLAS initialised
+    model.programs = type(model.programs)()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            out = _serve(model, *scene)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(model.programs) == 5
+    assert all(bool(torch.isfinite(t.float()).all()) for t in out)
+
