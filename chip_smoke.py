@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                   # every check below
     python3 chip_smoke.py --profile [MODE]  # only: where a train step's device
-                                            # time goes (MODE epipolar, exact,
-                                            # fused or action)
+                                            # time goes, eager and captured
+                                            # (MODE epipolar, exact, fused or
+                                            # action)
     python3 chip_smoke.py --profile serve [MODE]  # only: one render and one
                                             # 100-step solve, eager and
                                             # captured (MODE epipolar or exact)
@@ -63,22 +64,40 @@ K7 trunks that project the latent themselves):
      encode_image, a model-realisable target flow, 100 Adam steps, and the
      least-squares solve; the solvers' replays follow a new target flow;
   5. training, per mode: the stage-1 train step at batch 7 x 256 rays with
-     480x640 context images (bf16, forward + backward + Adam): launch counts
-     of an update step and of a frozen step (counters reset before each),
-     non-zero gradients on every encoder, density-head, colour-head and
-     proposal parameter, update / frozen step times and the rays/s of one
-     5-frozen + 1-update cycle, peak memory, a loss that falls over 20 steps
-     on one batch, and one step's parameter gradients with the kernels
-     against the plain versions; then the same in epipolar mode with
-     conv_impl="pallas_fused" (K10 in place of K9-fwd; lines "train fused");
+     480x640 context images (bf16, forward + backward + Adam), eager
+     (train_step): launch counts of an update step and of a frozen step
+     (counters reset before each; two trunks forward, the Jacobian trunk
+     does not run in stage 1), non-zero gradients on every encoder,
+     density-head, colour-head and proposal parameter, update / frozen step
+     times and the rays/s of one 5-frozen + 1-update cycle, peak memory, one
+     step's parameter gradients with the kernels against the plain
+     versions; then the steps as CUDA graphs (training/train.py:
+     make_train_step, make_multi_train_step), from the eager state loaded
+     into a fresh model: three steps (update, frozen, frozen) captured
+     against the same three steps run eagerly five times (metrics,
+     parameters, BatchNorm statistics, Adam's state: equal bit for bit
+     wherever the eager runs are; elsewhere, where a backward op sums with
+     atomics, the captured tensor's l2 distance to the nearest eager run
+     over the eager runs' spread at most 10, its median over the tensors at
+     most 1, and the ops with atomic sums on a step named), launch counts
+     through replay, replayed
+     update / frozen step times, the cycle as six replays and as one 6-step
+     program (rays/s), the cycle's peak memory against the eager steps'
+     (bound 1.3x), 30 steps through MultiStepDispatch past a short warm-up,
+     and a loss that falls over 20 captured steps on one batch; then the
+     same in epipolar mode with conv_impl="pallas_fused" (K10 in place of
+     K9-fwd; lines "train fused");
   6. stage 2 (action), warm-started from that stage-1 model under
      pallas_fused: flow supervision at batch 7 x 256 rays in both modes and
      tracks at 7 x 1472 in epipolar mode (lines "action epipolar|exact",
      "action tracks"): launch counts per step, the Jacobian head's gradients
-     with the kernels against the plain versions, a loss that falls from
-     its early peak on a fixed batch at lr 1e-4, step times, rays/s and
-     peak memory, every parameter outside decoder.jacobian_head bit for bit
-     unchanged and the BatchNorm running statistics moved;
+     with the kernels against the plain versions, eager step times, rays/s
+     and peak memory; then captured as in 5 (three steps against five
+     eager runs, counts through replay, replayed step times and peak
+     memory), a
+     loss that falls from its early peak over 20 captured steps on a fixed
+     batch at lr 1e-4, every parameter outside decoder.jacobian_head bit for
+     bit unchanged and the BatchNorm running statistics moved;
   7. timings and peak memory.
 Every main path also checks that no K9 wrapper went to its legacy kernel
 (C or Cout not a multiple of 8), and no K7 wrapper to its legacy WMMA
@@ -1366,7 +1385,8 @@ def step_grads(state, batch, yx, draws, updated):
     model, cfg = state.model, state.cfg
     mi, mt = prepare_training_batch(batch, cfg.rays_per_batch, yx=yx, mode=cfg.mode)
     model.zero_grad(set_to_none=True)
-    out = model(mi, train=True, ctx=StepCtx(anneal=1.0, updated=updated, draws=draws))
+    out = model(mi, train=True, ctx=StepCtx(anneal=1.0, updated=updated, draws=draws,
+                                            render_flow=cfg.mode == "action"))
     loss_fn = perception_loss if cfg.mode == "perception" else action_loss
     loss, _ = loss_fn(out, mt, cfg.loss)
     loss.backward()
@@ -1418,19 +1438,28 @@ def compare_grads(label, state, batch, yx, draws, groups):
     return sorted(kg)
 
 
-def train_setup(dev, mode, conv_impl="pallas"):
-    """The flagship model with seeded weights, its train state, a batch and a
-    generator, warmed up on both gates (allocator, cuBLAS)."""
+def new_train_state(dev, mode, conv_impl="pallas"):
+    """The flagship model with seeded weights and its stage-1 train state."""
     import torch
 
     from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
-    from neural_jacobian_field_torch.training import TrainCfg, create_train_state, train_step
+    from neural_jacobian_field_torch.training import TrainCfg, create_train_state
 
     model = Model(flagship_model_cfg(conv_impl=conv_impl, pixel_feature_mode=mode),
                   compute_dtype=torch.bfloat16)
     model.init_weights(torch.Generator().manual_seed(SEED)).to(dev)
     cfg = TrainCfg(lr=TRAIN_LR, warm_up_steps=TRAIN_WARMUP, rays_per_batch=TRAIN_RAYS)
-    state = create_train_state(model, cfg)
+    return model, create_train_state(model, cfg)
+
+
+def train_setup(dev, mode, conv_impl="pallas"):
+    """The flagship model with seeded weights, its train state, a batch and a
+    generator, warmed up on both gates (allocator, cuBLAS)."""
+    import torch
+
+    from neural_jacobian_field_torch.training import train_step
+
+    model, state = new_train_state(dev, mode, conv_impl)
     batch = train_batch(dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     for updated in (True, True, False, False):
@@ -1439,14 +1468,272 @@ def train_setup(dev, mode, conv_impl="pallas"):
     return model, state, batch, g
 
 
+def to_cpu(x):
+    """A copy of x with every tensor in it on the host."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_cpu(v) for v in x)
+    return x
+
+
+def snapshot(state) -> dict:
+    """The train state on the host: weights, BatchNorm statistics, Adam's
+    state and the host's counters."""
+    return dict(model=to_cpu(state.model.state_dict()),
+                opt=to_cpu(state.optimizer.state_dict()),
+                counters=(state.step, state.steps_since_update))
+
+
+def restore(state, snap) -> None:
+    """Load a snapshot into the state in place."""
+    state.model.load_state_dict(snap["model"])
+    state.optimizer.load_state_dict(snap["opt"])
+    state.step, state.steps_since_update = snap["counters"]
+
+
+def state_record(state):
+    """(names, host copies) of what a train step updates: the parameters,
+    the BatchNorm statistics, Adam's count and moments."""
+    opt = state.optimizer
+    named = [(n, p.detach()) for n, p in state.model.named_parameters()]
+    named += list(state.model.named_buffers())
+    pname = {id(p): n for n, p in state.model.named_parameters()}
+    count, *moments = opt.state_tensors()
+    named.append(("adam count", count))
+    named += [(f"adam {k} {pname[id(p)]}", t) for (p, k), t in zip(
+        ((p, k) for p in opt.params() for k in ("exp_avg", "exp_avg_sq")), moments)]
+    return [n for n, _ in named], [t.cpu().clone() for _, t in named]
+
+
+def run_steps(state, batch, plan):
+    """The plan's steps, [(gate, yx, draws)], through make_train_step (CUDA
+    graphs, unless inside model.programs.eager()); returns (names, host
+    copies) of each step's metrics, then of `state_record`."""
+    import torch
+
+    from neural_jacobian_field_torch.training import make_train_step
+
+    names, out = [], []
+    for i, (gate, yx, draws) in enumerate(plan):
+        metrics = make_train_step(state.model, state.cfg, static_updated=gate)(
+            state, batch, yx=yx, draws=draws)
+        names += [f"step {i} {k}" for k in metrics]
+        out += [v.cpu() for v in metrics.values()]
+    torch.cuda.synchronize()
+    rec_names, rec = state_record(state)
+    return names + rec_names, out + rec
+
+
+# aten ops that CUDA implements with atomic adds, so that their sums come in
+# another order from run to run (cuDNN's convolution_backward depending on
+# the algorithm it picks)
+ATOMIC_OPS = ("scatter_add", "index_add", "index_put", "_index_put_impl", "put",
+              "max_pool2d_with_indices_backward", "upsample_bilinear2d_backward",
+              "grid_sampler_2d_backward", "embedding_dense_backward", "convolution_backward")
+
+
+def ops_with_atomics(fn) -> list:
+    """The ATOMIC_OPS that fn() runs, forward and backward (a dispatch mode
+    that records every aten op)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.add(func.overloadpacket.__name__.rstrip("_"))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return sorted(seen & {op.rstrip("_") for op in ATOMIC_OPS})
+
+
+def eager_runs(state, batch, plan, runs=5):
+    """The plan's steps eagerly, `runs` times from the state as it is; the
+    state is left as it was. Returns (names, the runs' host copies, the ops
+    with atomic sums that a step runs where the runs differ, else [])."""
+    import torch
+
+    snap = snapshot(state)
+    out = []
+    with state.model.programs.eager():
+        for _ in range(runs):
+            names, record = run_steps(state, batch, plan)
+            out.append(record)
+            restore(state, snap)
+        ops = []
+        if not all(torch.equal(a, b) for run in out[1:] for a, b in zip(out[0], run)):
+            ops = ops_with_atomics(lambda: run_steps(state, batch, plan[:1]))
+            restore(state, snap)
+    return names, out, ops
+
+
+def compare_captured(label, names, eager, captured, ops):
+    """Captured against the eager runs, tensor by tensor: equal bit for bit
+    where the eager runs all are. Elsewhere a step's sums come in another
+    order from run to run, and the captured run is one more such run: per
+    tensor, its l2 distance to the nearest eager run over the eager runs'
+    largest distance from each other is at most 10, and the median of that
+    ratio over those tensors at most 1 (exchangeable runs give ratios well
+    under 1; a run that computes something else gives ratios above 1 in most
+    tensors). The differing tensors and the ops with atomic sums on a step
+    are named."""
+    import itertools
+
+    import torch
+
+    def l2(x, y):
+        return float((x.double() - y.double()).norm())
+
+    bad, ratios, repeat, equal = [], {}, 0, 0
+    for i, name in enumerate(names):
+        runs, c = [run[i] for run in eager], captured[i]
+        same = all(torch.equal(runs[0], r) for r in runs[1:])
+        repeat += same
+        equal += torch.equal(runs[0], c)
+        if not bool(torch.isfinite(c.float()).all()) or (same and not torch.equal(runs[0], c)):
+            bad.append(name)
+        elif not same:
+            spread = max(l2(x, y) for x, y in itertools.combinations(runs, 2))
+            ratios[name] = min(l2(c, x) for x in runs) / spread
+    worst = max(ratios, key=ratios.get, default="-")
+    median = statistics.median(ratios.values()) if ratios else 0.0
+    bad += [n for n, r in ratios.items() if r > 10.0]
+    print(f"{label} captured vs eager, 3 steps (update, frozen, frozen) from one state: "
+          f"{len(names)} tensors (metrics, parameters, BatchNorm statistics, Adam state); "
+          f"{len(eager)} eager runs bit-identical in {repeat}, captured == eager bit for bit in "
+          f"{equal} (required where the eager runs are); eager differs from itself in "
+          f"{len(ratios)} {list(ratios)[:3]}: captured's l2 distance to the nearest eager run "
+          f"over the eager runs' spread, median {median:.3f} (bound 1), largest "
+          f"{ratios.get(worst, 0.0):.3f} at {worst} (bound 10); ops with atomic sums on a step: "
+          f"{ops or 'none'}")
+    check(not bad and median <= 1.0,
+          f"{label}: captured steps disagree with eager at {bad[:6]} (median ratio {median:.3f})")
+
+
+def peak_window(dev):
+    """Start a window for peak memory: the allocator's unused cache released,
+    the peaks reset."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peaks_gib(dev):
+    """(allocated, reserved) peaks of the window, GiB."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            torch.cuda.max_memory_reserved(dev) / 2 ** 30)
+
+
+def captured_step_times(dev, state, batch, g, label, tag, timings):
+    """Replays of the update and frozen programs, the 5-frozen + 1-update
+    cycle as six replays and as one 6-step program (captured first); host
+    clock around synchronised calls. Returns the stacked batch and the
+    peak memory of the replays, (allocated, reserved) GiB: the programs'
+    pool, the resident state and the static buffers."""
+    import torch
+
+    from neural_jacobian_field_torch.training import (
+        make_multi_train_step, make_train_step, stack_batches)
+
+    model, cfg = state.model, state.cfg
+    steps = {u: make_train_step(model, cfg, static_updated=u) for u in (True, False)}
+    gates = (False,) * 5 + (True,)
+    multi = make_multi_train_step(model, cfg, 6, static_schedule=gates)
+    stacked = stack_batches([batch] * 6)
+    t0 = time.perf_counter()
+    multi(state, stacked, generator=g)  # the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    peak_window(dev)
+    times = {True: [], False: []}
+    for updated in (False,) * 5 + (True,) + (False,) * 5 + (True,) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps[updated](state, batch, generator=g)
+        torch.cuda.synchronize()
+        times[updated].append((time.perf_counter() - t0) * 1e3)
+    six = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for updated in gates:
+            steps[updated](state, batch, generator=g)
+        torch.cuda.synchronize()
+        six.append(time.perf_counter() - t0)
+    one = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(state, stacked, generator=g)
+        torch.cuda.synchronize()
+        one.append(time.perf_counter() - t0)
+    upd, frz = statistics.median(times[True]), statistics.median(times[False])
+    rays = 6 * TRAIN_B * TRAIN_RAYS
+    timings[tag + "captured_update_step_ms"] = upd
+    timings[tag + "captured_frozen_step_ms"] = frz
+    timings[tag + "captured_cycle_rays_per_s"] = rays / statistics.median(six)
+    timings[tag + "program6_cycle_rays_per_s"] = rays / statistics.median(one)
+    print(f"{label} captured step: update {upd:.2f} ms, frozen {frz:.2f} ms (medians of "
+          f"{len(times[True])} / {len(times[False])} replays); 5 frozen + 1 update cycle as six "
+          f"replays {statistics.median(six) * 1e3:.2f} ms = "
+          f"{timings[tag + 'captured_cycle_rays_per_s']:.1f} rays/s, as one 6-step program "
+          f"{statistics.median(one) * 1e3:.2f} ms = "
+          f"{timings[tag + 'program6_cycle_rays_per_s']:.1f} rays/s (medians of 3; the "
+          f"6-step program captured in {capture_s:.2f} s); {card_line()}")
+    return stacked, peaks_gib(dev)
+
+
+def dispatch_run(state, stacked, g, label):
+    """30 steps in 6-step windows through MultiStepDispatch, its warm-up the
+    first window: the warm-up window and a tuple's first sight take the
+    default (each substep replays its gate's one-step program), a recurring
+    tuple its own 6-step program. Returns the losses."""
+    from neural_jacobian_field_torch.training import (
+        MultiStepDispatch, host_step_schedule, make_multi_train_step)
+
+    model, cfg = state.model, state.cfg
+    dispatch = MultiStepDispatch(
+        lambda gt: make_multi_train_step(model, cfg, 6, static_schedule=gt),
+        warmup=state.step + 6)
+    default = make_multi_train_step(model, cfg, 6)
+    picks, losses = [], []
+    for _ in range(5):
+        gates, ssu = [], state.steps_since_update
+        for j in range(6):
+            updated, ssu = host_step_schedule(state.step + j, ssu, model.cfg.rendering)
+            gates.append(updated)
+        fn = dispatch.select(state.step, gates, default)
+        picks.append(("default" if fn is default else "program")
+                     + "".join("U" if u else "F" for u in gates))
+        losses += [float(v) for v in fn(state, stacked, generator=g)["loss/total"]]
+    print(f"{label} MultiStepDispatch, 30 steps in windows of 6 past a 6-step warm-up: "
+          f"{picks}; {len(dispatch._programs)} gate tuple programs; losses finite "
+          f"{all(math.isfinite(v) for v in losses)}")
+    check(picks[-1].startswith("program") and all(math.isfinite(v) for v in losses),
+          f"{label}: MultiStepDispatch did not reach a program, or a loss is not finite")
+
+
 def train_phase(dev, timings, mode, conv_impl="pallas"):
-    """The stage-1 train step at batch 7 x 256 rays. Returns the launch
-    counts of one update step and of one frozen step, and the model's state
-    dict after the phase."""
+    """The stage-1 train step at batch 7 x 256 rays, eager, then captured
+    from the eager state. Returns the launch counts of one update step and
+    of one frozen step, eager and through replay, and the captured model's
+    state dict after the phase."""
     import torch
 
     from neural_jacobian_field_torch.ops import kernels as K
-    from neural_jacobian_field_torch.training import host_step_schedule, train_step
+    from neural_jacobian_field_torch.training import (
+        make_train_step, step_randomness, train_step)
 
     fused = conv_impl == "pallas_fused"
     label = "train fused" if fused else f"train {mode}"
@@ -1468,14 +1755,19 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
         check_no_legacy(f"{label} {kind} step")
         print(f"{label} launches per {kind} step: {counts[kind]}")
     conv = {"K10" if fused else "K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K5": 1}
+    want = {}
     for kind, n_bwd in (("update", 2), ("frozen", 1)):
+        # two trunks forward: the proposal and NeRF densities (no flow is
+        # rendered in stage 1, so the Jacobian trunk does not run)
         if mode == "epipolar":
-            want = all_zero_but(dict(conv, **{"K6-fwd": 3, "K6-bwd": 3, "K7-tz-fwd": 3,
-                                              "K7-tz-bwd": n_bwd}))
+            want[kind] = all_zero_but(dict(conv, **{"K6-fwd": 3, "K6-bwd": 3, "K7-tz-fwd": 2,
+                                                    "K7-tz-bwd": n_bwd}))
         else:
-            want = all_zero_but(dict(conv, **{"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2,
-                                              "K1-bwd": n_bwd, "K7-fwd": 3, "K7-bwd": n_bwd}))
-        check(counts[kind] == want, f"{label} {kind} step launches {counts[kind]} != {want}")
+            want[kind] = all_zero_but(dict(conv, **{"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2,
+                                                    "K1-bwd": n_bwd, "K7-fwd": 2,
+                                                    "K7-bwd": n_bwd}))
+        check(counts[kind] == want[kind],
+              f"{label} {kind} step launches {counts[kind]} != {want[kind]}")
     dead = [name for name, p in model.named_parameters()
             if name.startswith(("encoder.", "decoder.density_head.", "decoder.color_head.",
                                 "proposal_networks_"))
@@ -1484,8 +1776,8 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
           f"proposal parameters without a non-zero gradient after an update step {dead[:4]}")
     check(not dead, "a parameter the loss reaches got no gradient")
 
-    # step times (host clock around synchronised steps), peak memory
-    torch.cuda.reset_peak_memory_stats(dev)
+    # eager step times (host clock around synchronised steps), peak memory
+    peak_window(dev)
     times = {True: [], False: []}
     for updated in (False,) * 5 + (True,) + (False,) * 5 + (True,) * 2:
         torch.cuda.synchronize()
@@ -1498,34 +1790,77 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
     timings[tag + "update_step_ms"] = upd_ms
     timings[tag + "frozen_step_ms"] = frz_ms
     timings[tag + "cycle_rays_per_s"] = 6 * TRAIN_B * TRAIN_RAYS / cycle_s
-    timings[tag + "peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    eager_alloc, eager_peak = peaks_gib(dev)
+    timings[tag + "peak_mem_gib"] = eager_alloc
+    timings[tag + "peak_reserved_gib"] = eager_peak
     print(f"{label} step (batch {TRAIN_B} x {TRAIN_RAYS} rays, 480x640 context, bf16, "
-          f"{conv_impl}): update {upd_ms:.2f} ms, frozen {frz_ms:.2f} ms (medians of "
+          f"{conv_impl}), eager: update {upd_ms:.2f} ms, frozen {frz_ms:.2f} ms (medians of "
           f"{len(times[True])} / {len(times[False])}); 5 frozen + 1 update cycle "
-          f"{timings[tag + 'cycle_rays_per_s']:.1f} rays/s; peak "
-          f"{timings[tag + 'peak_mem_gib']:.2f} GiB")
+          f"{timings[tag + 'cycle_rays_per_s']:.1f} rays/s; peak {eager_alloc:.2f} GiB "
+          f"allocated, {eager_peak:.2f} GiB reserved")
     if fused and "train_update_step_ms" in timings:
-        print(f"{label} vs pallas (epipolar, this call): update {upd_ms:.2f} vs "
+        print(f"{label} vs pallas (epipolar, this call), eager: update {upd_ms:.2f} vs "
               f"{timings['train_update_step_ms']:.2f} ms, frozen {frz_ms:.2f} vs "
               f"{timings['train_frozen_step_ms']:.2f} ms")
 
+    # captured against eager: three steps from this state, five times
+    # eagerly, then once through CUDA graphs in a fresh model loaded with
+    # the state
+    plan = [(u, *step_randomness(state, batch, g)) for u in (True, False, False)]
+    snap = snapshot(state)
+    names, eager, ops = eager_runs(state, batch, plan)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state = new_train_state(dev, mode, conv_impl)
+    restore(state, snap)
+    t0 = time.perf_counter()
+    _, captured = run_steps(state, batch, plan)  # captures the update and frozen programs
+    print(f"{label} captured the update and frozen programs and ran 3 steps in "
+          f"{time.perf_counter() - t0:.2f} s")
+    compare_captured(label, names, eager, captured, ops)
+
+    # launches through replay
+    for kind, updated in (("frozen", False), ("update", True)):
+        step = make_train_step(model, state.cfg, static_updated=updated)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        step(state, batch, generator=g)
+        torch.cuda.synchronize()
+        counts[kind + " captured"] = K.launch_counts()
+        check_no_legacy(f"{label} captured {kind} step")
+        print(f"{label} launches per captured {kind} step (counted through replay): "
+              f"{counts[kind + ' captured']}")
+        check(counts[kind + " captured"] == want[kind],
+              f"{label} captured {kind} step launches {counts[kind + ' captured']} != "
+              f"{want[kind]}")
+
+    stacked, (alloc, peak) = captured_step_times(dev, state, batch, g, label, tag, timings)
+    timings[tag + "captured_peak_mem_gib"] = alloc
+    timings[tag + "captured_peak_reserved_gib"] = peak
+    print(f"{label} captured cycle peak memory (replays of the three programs, their shared "
+          f"pool): {alloc:.2f} GiB allocated, {peak:.2f} GiB reserved; {peak / eager_peak:.3f}x "
+          f"the eager steps' {eager_peak:.2f} GiB reserved (bound 1.3)")
+    check(peak <= 1.3 * eager_peak, f"{label}: captured peak memory above 1.3x the eager step's")
+    dispatch_run(state, stacked, g, label)
+    del stacked
+
     # the loss falls over the loss steps on this batch at one fixed pixel
-    # set (the schedule's own gate; the stratified draws change every step)
+    # set (captured steps on the schedule's gate; the stratified draws
+    # change every step)
     fixed_yx, _ = step_draws(dev, g)
-    losses = []
-    for _ in range(LOSS_STEPS):
-        updated, _ = host_step_schedule(state.step, state.steps_since_update,
-                                        model.cfg.rendering)
-        m = train_step(state, batch, g, updated, yx=fixed_yx)
-        losses.append(float(m["loss/total"]))
+    step = make_train_step(model, state.cfg)
+    losses = [float(step(state, batch, yx=fixed_yx, generator=g)["loss/total"])
+              for _ in range(LOSS_STEPS)]
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
-    print(f"{label} loss over {len(losses)} steps: {losses[0]:.5f} -> {losses[-1]:.5f}; "
-          f"mean of the first 3 {first:.5f}, of the last 3 {last:.5f} (bound: finite, "
-          f"last < first)")
+    print(f"{label} loss over {len(losses)} captured steps: {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; mean of the first 3 {first:.5f}, of the last 3 {last:.5f} "
+          f"(bound: finite, last < first)")
     check(all(math.isfinite(v) for v in losses) and last < first, "the train loss did not fall")
     timings[tag + "loss_first3"], timings[tag + "loss_last3"] = first, last
     trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del model, state, batch
+    gc.collect()  # the model and its programs' cache refer to each other
     torch.cuda.empty_cache()
     return counts, trained
 
@@ -1549,10 +1884,9 @@ def action_batch(dev, supervision):
         pixel_visible_mask=torch.ones((b, TRACKS), device=dev))
 
 
-def action_setup(dev, mode, supervision, stage1=None):
-    """The flagship model under pallas_fused, its stage-2 train state
-    (warm-started from the stage-1 state dict `stage1` when given), an
-    action batch and a generator."""
+def new_action_state(dev, mode, stage1=None):
+    """The flagship model under pallas_fused and its stage-2 train state,
+    warm-started from the stage-1 state dict `stage1` when given."""
     import torch
 
     from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
@@ -1563,7 +1897,14 @@ def action_setup(dev, mode, supervision, stage1=None):
     model.init_weights(torch.Generator().manual_seed(SEED + 6)).to(dev)
     cfg = TrainCfg(mode="action", lr=ACTION_LR, warm_up_steps=TRAIN_WARMUP,
                    rays_per_batch=TRAIN_RAYS)
-    state = create_train_state(model, cfg, init_params=stage1)
+    return model, create_train_state(model, cfg, init_params=stage1)
+
+
+def action_setup(dev, mode, supervision, stage1=None):
+    """`new_action_state`, an action batch and a generator."""
+    import torch
+
+    model, state = new_action_state(dev, mode, stage1)
     return model, state, action_batch(dev, supervision), torch.Generator(
         device=dev).manual_seed(SEED + 7)
 
@@ -1571,11 +1912,13 @@ def action_setup(dev, mode, supervision, stage1=None):
 def action_phase(dev, timings, mode, supervision, stage1):
     """The stage-2 train step under pallas_fused, warm-started from the
     stage-1 state dict `stage1`: flow at batch 7 x 256 rays, or tracks at
-    7 x TRACKS. Returns the launch counts of one step."""
+    7 x TRACKS; eager, then captured from the eager state. Returns the
+    launch counts of one step, eager and through replay."""
     import torch
 
     from neural_jacobian_field_torch.ops import kernels as K
-    from neural_jacobian_field_torch.training import host_step_schedule, train_step
+    from neural_jacobian_field_torch.training import (
+        host_step_schedule, make_train_step, step_randomness, train_step)
 
     label = f"action {mode}" if supervision == "flow" else "action tracks"
     tag = label.replace(" ", "_") + "_"
@@ -1585,30 +1928,13 @@ def action_phase(dev, timings, mode, supervision, stage1):
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
     check(trainable and all(n.startswith(head) for n in trainable),
           f"{label}: the trainable parameters are not the Jacobian head's: {trainable[:4]}")
-    frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
+    frozen0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
                if not n.startswith(head)}
-    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()}
+    stats0 = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
 
     yx, draws = step_draws(dev, g, rays)
     reached = compare_grads(label, state, batch, yx, draws, (head,))
     check(reached == sorted(trainable), f"{label}: gradients on {reached[:4]}..., not the head's")
-
-    # the loss on a fixed batch and pixel set: the near-zero head makes the
-    # first steps' loss artificially low, so it must fall from its early peak
-    fixed_yx, _ = step_draws(dev, g, rays)
-    losses = []
-    for _ in range(LOSS_STEPS):
-        updated, _ = host_step_schedule(state.step, state.steps_since_update,
-                                        model.cfg.rendering)
-        losses.append(float(train_step(state, batch, g, updated, yx=fixed_yx)["loss/total"]))
-    peak, last = max(losses[:5]), statistics.mean(losses[-3:])
-    print(f"{label} loss over {len(losses)} steps (lr {ACTION_LR:g}): "
-          + " ".join(f"{v:.5f}" for v in losses)
-          + f"; peak of the first 5 {peak:.5f}, mean of the last 3 {last:.5f} "
-          f"(bound: finite, last < peak)")
-    check(all(math.isfinite(v) for v in losses) and last < peak,
-          f"{label}: the loss did not fall from its early peak")
-    timings[tag + "loss_peak5"], timings[tag + "loss_last3"] = peak, last
 
     counts = {}
     want = all_zero_but({"K10": 24, "K6-fwd": 3, "K5": 1, "K7-tz-fwd": 3, "K7-tz-bwd": 1}
@@ -1625,40 +1951,103 @@ def action_phase(dev, timings, mode, supervision, stage1):
         print(f"{label} launches per {kind}-gate step: {counts[kind]}")
         check(counts[kind] == want, f"{label} {kind} step launches {counts[kind]} != {want}")
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for _ in range(8):
-        updated, _ = host_step_schedule(state.step, state.steps_since_update,
-                                        model.cfg.rendering)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step(state, batch, g, updated)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(times)
+    def timed_steps(step_fn):
+        times = []
+        for _ in range(8):
+            updated, _ = host_step_schedule(state.step, state.steps_since_update,
+                                            model.cfg.rendering)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(updated)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    peak_window(dev)
+    step_ms = timed_steps(lambda u: train_step(state, batch, g, u))
     timings[tag + "step_ms"] = step_ms
     timings[tag + "rays_per_s"] = TRAIN_B * rays / step_ms * 1e3
-    timings[tag + "peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    eager_alloc, eager_peak = peaks_gib(dev)
+    timings[tag + "peak_mem_gib"], timings[tag + "peak_reserved_gib"] = eager_alloc, eager_peak
     print(f"{label} step (batch {TRAIN_B} x {rays} rays, 480x640 context, bf16, "
-          f"pallas_fused): {step_ms:.2f} ms (median of {len(times)}), "
-          f"{timings[tag + 'rays_per_s']:.1f} rays/s; peak {timings[tag + 'peak_mem_gib']:.2f} GiB")
+          f"pallas_fused), eager: {step_ms:.2f} ms (median of 8), "
+          f"{timings[tag + 'rays_per_s']:.1f} rays/s; peak {eager_alloc:.2f} GiB allocated, "
+          f"{eager_peak:.2f} GiB reserved")
 
-    changed = [n for n, p in model.named_parameters()
-               if n in frozen0 and not torch.equal(p.detach(), frozen0[n])]
+    # captured against eager, as in the stage-1 phases (here nothing with
+    # grad reaches the atomic ops: the eager runs repeat bit for bit)
+    plan = [(u, *step_randomness(state, batch, g)) for u in (True, False, False)]
+    snap = snapshot(state)
+    names, eager, ops = eager_runs(state, batch, plan)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state = new_action_state(dev, mode)
+    restore(state, snap)
+    _, captured = run_steps(state, batch, plan)
+    compare_captured(label, names, eager, captured, ops)
+    for kind, updated in (("frozen", False), ("update", True)):
+        step = make_train_step(model, state.cfg, static_updated=updated)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        step(state, batch, generator=g)
+        torch.cuda.synchronize()
+        counts[kind + " captured"] = K.launch_counts()
+        check_no_legacy(f"{label} captured {kind} step")
+        print(f"{label} launches per captured {kind}-gate step (counted through replay): "
+              f"{counts[kind + ' captured']}")
+        check(counts[kind + " captured"] == want,
+              f"{label} captured {kind} step launches {counts[kind + ' captured']} != {want}")
+    steps = {u: make_train_step(model, state.cfg, static_updated=u) for u in (True, False)}
+    peak_window(dev)
+    cap_ms = timed_steps(lambda u: steps[u](state, batch, generator=g))
+    timings[tag + "captured_step_ms"] = cap_ms
+    timings[tag + "captured_rays_per_s"] = TRAIN_B * rays / cap_ms * 1e3
+    alloc, peak = peaks_gib(dev)
+    timings[tag + "captured_peak_mem_gib"] = alloc
+    timings[tag + "captured_peak_reserved_gib"] = peak
+    print(f"{label} captured step: {cap_ms:.2f} ms (median of 8 replays), "
+          f"{timings[tag + 'captured_rays_per_s']:.1f} rays/s; peak {alloc:.2f} GiB allocated, "
+          f"{peak:.2f} GiB reserved, {peak / eager_peak:.3f}x the eager steps' reserved "
+          f"(bound 1.3); {card_line()}")
+    check(peak <= 1.3 * eager_peak, f"{label}: captured peak memory above 1.3x the eager step's")
+
+    # the loss on a fixed batch and pixel set, captured steps: the near-zero
+    # head makes the first steps' loss artificially low, so it must fall
+    # from its early peak
+    fixed_yx, _ = step_draws(dev, g, rays)
+    step = make_train_step(model, state.cfg)
+    losses = [float(step(state, batch, yx=None if batch.pixel_selector is not None
+                         else fixed_yx, generator=g)["loss/total"])
+              for _ in range(LOSS_STEPS)]
+    peak_loss, last = max(losses[:5]), statistics.mean(losses[-3:])
+    print(f"{label} loss over {len(losses)} captured steps (lr {ACTION_LR:g}): "
+          + " ".join(f"{v:.5f}" for v in losses)
+          + f"; peak of the first 5 {peak_loss:.5f}, mean of the last 3 {last:.5f} "
+          f"(bound: finite, last < peak)")
+    check(all(math.isfinite(v) for v in losses) and last < peak_loss,
+          f"{label}: the loss did not fall from its early peak")
+    timings[tag + "loss_peak5"], timings[tag + "loss_last3"] = peak_loss, last
+
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    changed = [n for n in frozen0 if not torch.equal(params[n], frozen0[n])]
+    bufs = {n: b.cpu() for n, b in model.named_buffers()}
     means = [n for n in stats0 if n.endswith("running_mean")]
-    still = [n for n in means if torch.equal(dict(model.named_buffers())[n], stats0[n])]
-    head_moved = any(not torch.equal(p.detach(), stage1[n]) for n, p in model.named_parameters()
+    still = [n for n in means if torch.equal(bufs[n], stats0[n])]
+    head_moved = any(not torch.equal(params[n], stage1[n].cpu()) for n in params
                      if n.startswith(head))
-    print(f"{label} after {state.step} steps: {len(frozen0) - len(changed)}/{len(frozen0)} "
-          f"parameters outside {head} bit-identical to the warm start "
-          f"(passed={not changed}); {len(means) - len(still)}/{len(means)} BatchNorm running "
-          f"means moved; Jacobian head moved={head_moved}")
+    print(f"{label} after {state.step} steps (the last {LOSS_STEPS + 12} captured): "
+          f"{len(frozen0) - len(changed)}/{len(frozen0)} parameters outside {head} "
+          f"bit-identical to the warm start (passed={not changed}); "
+          f"{len(means) - len(still)}/{len(means)} BatchNorm running means moved; "
+          f"Jacobian head moved={head_moved}")
     check(not changed and not still and head_moved,
           f"{label}: frozen parameters moved {changed[:4]}, or running stats {still[:4]} "
           f"or the head did not")
     del model, state, batch
+    gc.collect()
     torch.cuda.empty_cache()
-    return counts["update"]
+    return counts
 
 
 def trace(fn):
@@ -1745,7 +2134,9 @@ def profile_train(dev, mode, top=15):
     """--profile: torch.profiler around one frozen and one update train step
     (after the warm-up) of stage 1 in the given feature mode, of stage 1
     under pallas_fused ("fused", epipolar), or of stage 2 ("action",
-    epipolar, flow; its two steps differ in the proposal gate only). Per
+    epipolar, flow; its two steps differ in the proposal gate only), each
+    eager and as a replay of its CUDA graph (captured before the trace),
+    and in stage 1 one call of the 5-frozen + 1-update program. Per
     step: the traced wall time (the step's first host event to its last
     device event), the device's busy time (the union of its kernel, copy and
     set intervals, so overlapping work counts once), the idle share 1 - busy
@@ -1758,7 +2149,8 @@ def profile_train(dev, mode, top=15):
 
     import torch
 
-    from neural_jacobian_field_torch.training import train_step
+    from neural_jacobian_field_torch.training import (
+        make_multi_train_step, make_train_step, stack_batches, train_step)
 
     if mode == "action":
         _, state, batch, g = action_setup(dev, "epipolar", "flow")
@@ -1768,10 +2160,20 @@ def profile_train(dev, mode, top=15):
         _, state, batch, g = train_setup(dev, "epipolar", "pallas_fused")
     else:
         _, state, batch, g = train_setup(dev, mode)
+    runs = []
     for kind, updated in (("frozen", False), ("update", True)):
-        train_step(state, batch, g, updated)
+        step = make_train_step(state.model, state.cfg, static_updated=updated)
+        runs += [(kind, lambda u=updated: train_step(state, batch, g, u)),
+                 (kind + " captured", lambda s=step: s(state, batch, generator=g))]
+    if mode != "action":
+        cycle = make_multi_train_step(state.model, state.cfg, 6,
+                                      static_schedule=(False,) * 5 + (True,))
+        stacked = stack_batches([batch] * 6)
+        runs.append(("6-step program", lambda: cycle(state, stacked, generator=g)))
+    for kind, fn in runs:
+        fn()  # a warm-up, or the capture
         torch.cuda.synchronize()
-        prof, wall, busy, dev_ev, by_name = trace(lambda: train_step(state, batch, g, updated))
+        prof, wall, busy, dev_ev, by_name = trace(fn)
         opt_us = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages()
                      if a.key.startswith("Optimizer.step"))
         print(f"profile {mode} {kind} step: traced wall {wall / 1e3:.3f} ms, device busy "
@@ -1889,18 +2291,18 @@ def main() -> int:
             gc.collect()  # the model and its programs' cache refer to each other
             torch.cuda.empty_cache()
         timings["serve_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        for mode in MODES:
-            counts, _ = train_phase(dev, timings, mode)
-            prefix = "" if mode == "epipolar" else "exact_"
-            paths[prefix + "train_update"] = counts["update"]
-            paths[prefix + "train_frozen"] = counts["frozen"]
-        counts, stage1 = train_phase(dev, timings, "epipolar", "pallas_fused")
-        paths["fused_train_update"] = counts["update"]
-        paths["fused_train_frozen"] = counts["frozen"]
+        for prefix, mode, conv_impl in (("", "epipolar", "pallas"), ("exact_", "exact", "pallas"),
+                                        ("fused_", "epipolar", "pallas_fused")):
+            counts, stage1 = train_phase(dev, timings, mode, conv_impl)
+            for kind in ("update", "frozen"):
+                paths[f"{prefix}train_{kind}"] = counts[kind]
+                paths[f"{prefix}train_{kind}_captured"] = counts[kind + " captured"]
         for mode, supervision in (("epipolar", "flow"), ("exact", "flow"),
                                   ("epipolar", "tracks")):
             name = "action_" + ("tracks" if supervision == "tracks" else mode + "_flow")
-            paths[name] = action_phase(dev, timings, mode, supervision, stage1)
+            counts = action_phase(dev, timings, mode, supervision, stage1)
+            paths[name] = counts["update"]
+            paths[name + "_captured"] = counts["update captured"]
         del stage1
         timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))

@@ -1,10 +1,11 @@
 """Captured device programs: the port's counterpart of `jax.jit` for the
-serving entry points.
+serving entry points and the train steps.
 
 In the JAX package each serving entry point is one compiled device program
 (`patch_render`: one jit sweeping the chunks with `lax.map`;
 `optimize_actions`: one jit over a `lax.scan`; `solve_actions_least_squares`
-and the encoders: one jit each). Here a function of CUDA tensors is captured
+and the encoders: one jit each), and so is each train step variant
+(training/train.py). Here a function of CUDA tensors is captured
 once per input signature as a CUDA graph and replayed on every later call
 with that signature, so a call costs the host one graph launch instead of
 one launch per operation:
@@ -15,7 +16,12 @@ one launch per operation:
   of them, or copies them into destinations the caller hands in, so a later
   replay never overwrites a result the caller holds;
 - two warm-up calls on a side stream before the capture (the allocator,
-  cuBLAS and cuDNN handles, the kernels' once-per-process attributes);
+  cuBLAS and cuDNN handles, the kernels' once-per-process attributes); a
+  function that updates tensors in place (`writes`: a train step's
+  parameters, statistics and optimizer state) finds them after the warm-up
+  and the capture as they were before;
+- a private memory pool per program, or one pool shared by the programs
+  of a name (`pool`), which must then never run concurrently;
 - launch accounting: a capture launches nothing, so the kernel wrappers'
   counts made while capturing are taken back and added on every replay:
   `ops.kernels.launch_counts()` counts what ran.
@@ -23,14 +29,15 @@ one launch per operation:
 A program is keyed by its function and static arguments (`key`), the shapes,
 dtypes and devices of its inputs, and the addresses, dtypes and shapes of
 what it reads in place: the parameters and buffers of every module in `key`
-and the `resident` tensors. Weights loaded in place (`load_state_dict`) are
-read by the next replay; weights reassigned move, and the program is
-captured again, replacing the one it supersedes. On CUDA a failed capture or
+and the `resident` and `writes` tensors. Weights loaded in place
+(`load_state_dict`) are read by the next replay; weights reassigned move,
+and the program is captured again, replacing the one it supersedes. On CUDA a failed capture or
 replay raises: nothing falls back to eager execution. On the CPU, and inside
 `ProgramCache.eager()`, the entry points run the same Python eagerly.
 """
 
 import contextlib
+import functools
 import itertools
 
 import torch
@@ -74,9 +81,13 @@ class CudaGraphs:
         current.wait_stream(side)
 
     @staticmethod
-    def capture(fn, inputs):
+    def pool():
+        return torch.cuda.graph_pool_handle()
+
+    @staticmethod
+    def capture(fn, inputs, pool=None):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=pool):
             outputs = fn(*inputs)
         return graph, outputs
 
@@ -88,19 +99,31 @@ class CudaGraphs:
 class CapturedProgram:
     """fn(*inputs) captured once by `backend` for inputs shaped like
     `inputs`. fn returns a tuple: its tensors become the static outputs, any
-    other element is returned as it was at capture."""
+    other element is returned as it was at capture. The `writes` tensors,
+    which fn updates in place, are put back after the warm-up and the
+    capture; `pool` is the backend's memory pool to capture into (None: a
+    private one)."""
 
-    def __init__(self, fn, inputs, backend):
+    def __init__(self, fn, inputs, backend, writes=(), pool=None):
         self.backend = backend
         self.inputs = tuple(t.detach().clone(memory_format=torch.contiguous_format)
                             for t in inputs)
-        backend.warm_up(fn, self.inputs)
-        before = _launch_state()
+        capture = backend.capture if pool is None else functools.partial(backend.capture,
+                                                                         pool=pool)
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in writes]
         try:
-            self._graph, outputs = backend.capture(fn, self.inputs)
+            backend.warm_up(fn, self.inputs)
+            before = _launch_state()
+            try:
+                self._graph, outputs = capture(fn, self.inputs)
+            finally:
+                after = _launch_state()
+                _set_launches(before)
         finally:
-            after = _launch_state()
-            _set_launches(before)
+            with torch.no_grad():
+                for t, s in zip(writes, saved):
+                    t.copy_(s)
         self.launches = {name: (after[name][0] - n, after[name][1] - legacy)
                          for name, (n, legacy) in before.items()}
         self.outputs = tuple(outputs)
@@ -146,6 +169,7 @@ class ProgramCache:
         self.backend = CudaGraphs() if backend is None else backend
         self.enabled = True
         self._programs = {}  # (key, signature) -> (resident signature, program)
+        self._pools = {}  # pool name -> the backend's pool
 
     def captures(self, t: torch.Tensor) -> bool:
         """Whether a call on t's device runs as a captured program."""
@@ -161,23 +185,29 @@ class ProgramCache:
         finally:
             self.enabled = enabled
 
-    def get(self, key: tuple, inputs, fn, resident=()) -> CapturedProgram:
+    def get(self, key: tuple, inputs, fn, resident=(), writes=(),
+            pool=None) -> CapturedProgram:
         """The program of `key` for inputs like `inputs`; fn (called as
-        fn(*inputs)) is captured only where no program matches."""
+        fn(*inputs)) is captured only where no program matches. fn reads
+        `resident` and reads and updates `writes` in place; `pool` names the
+        memory pool it shares with the other programs of that name."""
         sig = (key, tuple((tuple(t.shape), t.dtype, t.device) for t in inputs))
-        res = _resident(key, resident)
+        res = _resident(key, [*resident, *writes])
         entry = self._programs.get(sig)
         if entry is None or entry[0] != res:
             self._programs.pop(sig, None)  # free the superseded program's pool first
-            entry = (res, CapturedProgram(fn, inputs, self.backend))
+            if pool is not None and pool not in self._pools:
+                self._pools[pool] = self.backend.pool()
+            entry = (res, CapturedProgram(fn, inputs, self.backend, writes,
+                                          self._pools.get(pool)))
             self._programs[sig] = entry
         return entry[1]
 
-    def run(self, key: tuple, inputs, fn, resident=()):
+    def run(self, key: tuple, inputs, fn, resident=(), writes=(), pool=None):
         """fn(*inputs): replayed from its program (copies of the outputs)
         where this cache captures inputs[0]'s device, else run eagerly."""
         if self.captures(inputs[0]):
-            return self.get(key, inputs, fn, resident)(*inputs)
+            return self.get(key, inputs, fn, resident, writes, pool)(*inputs)
         return fn(*inputs)
 
     def __len__(self) -> int:

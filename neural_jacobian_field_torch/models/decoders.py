@@ -49,8 +49,8 @@ class DensityHeadOutput:
 class DecoderOutput:
     density: torch.Tensor  # [B, R, S, 1]
     color: torch.Tensor  # [B, R, S, 3]
-    flow: torch.Tensor  # [B, R, S, 3]
-    action_features: torch.Tensor  # [B, R, S, dim]
+    flow: Optional[torch.Tensor]  # [B, R, S, 3]; None where not asked for
+    action_features: Optional[torch.Tensor]  # [B, R, S, dim]; likewise
 
 
 @dataclass(frozen=True)
@@ -214,12 +214,16 @@ class ActionDecoderJacobianMlp(nn.Module):
         return torch.einsum("bnas,bna->bns", j, action), jacobian
 
     def forward(self, world_space_xyz: torch.Tensor, world_space_dir: torch.Tensor,
-                pixel_encoding: PixelEncoding) -> DecoderOutput:
+                pixel_encoding: PixelEncoding, flow: bool = True) -> DecoderOutput:
+        """Density, colour and, with `flow`, the Jacobian and the scene flow
+        of the action (else both None, and the Jacobian trunk is not run)."""
         b, r, s = world_space_xyz.shape[:3]
         dho = self.compute_density(world_space_xyz.reshape(b, r * s, 3), pixel_encoding)
-        action = pixel_encoding.action[:, None, :].expand(b, r * s,
-                                                          pixel_encoding.action.shape[-1])
-        flow, action_features = self.compute_flow(action, dho)
+        scene_flow = action_features = None
+        if flow:
+            action = pixel_encoding.action[:, None, :].expand(b, r * s,
+                                                              pixel_encoding.action.shape[-1])
+            scene_flow, action_features = self.compute_flow(action, dho)
         dirs = (world_space_dir.reshape(b, r * s, 3) + 1.0) / 2.0
         color = self.color_head(torch.cat([dho.density_features, sh_encoding_deg4(dirs)],
                                           dim=-1))
@@ -228,7 +232,9 @@ class ActionDecoderJacobianMlp(nn.Module):
             return x.reshape(b, r, s, x.shape[-1])
 
         return DecoderOutput(density=unflatten(dho.density), color=unflatten(color),
-                             flow=unflatten(flow), action_features=unflatten(action_features))
+                             flow=None if scene_flow is None else unflatten(scene_flow),
+                             action_features=None if action_features is None
+                             else unflatten(action_features))
 
     def encode_image(self, world_space_xyz: torch.Tensor, pixel_encoding: PixelEncoding):
         """Density + Jacobian, evaluated once for inverse dynamics.

@@ -142,7 +142,7 @@ class ModelTarget:
 class ModelOutput:
     rgb: torch.Tensor  # [B, R, 3]
     depth: torch.Tensor  # [B, R, 1]
-    optical_flow: torch.Tensor  # [B, R, 2]
+    optical_flow: Optional[torch.Tensor]  # [B, R, 2]; None where not rendered
     weights_list: Optional[tuple] = None  # per level [B, R, S, 1]
     sdist_list: Optional[tuple] = None  # per level [B, R, S+1] spacing edges
     tdist_list: Optional[tuple] = None  # per level [B, R, S+1] euclidean edges
@@ -166,14 +166,18 @@ class ModelInferenceEncoding:
 @dataclass
 class StepCtx:
     """Per-step sampler context (the JAX StepCtx): the proposal weights'
-    anneal exponent, the proposal gate `updated` (a host-side bool), and the
-    stratified draws' source: a torch.Generator, or explicit per-level draws
-    in [0, 1) (samplers.proposal_sample)."""
+    anneal exponent (a float, or a 0-d tensor on the device), the proposal
+    gate `updated` (a host-side bool), the stratified draws' source: a
+    torch.Generator, or explicit per-level draws in [0, 1)
+    (samplers.proposal_sample); and `render_flow`: whether the step renders
+    optical flow and so evaluates the Jacobian trunk (a stage-1 step reads
+    neither)."""
 
-    anneal: float = 1.0
+    anneal: Union[float, torch.Tensor] = 1.0
     updated: bool = True
     generator: Optional[torch.Generator] = None
     draws: Optional[Tuple[torch.Tensor, ...]] = None
+    render_flow: bool = True
 
 
 def step_schedules(step: int, steps_since_update: int,
@@ -191,6 +195,15 @@ def step_schedules(step: int, steps_since_update: int,
                 float(cfg.proposal_update_every))
     updated = bool(steps_since_update > sched or step < 10)
     return anneal, updated, (0 if updated else steps_since_update) + 1
+
+
+def step_anneal(count: torch.Tensor, cfg: RenderingCfg) -> torch.Tensor:
+    """`step_schedules`' anneal exponent on the device, from the step count
+    as a 0-d float32 tensor, in float32 as the JAX step computes it."""
+    if not cfg.use_proposal_weight_anneal:
+        return torch.ones_like(count)
+    return proposal_anneal(count, cfg.proposal_weights_anneal_max_num_iters,
+                           cfg.proposal_weights_anneal_slope)
 
 
 class Model(nn.Module):
@@ -216,7 +229,8 @@ class Model(nn.Module):
             single_jitter=cfg.rendering.single_jitter,
             initial_spacing="uniform",
             use_pallas_pdf=cfg.rendering.use_pallas_pdf)
-        # the serving entry points' captured programs (inference/programs.py)
+        # the serving entry points' and the train steps' captured programs
+        # (inference/programs.py, training/train.py)
         self.programs = ProgramCache()
 
     @property
@@ -343,19 +357,24 @@ class Model(nn.Module):
                     camera_input: CameraInput, compute_vis_features: bool = False,
                     train: bool = False, ctx: Optional[StepCtx] = None) -> ModelOutput:
         """Everything after the context encoding, for one bundle of rays (the
-        chunked renderer calls this with the encoding computed once)."""
+        chunked renderer calls this with the encoding computed once). A
+        step whose ctx renders no flow skips the Jacobian trunk: the output's
+        optical_flow is None."""
+        render_flow = compute_vis_features or ctx is None or ctx.render_flow
         pixel_encoding = self.attach_ray_features(pixel_encoding, ray_bundle)
         ray_samples, positions, directions, weights_list, ray_samples_list = (
             self.compute_proposal(ray_bundle, pixel_encoding, ctx, stratified=train))
-        dec = self.decoder(positions, directions, pixel_encoding)
+        dec = self.decoder(positions, directions, pixel_encoding, flow=render_flow)
         weights = ray_samples.get_weights(dec.density)
         rgb = torch.sum(weights * dec.color, dim=-2)
         steps = (ray_samples.starts + ray_samples.ends) / 2
         depth = torch.sum(weights * steps, dim=-2) / (torch.sum(weights, dim=-2) + 1e-10)
         depth = torch.clamp(depth, steps.min(), steps.max())
-        optical_flow, pos, pos_warped = self.render_optical_flow(
-            weights, positions, dec.flow[..., :3], camera_input.trgt_extrinsics,
-            camera_input.trgt_intrinsics)
+        optical_flow = pos = pos_warped = None
+        if render_flow:
+            optical_flow, pos, pos_warped = self.render_optical_flow(
+                weights, positions, dec.flow[..., :3], camera_input.trgt_extrinsics,
+                camera_input.trgt_intrinsics)
         out = ModelOutput(rgb=rgb, depth=depth, optical_flow=optical_flow)
         if train:
             levels = ray_samples_list + [ray_samples]

@@ -152,25 +152,30 @@ class ProposalSamplerCfg:
     use_pallas_pdf: bool = False
 
 
-def proposal_anneal(step: int, max_num_iters: int, slope: float) -> float:
-    """Proposal weight anneal exponent (mip-NeRF 360 eq. 18 bias)."""
-    train_frac = min(max(step / max_num_iters, 0.0), 1.0)
+def proposal_anneal(step, max_num_iters: int, slope: float):
+    """Proposal weight anneal exponent (mip-NeRF 360 eq. 18 bias) at `step`,
+    a host number or a tensor (then in its dtype)."""
+    train_frac = step / max_num_iters
+    if isinstance(train_frac, torch.Tensor):
+        train_frac = torch.clamp(train_frac, 0.0, 1.0)
+    else:
+        train_frac = min(max(train_frac, 0.0), 1.0)
     return (slope * train_frac) / ((slope - 1.0) * train_frac + 1.0)
 
 
 def proposal_sample(ray_bundle: RayBundle,
                     density_fns: Sequence[Callable[[torch.Tensor], torch.Tensor]],
-                    cfg: ProposalSamplerCfg, anneal: float = 1.0, updated: bool = True,
+                    cfg: ProposalSamplerCfg, anneal=1.0, updated: bool = True,
                     stratified: bool = True, generator=None, draws=None):
     """Hierarchical proposal sampling. density_fns map world positions
     [B, R, S, 3] -> densities [B, R, S, 1]; the proposal weights are raised
-    to `anneal` before resampling. `updated` is the proposal gate, given by
-    the host: when False the proposal densities are evaluated under
-    torch.no_grad() (the reference's own gate), so the proposal networks take
-    no backward. `draws`, when given, holds the stratified jitter of each
-    level in [0, 1) (level 0: the spaced sample's, then each resample's);
-    else it is drawn from `generator`. Returns (final RaySamples,
-    weights_list, ray_samples_list)."""
+    to `anneal` (a float or a 0-d tensor) before resampling. `updated` is
+    the proposal gate, given by the host: when False the proposal densities
+    are evaluated under torch.no_grad() (the reference's own gate), so the
+    proposal networks take no backward. `draws`, when given, holds the
+    stratified jitter of each level in [0, 1) (level 0: the spaced
+    sample's, then each resample's); else it is drawn from `generator`.
+    Returns (final RaySamples, weights_list, ray_samples_list)."""
     n = len(density_fns)
     if n != len(cfg.num_proposal_samples):
         raise ValueError("one density function per proposal level")

@@ -40,9 +40,11 @@ class RawBatch:
 
 
 def denormalize_intrinsics(intrinsics: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Normalized [0, 1] intrinsics -> pixel units."""
-    scale = torch.tensor([[width, 1.0, width], [1.0, height, height], [1.0, 1.0, 1.0]],
-                         dtype=intrinsics.dtype, device=intrinsics.device)
+    """Normalized [0, 1] intrinsics -> pixel units. The scale is filled on
+    the device: no copy from the host."""
+    scale = torch.ones((3, 3), dtype=intrinsics.dtype, device=intrinsics.device)
+    scale[0, ::2].fill_(width)
+    scale[1, 1:].fill_(height)
     return intrinsics * scale
 
 
@@ -50,7 +52,9 @@ def sample_pixels(rays_per_batch: int, height: int, width: int,
                   generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
     """The shared pixel set: yx [R, 2] int64, uniform over the image."""
     u = torch.rand((rays_per_batch, 2), generator=generator, device=device)
-    return (u * torch.tensor([height, width], dtype=torch.float32, device=device)).long()
+    hw = torch.full((2,), float(width), device=device)
+    hw[0].fill_(height)
+    return (u * hw).long()
 
 
 def prepare_training_batch(batch: RawBatch, rays_per_batch: int,

@@ -11,7 +11,8 @@ Inputs are the Flax trees as nested dicts of arrays (numpy, or anything
 np.asarray takes); nothing here imports JAX.
 
 `load_optax_adam_state` carries an optax Adam state (`ScaleByAdamState`:
-mu, nu, count) over to torch.optim.Adam, so a train state taken in the middle
+mu, nu, count) over to the port's Adam (training/optim.py, which keeps
+torch.optim.Adam's state layout), so a train state taken in the middle
 of training computes the same next step on both sides; in stage 2 the state
 covers the trainable partition of optax's multi_transform alone, as the
 port's optimizer does.
@@ -75,9 +76,10 @@ def _arrays_only(tree):
 
 def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
                           *adam_states) -> None:
-    """Set torch.optim.Adam's per-parameter state (step, exp_avg, exp_avg_sq)
-    from optax ScaleByAdamStates (anything with .mu, .nu param-shaped trees
-    and .count). Pass one state per optax partition that has one (one, or
+    """Set an Adam's per-parameter state (step, exp_avg, exp_avg_sq: the
+    layout of torch.optim.Adam and of training/optim.Adam, which takes the
+    count over at its next step) from optax ScaleByAdamStates (anything
+    with .mu, .nu param-shaped trees and .count). Pass one state per optax partition that has one (one, or
     one per Adam-chained multi_transform label; set_to_zero's frozen
     partition has none); together they must cover exactly the parameters
     `optimizer` holds (`model` names them)."""

@@ -14,10 +14,15 @@ autograd, and a CUDA output must carry a grad_fn (a kernel wrapper that cut
 the graph would train nothing and raise no error). The serving entry points'
 CUDA graphs (inference/programs.py; `-k serving`) are held against eager
 execution bit for bit, on new inputs and reloaded weights, and are captured
-with CUDA's sync debug mode raising.
+with CUDA's sync debug mode raising; so are the train steps' graphs
+(training/train.py; `-k train_program`), held against eager steps bit for bit
+wherever five eager runs agree bit for bit, and within the eager runs' own
+spread where a backward op on the path sums with atomics.
 """
 
+import contextlib
 import math
+import statistics
 
 import pytest
 import torch
@@ -1180,3 +1185,151 @@ def test_serving_capture_waits_on_no_host_sync(dev, mode):
     assert len(model.programs) == 5
     assert all(bool(torch.isfinite(t.float()).all()) for t in out)
 
+
+
+# ------------------------------------------- the train steps as CUDA graphs
+
+def _train_state(dev, mode, stage="perception"):
+    """A train state of `_serving_model`'s model (trunks of 2 x 128, 16 + 16
+    samples) in training: seeded weights, lr 5e-4, warmup 5; stage 2 trains
+    the Jacobian head alone."""
+    from neural_jacobian_field_torch.training import TrainCfg, create_train_state
+
+    model = _serving_model(dev, mode)
+    return create_train_state(model, TrainCfg(mode=stage, lr=5e-4, warm_up_steps=5,
+                                              rays_per_batch=64))
+
+
+def _train_batch(dev, stage="perception", seed=2, b=2):
+    from neural_jacobian_field_torch.training import RawBatch
+
+    g = _gen(seed)
+    cam, _, _ = _serving_scene(dev, seed=seed)
+    h, w = 64, 96
+    batch = RawBatch(
+        ctxt_rgb=torch.rand((b, h, w, 3), generator=g, device=dev),
+        ctxt_extrinsics=cam.ctxt_extrinsics.expand(b, 4, 4),
+        ctxt_intrinsics=cam.ctxt_intrinsics.expand(b, 3, 3),
+        robot_action=0.1 * torch.randn((b, 8), generator=g, device=dev),
+        trgt_rgb=torch.rand((b, h, w, 3), generator=g, device=dev),
+        trgt_depth=1.0 + 2.0 * torch.rand((b, h, w, 1), generator=g, device=dev),
+        trgt_extrinsics=cam.trgt_extrinsics.expand(b, 4, 4),
+        trgt_intrinsics=cam.trgt_intrinsics.expand(b, 3, 3),
+        near=torch.full((b,), 0.5, device=dev), far=torch.full((b,), 4.0, device=dev))
+    if stage == "action":
+        batch.flow = torch.randn((b, h, w, 2), generator=g, device=dev)
+    return batch
+
+
+def _train_calls(state, batch, randomness):
+    """An update step, a frozen step and a 2-step call (False, True), each
+    from make_train_step / make_multi_train_step with the given randomness;
+    returns every metric."""
+    from neural_jacobian_field_torch.training import (
+        make_multi_train_step, make_train_step, stack_batches)
+
+    model, cfg = state.model, state.cfg
+    out = []
+    for gate, (yx, draws) in zip((True, False), randomness[:2]):
+        out += list(make_train_step(model, cfg, static_updated=gate)(
+            state, batch, yx=yx, draws=draws).values())
+    (y1, d1), (y2, d2) = randomness[2:]
+    multi = make_multi_train_step(model, cfg, 2, static_schedule=(False, True))
+    out += list(multi(state, stack_batches([batch, batch]), yx=torch.stack([y1, y2]),
+                      draws=[torch.stack(ds) for ds in zip(d1, d2)]).values())
+    return out
+
+
+def _train_tensors(state):
+    return ([p.detach() for p in state.model.parameters()] + list(state.model.buffers())
+            + state.optimizer.state_tensors())
+
+
+def _l2(x, y):
+    return float((x.double() - y.double()).norm())
+
+
+@pytest.mark.parametrize("mode,stage", [("epipolar", "perception"), ("exact", "perception"),
+                                        ("epipolar", "action")])
+def test_captured_train_program_is_the_eager_step(dev, mode, stage):
+    """Four steps (update, frozen, and a 2-step program) through CUDA graphs
+    and, from the same state and randomness, eagerly five times: metrics,
+    parameters, BatchNorm statistics and Adam's state. Where the eager runs
+    agree bit for bit (the first step's metrics; every tensor of a stage-2
+    step, whose backward stays in the Jacobian trunk), the captured run
+    equals them bit for bit; where they do not (a stage-1 backward sums with
+    atomics: torch.gather's and the bilinear upsampling's), it is one more
+    such run: its l2 distance to the nearest eager run over the eager runs'
+    spread is at most 10 in every tensor and at most 1 in the median.
+    Launches counted through replay equal the eager step's; a stage-1 step
+    launches two trunks forward."""
+    import itertools
+
+    from neural_jacobian_field_torch.training import make_train_step, step_randomness
+
+    batch = _train_batch(dev, stage)
+    states = [_train_state(dev, mode, stage) for _ in range(6)]
+    g = _gen(5)
+    randomness = [step_randomness(states[0], batch, g) for _ in range(4)]
+    runs = []
+    for i, state in enumerate(states):
+        context = state.model.programs.eager() if i < 5 else contextlib.nullcontext()
+        with context:
+            metrics = _train_calls(state, batch, randomness)
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in metrics + _train_tensors(state)])
+    *eager, captured = runs
+    assert all(torch.equal(a, c) for a, c in zip(eager[0][:11], captured[:11]))
+    ratios = []
+    for i, c in enumerate(captured):
+        ts = [run[i] for run in eager]
+        assert torch.isfinite(c.float()).all(), i
+        if all(torch.equal(ts[0], t) for t in ts[1:]):
+            assert torch.equal(c, ts[0]), i
+        else:
+            assert stage == "perception", i
+            spread = max(_l2(x, y) for x, y in itertools.combinations(ts, 2))
+            ratios.append(min(_l2(c, t) for t in ts) / spread)
+    assert max(ratios, default=0.0) <= 10.0
+    assert statistics.median(ratios or [0.0]) <= 1.0
+    assert len(states[5].model.programs) == 3
+    # launches through replay: the counts of an eager update step
+    counts = {}
+    for state in (states[0], states[5]):
+        captures = state is states[5]
+        with contextlib.nullcontext() if captures else state.model.programs.eager():
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            make_train_step(state.model, state.cfg, static_updated=True)(
+                state, batch, yx=randomness[0][0], draws=randomness[0][1])
+            torch.cuda.synchronize()
+            counts[captures] = K.launch_counts()
+    assert counts[True] == counts[False]
+    trunk = "K7-tz-fwd" if mode == "epipolar" else "K7-fwd"
+    assert counts[True][trunk] == (2 if stage == "perception" else 3)
+
+
+@pytest.mark.parametrize("mode", ["epipolar", "exact"])
+def test_train_program_capture_waits_on_no_host_sync(dev, mode):
+    """The update, frozen and 2-step programs are captured, and replayed,
+    with CUDA's sync debug mode raising on any operation that would wait
+    for the device (the warm-up calls before each capture run eagerly under
+    it too)."""
+    from neural_jacobian_field_torch.training import step_randomness
+
+    state = _train_state(dev, mode)
+    batch = _train_batch(dev)
+    g = _gen(6)
+    with state.model.programs.eager():  # the kernels built, cuBLAS and cuDNN set up
+        _train_calls(state, batch, [step_randomness(state, batch, g) for _ in range(4)])
+    state.model.programs = type(state.model.programs)()
+    randomness = [step_randomness(state, batch, g) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            out = _train_calls(state, batch, randomness)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(state.model.programs) == 3
+    assert all(bool(torch.isfinite(t).all()) for t in out)

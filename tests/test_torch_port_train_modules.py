@@ -281,14 +281,19 @@ def test_step_schedules_match_jax_over_training():
 # ------------------------------------------------------------------ optimizer
 
 class _Tiny(nn.Module):
-    """Two parameter groups by name: encoder.* and the rest."""
+    """Two parameter groups by name: encoder.* and the rest; in stage 2 the
+    optimizer holds decoder.jacobian_head alone."""
 
     def __init__(self):
         super().__init__()
+        from types import SimpleNamespace
+
+        self.cfg = SimpleNamespace(action_decoder=torch_model_cfg().action_decoder)
         self.encoder = nn.Module()
         self.encoder.conv = nn.Linear(3, 4)
         self.decoder = nn.Module()
         self.decoder.head = nn.Linear(4, 2)
+        self.decoder.jacobian_head = nn.Linear(4, 3)
         self.decoder.unused = nn.Linear(2, 2)
 
 
@@ -298,18 +303,29 @@ def _tiny_jax_params(rng):
                 "bias": (0.1 * rng.normal(size=(o,))).astype(np.float32)}
 
     return {"encoder": {"conv": lin(3, 4)},
-            "decoder": {"head": lin(4, 2), "unused": lin(2, 2)}}
+            "decoder": {"head": lin(4, 2), "jacobian_head": lin(4, 3), "unused": lin(2, 2)}}
 
 
-@pytest.mark.parametrize("clip,enc_scale", [(None, 1.0), (0.5, 0.1)])
-def test_optimizer_matches_optax_over_three_updates(clip, enc_scale):
-    """Adam(wd 1e-5) with the warmup schedule, global-norm clipping and the
-    encoder lr scale, against the JAX package's optax chain over 3 updates
-    of seeded gradients. decoder.unused never gets a gradient: optax still
-    decays and normalises its zeros, so it must move the same way here.
-    Each parameter's displacement agrees to 2e-5 of its largest entry:
-    optax takes the bias correction 1 - 0.999^t in float32 (1.3e-5 off at
-    t = 1, 6.4e-6 in its square root), torch in float64."""
+# (updates, clip, encoder lr scale, mode, gradient scale per update: 0.2 and
+# 1 alternate, so that the global norm, ~4 or ~20, falls on both sides of
+# the clip at 10)
+OPTIMIZER_CASES = [(3, None, 1.0, "perception", False), (3, 0.5, 0.1, "perception", False),
+                   (20, None, 1.0, "perception", False), (20, 10.0, 0.1, "perception", True),
+                   (20, 10.0, 1.0, "action", True)]
+
+
+@pytest.mark.parametrize("updates,clip,enc_scale,mode,alternate", OPTIMIZER_CASES)
+def test_optimizer_matches_optax_over_three_updates(updates, clip, enc_scale, mode, alternate):
+    """The tensor-op Adam (wd 1e-5) with the warmup schedule (4 steps, then
+    flat), global-norm clipping, the encoder lr scale and, in stage 2, the
+    trainable mask, against the JAX package's optax chain over 3 or 20
+    updates of seeded gradients. decoder.unused never gets a gradient: optax
+    still decays and normalises its zeros, so in stage 1 it must move the
+    same way here; in stage 2 only decoder.jacobian_head moves (the frozen
+    gradients are zero, as stop_frozen_gradients makes them). Both compute
+    optax's formula in float32, bias corrections included, so each
+    parameter's displacement agrees to a few float32 roundings carried
+    through the steps: 5e-6 of its largest entry (measured: 1.2e-6)."""
     from neural_jacobian_field_tpu.training.train import TrainCfg as JCfg
     from neural_jacobian_field_tpu.training.train import make_optimizer as j_make
     from neural_jacobian_field_torch.training import TrainCfg, TrainState, apply_gradients
@@ -320,8 +336,9 @@ def test_optimizer_matches_optax_over_three_updates(clip, enc_scale):
 
     rng = np.random.default_rng(7)
     params = _tiny_jax_params(rng)
-    kw = dict(lr=1e-2, warm_up_steps=4, grad_clip_norm=clip, encoder_lr_scale=enc_scale)
-    tx = j_make(JCfg(**kw), params)
+    kw = dict(mode=mode, lr=1e-2, warm_up_steps=4, grad_clip_norm=clip,
+              encoder_lr_scale=enc_scale)
+    tx = j_make(JCfg(**kw), params, jax_model_cfg().action_decoder)
     jparams = jax.tree.map(jnp.asarray, params)
     jstate = tx.init(jparams)
 
@@ -329,22 +346,29 @@ def test_optimizer_matches_optax_over_three_updates(clip, enc_scale):
     model.load_state_dict(from_jax_variables(params), strict=True)
     cfg = TrainCfg(**kw)
     state = TrainState(model=model, optimizer=make_optimizer(cfg, model), cfg=cfg)
-    for _ in range(3):
-        grads = jax.tree.map(lambda p: (3.0 * rng.normal(size=p.shape)).astype(np.float32),
-                             params)
-        grads["decoder"]["unused"] = jax.tree.map(np.zeros_like, grads["decoder"]["unused"])
-        updates, jstate = tx.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+    for i in range(updates):
+        scale = (0.2 if i % 2 else 1.0) if alternate else 1.0
+        grads = jax.tree.map(
+            lambda p: (3.0 * scale * rng.normal(size=p.shape)).astype(np.float32), params)
+        for name in ("unused",) + (("head",) if mode == "action" else ()):
+            grads["decoder"][name] = jax.tree.map(np.zeros_like, grads["decoder"][name])
+        if mode == "action":
+            grads["encoder"] = jax.tree.map(np.zeros_like, grads["encoder"])
+        updates_, jstate = tx.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates_)
         tgrads = from_jax_variables(grads)
         model.zero_grad(set_to_none=True)
         for name, p in model.named_parameters():
-            if not name.startswith("decoder.unused"):
+            if p.requires_grad and not name.startswith("decoder.unused"):
                 p.grad = tgrads[name].clone()
         apply_gradients(state)
-    assert state.step == 3
+    assert state.step == updates
     want = from_jax_variables(jax.tree.map(np.asarray, jparams))
     start = from_jax_variables(params)
     for name, p in model.named_parameters():
-        _close(_np(p) - start[name].numpy(), want[name].numpy() - start[name].numpy(), 2e-5)
+        _close(_np(p) - start[name].numpy(), want[name].numpy() - start[name].numpy(), 5e-6)
     moved = _np(model.decoder.unused.weight) - params["decoder"]["unused"]["kernel"].T
-    assert np.abs(moved).min() > 0
+    assert (np.abs(moved).min() > 0) == (mode == "perception")
+    if mode == "action":
+        assert [n for n, p in model.named_parameters() if p.requires_grad] == [
+            "decoder.jacobian_head.weight", "decoder.jacobian_head.bias"]

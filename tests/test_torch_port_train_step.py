@@ -8,7 +8,17 @@ randomness, drawn in the test with the JAX step's key splits: the pixel set
 from `k_prep`, then split(k_samp, 2) for the spaced jitter and the PDF
 jitter. One step with the proposal gate given statically (update and frozen),
 then a second step from the JAX state after the first, its optax Adam state
-carried over through utils/from_jax.load_optax_adam_state.
+carried over through utils/from_jax.load_optax_adam_state; each through the
+port's eager `train_step` and through the `make_train_step` callable (a
+program on the card, the same Python run eagerly here). Then two steps in
+one call, JAX's make_multi_train_step with the gates (True, False) baked in
+against the port's, the draws of each substep from its key split; between
+the two substeps the port takes over JAX's state after the first (an
+optimizer hook), so that each substep is compared from the same state, as
+the single steps are: chained, the first step's float32 differences, within
+these tolerances, are amplified by (2) below in the second step's
+gradients (measured: 12-18% of some encoder BatchNorm tensors' elements
+past 1e-2 lr, none past 0.5 lr).
 
 Two amplifiers of float32 rounding are held off, so that the comparison is
 of the algorithm: (1) the proposal anneal exponent stays ~0 over both steps
@@ -141,6 +151,16 @@ def steps():
     new2, metrics2 = step(first, jbatch, key2)
     out["second"] = dict(start=first, new=new2, metrics=metrics2,
                          draws=_jax_draws(key2, 2, h, w, samples))
+    # two steps in one program, the gates baked in; the state after its
+    # first substep from the update step compiled above (the same program)
+    key3 = jax.random.PRNGKey(23)
+    keys3 = jax.random.split(key3, 2)
+    multi = jt.make_multi_train_step(jmodel, jcfg, 2, donate=False,
+                                     static_schedule=(True, False))
+    new3, metrics3 = multi(st, jt.stack_batches([jbatch, jbatch]), key3)
+    mid, _ = step(st, jbatch, keys3[0])
+    out["multi"] = dict(mid=mid, new=new3, metrics=metrics3,
+                        draws=[_jax_draws(k, 2, h, w, samples) for k in keys3])
     return out
 
 
@@ -176,10 +196,14 @@ def _check_metrics(got, want):
 
 def _check_params_after_adam(model, before, after):
     """Displacements on the lr scale (see the module docstring)."""
+    _check_displacements({n: p.detach() for n, p in model.named_parameters()}, before, after)
+
+
+def _check_displacements(got, before, after):
     want = from_jax_variables(jax.tree.map(np.asarray, after))
     start = from_jax_variables(jax.tree.map(np.asarray, before))
-    for name, p in model.named_parameters():
-        d_got = p.detach().numpy() - start[name].numpy()
+    for name, p in got.items():
+        d_got = p.numpy() - start[name].numpy()
         d_want = want[name].numpy() - start[name].numpy()
         err = np.abs(d_got - d_want) / LR
         assert np.abs(d_want).max() > 0, name  # every parameter moves, reached or not
@@ -194,20 +218,32 @@ def _check_stats(model, want_stats):
         assert _rel(bufs[name].numpy(), v.numpy()) <= 1e-5, name
 
 
+def _port_step(entry, state, batch, updated, yx, draws):
+    """One port step through `entry`: the eager train_step, or the callable
+    of make_train_step with the gate baked in."""
+    from neural_jacobian_field_torch.training import make_train_step, train_step
+
+    if entry == "train_step":
+        return train_step(state, batch, updated=updated, yx=yx, draws=draws)
+    step = make_train_step(state.model, state.cfg, static_updated=updated)
+    return step(state, batch, yx=yx, draws=draws)
+
+
+ENTRIES = ["train_step", "make_train_step"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
 @pytest.mark.parametrize("updated", [True, False])
-def test_train_step_matches_jax(steps, updated):
+def test_train_step_matches_jax(steps, updated, entry):
     """Loss and metrics, every parameter's gradient, every parameter after
     Adam (the Jacobian head, which stage 1 does not reach, and on a frozen
     step the proposal networks move by decay and Adam alone), and the new
     BatchNorm statistics."""
-    from neural_jacobian_field_torch.training import train_step
-
     ref = steps[updated]
     v = steps["variables"]
     state = _port_state(v["params"], v["batch_stats"])
     yx, draws = ref["draws"]
-    metrics = train_step(state, _port_batch(steps["arrays"]), updated=updated, yx=yx,
-                         draws=draws)
+    metrics = _port_step(entry, state, _port_batch(steps["arrays"]), updated, yx, draws)
     assert state.step == 1
     assert state.steps_since_update == int(ref["new"].steps_since_update)
     _check_metrics(metrics, ref["metrics"])
@@ -227,11 +263,11 @@ def test_train_step_matches_jax(steps, updated):
     _check_stats(state.model, ref["new"].batch_stats)
 
 
-def test_second_train_step_from_carried_optax_state(steps):
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_second_train_step_from_carried_optax_state(steps, entry):
     """The JAX state after one update step (parameters, BatchNorm statistics,
     the optax Adam moments and count) carried over to the port, then one more
     step on both sides."""
-    from neural_jacobian_field_torch.training import train_step
     from neural_jacobian_field_torch.utils.from_jax import load_optax_adam_state
 
     ref = steps["second"]
@@ -243,8 +279,55 @@ def test_second_train_step_from_carried_optax_state(steps):
     load_optax_adam_state(state.optimizer, state.model, *adam)
     state.step, state.steps_since_update = int(start.step), int(start.steps_since_update)
     yx, draws = ref["draws"]
-    metrics = train_step(state, _port_batch(steps["arrays"]), updated=True, yx=yx,
-                         draws=draws)
+    metrics = _port_step(entry, state, _port_batch(steps["arrays"]), True, yx, draws)
     _check_metrics(metrics, ref["metrics"])
     _check_params_after_adam(state.model, start.params, ref["new"].params)
     _check_stats(state.model, ref["new"].batch_stats)
+
+
+def test_multi_train_step_matches_jax(steps):
+    """Two steps in one call, the gates (True, False) baked in: the port's
+    make_multi_train_step against JAX's from the same state, each substep
+    handed the draws of its own key, and between them JAX's state after the
+    first substep taken over in place (see the module docstring). Each
+    substep's metrics, parameters after each substep, the BatchNorm
+    statistics and the counters, with the single step's tolerances."""
+    from neural_jacobian_field_torch.training import make_multi_train_step, stack_batches
+    from neural_jacobian_field_torch.utils.from_jax import load_optax_adam_state
+
+    ref = steps["multi"]
+    mid = ref["mid"]
+    v = steps["variables"]
+    state = _port_state(v["params"], v["batch_stats"])
+    model, opt = state.model, state.optimizer
+    after_first = {}
+
+    def take_over_jax_state(*_):
+        if after_first:
+            return
+        after_first.update({n: p.detach().clone() for n, p in model.named_parameters()})
+        _check_stats(model, mid.batch_stats)
+        loaded = from_jax_variables(jax.tree.map(np.asarray, mid.params),
+                                    jax.tree.map(np.asarray, mid.batch_stats))
+        with torch.no_grad():
+            for name, t in model.state_dict().items():
+                t.copy_(loaded[name])
+        load_optax_adam_state(opt, model, *[
+            s for s in jax.tree.leaves(mid.opt_state, is_leaf=lambda s: hasattr(s, "mu"))
+            if hasattr(s, "mu")])
+
+    hook = opt.register_step_post_hook(take_over_jax_state)
+    batch = _port_batch(steps["arrays"])
+    yx = torch.stack([d[0] for d in ref["draws"]])
+    draws = [torch.stack(ds) for ds in zip(*(d[1] for d in ref["draws"]))]
+    multi = make_multi_train_step(model, state.cfg, 2, static_schedule=(True, False))
+    metrics = multi(state, stack_batches([batch, batch]), yx=yx, draws=draws)
+    hook.remove()
+    assert (state.step, state.steps_since_update) == (2, int(ref["new"].steps_since_update))
+    for i in range(2):
+        _check_metrics({k: m[i] for k, m in metrics.items()},
+                       {k: m[i] for k, m in ref["metrics"].items()})
+    _check_displacements(after_first, v["params"], mid.params)
+    _check_params_after_adam(model, mid.params, ref["new"].params)
+    _check_stats(model, ref["new"].batch_stats)
+    assert float(opt.state_tensors()[0]) == 2.0
