@@ -98,7 +98,37 @@ K7 trunks that project the latent themselves):
      loss that falls from its early peak over 20 captured steps on a fixed
      batch at lr 1e-4, every parameter outside decoder.jacobian_head bit for
      bit unchanged and the BatchNorm running statistics moved;
-  7. timings and peak memory.
+  7. the concat layout's shapes: K7-fwd and K7-bwd with one latent level,
+     128 wide at the e2e step's 4,096 points and at 458,752, 512 wide at
+     458,752, on the wgmma kernels, against the plain versions and the
+     backward against the legacy kernel too (lines "K7-fwd one level" /
+     "K7-bwd one level", beside the K7 rows); K9-fwd, K9-dgrad and K9-wgrad
+     at the e2e drive's 4x12x16x64 convs;
+  8. the training CLI at full width (lines "cli"): which of PyYAML, Pillow,
+     matplotlib and the native decoder the machine has; a 480x640
+     synthetic scene (3 cameras x 3 trajectories x 4 frames, action_dim
+     16) written by the port; `train()` in process at dataset_allegro +
+     model_allegro (bf16, K9 convs, 6 steps per call, proposal warm-up 12,
+     198 steps: log points at 96 and 192, a validation video of 2 frames
+     at 195, a checkpoint at 198), its first steady dispatch (steps
+     96-102) under torch.profiler (the device idle share of a steady
+     window; the logged window 102-192 leaves it out); three
+     steps replayed after the validation render against three eager runs
+     (as in 5); the loader alone in both stages' modes (batches/s); stage
+     2 (flow) warm-started
+     from the checkpoint, its frozen parameters bit for bit against it; a
+     4-step tracks run. Printed: the logged rays/s beside phase 5's
+     6-step program, the launches of each run (paths cli_stage1,
+     cli_stage2, cli_tracks), the captured programs, the frames written,
+     the peak reserved memory. Gates: finite losses, the steady programs
+     reached, the frames, the freezing, the counts (each kernel of a
+     stage's steps at least its steps times phase 5's per-step count),
+     the legacy counters;
+  9. the e2e drive (neural_jacobian_field_torch.verify_e2e) on the card in
+     float32 and in bf16 (K9 convs, K7 with one 128-wide level), its checks
+     as gates, the two loss curves side by side every 10 steps (lines
+     "e2e"; path e2e);
+  10. timings and peak memory.
 Every main path also checks that no K9 wrapper went to its legacy kernel
 (C or Cout not a multiple of 8), and no K7 wrapper to its legacy WMMA
 kernel (shapes off fwd_plan's or bwd_plan's wgmma kernels). Any failed
@@ -201,7 +231,9 @@ def device_ms(fn, reps=5, groups=None):
     of its kernels (and copies and fills) under torch.profiler, over reps
     calls after one warm-up. Spans the profiler mirrors from host ranges are
     dropped. With `groups` ({label: regex}), also the milliseconds per call
-    of the kernels whose names match each: (total, {label: ms})."""
+    of the kernels whose names match each: (total, {label: ms}). Where the
+    profiler delivers no device event in four traces, NaN (not measured),
+    said so on a line of its own."""
     import warnings
 
     import torch
@@ -210,7 +242,11 @@ def device_ms(fn, reps=5, groups=None):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace that caught no device event is taken again
+    # a trace that caught no device event is taken again, after a pause: the
+    # profiler now and then delivers no device activity for a whole trace
+    for attempt in range(4):
+        if attempt:
+            time.sleep(0.5)
         with warnings.catch_warnings():  # "clears events at the end of each cycle"
             warnings.simplefilter("ignore")
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -224,7 +260,12 @@ def device_ms(fn, reps=5, groups=None):
         us = sum(e.time_range.elapsed_us() for e in dev_events)
         if us > 0:
             break
-    check(us > 0, "the profiler recorded no device time")
+    if us <= 0:
+        # the profiler delivered no device event in any trace: no device
+        # time, so every device figure derived from this call prints nan
+        print("   (torch.profiler delivered no device event in 4 traces: device time not "
+              "measured, nan)")
+        return math.nan if groups is None else (math.nan, {label: math.nan for label in groups})
     if groups is None:
         return us / reps / 1e3
     return us / reps / 1e3, {
@@ -583,6 +624,131 @@ def kernel_checks(dev):
     del tz, x, z
     torch.cuda.empty_cache()
     return rows
+
+
+def concat_layout_checks(dev):
+    """K7-fwd and K7-bwd with ONE latent level, the concat layout's map as the
+    trunks get it (float32, from the bilinear lookup): 128 wide (the e2e
+    configuration, num_layers 2) at its train step's 4 x 128 rays x 8 samples
+    and at the flagship step's 7 x 256 x 256, and 512 wide (num_layers 4,
+    feature_layout concat) at the latter; each trunk of d_out 1, 16, 24
+    against its plain version, on the wgmma kernels (fwd_plan / bwd_plan not
+    legacy, no legacy launch but the comparison's), the backward also against
+    the legacy kernel forced onto the same inputs (within 1e-4 of scale).
+    Lines of their own beside the K7 rows: error, tolerance, kernel / plain /
+    device ms, bound. Then K9-fwd, K9-dgrad and K9-wgrad at the e2e
+    configuration's 64-channel convs."""
+    import torch
+
+    from neural_jacobian_field_torch.models.resnet_fc import MlpCfg
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.ops.kernels import field_mlp
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cfg = MlpCfg(n_blocks=5, d_hidden=128, combine_layer=3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    K.reset_launch_counts()
+    forced = 0  # backward calls sent to the legacy kernel on purpose
+    for width, npts in ((128, 4 * 128 * 8), (128, TRAIN_B * TRAIN_RAYS * 256),
+                        (512, TRAIN_B * TRAIN_RAYS * 256)):
+        z = torch.randn((npts, width), generator=g, device=dev)
+        x = (torch.rand((npts, 63), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+        for d_out in (1, 16, 24):
+            params = trunk_params(g, dev, d_out, width)
+            fplan = field_mlp.fwd_plan(npts, 63, 128, 5, 3, d_out, (width,), sms=sms)
+            bplan = field_mlp.bwd_plan(npts, 63, 128, 5, 3, d_out, (width,), sms=sms)
+            check(not fplan.legacy and not bplan.legacy,
+                  f"K7 one level {width}: the plan takes the legacy kernel")
+            got = K.fused_resnet_fc(params, cfg, z, x, d_out)
+            want = K.fused_resnet_fc_plain(params, cfg, z, x, d_out)
+            ferr, fscale = float((got - want).abs().max()), float(want.abs().max())
+            gy = torch.randn((npts, d_out), generator=g, device=dev)
+            grads, dz = K.fused_resnet_fc_bwd(params, cfg, z, x, gy, d_out)
+            pgrads, pdz = K.fused_resnet_fc_bwd_plain(params, cfg, z, x, gy, d_out)
+            # the legacy kernel forced onto the same inputs: it recomputes the
+            # same bf16 forward (the same ReLU masks), so the wgmma passes
+            # must sit within 1e-4 of it; against the plain version both
+            # may sit as far as the legacy kernel does (a recomputed bf16
+            # activation rounded the other way flips a mask: a few 1e-2 of
+            # scale at a few thousand points), or the three-level rows'
+            # bounds where those are larger
+            bwd_plan = field_mlp.bwd_plan
+            field_mlp.bwd_plan = lambda *a, **k: field_mlp.legacy_bwd_plan(npts, sms)
+            try:
+                lgrads, _ = K.fused_resnet_fc_bwd(params, cfg, z, x, gy, d_out)
+            finally:
+                field_mlp.bwd_plan = bwd_plan
+            forced += 1
+
+            def worst(fn, a, b):
+                return max(fn(a[k][n], v) for k, p in b.items() for n, v in p.items())
+
+            def l2(a, b):
+                return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+            vs_legacy = worst(rel_err, grads, lgrads)
+            leaf, leaf_l2 = worst(rel_err, grads, pgrads), worst(l2, grads, pgrads)
+            leaf_tol = max(2e-2, worst(rel_err, lgrads, pgrads) + 1e-4)
+            l2_tol = max(1e-2, worst(l2, lgrads, pgrads) + 1e-4)
+            dzl2 = float((dz.float() - pdz.float()).norm() / pdz.float().norm())
+            berr = max(float((grads[k][n] - v).abs().max()) for k, p in pgrads.items()
+                       for n, v in p.items())
+            ok = (bool(torch.isfinite(got).all()) and ferr <= 1e-2 * fscale and vs_legacy <= 1e-4
+                  and leaf <= leaf_tol and leaf_l2 <= l2_tol and dzl2 <= 1e-2)
+            flops = npts * 2.0 * (63 * 128 + 10 * 128 * 128 + 128 * d_out + width * 3 * 128)
+            fbytes = nbytes(z, x) + npts * d_out * 4
+            bbytes = 2 * nbytes(z) + nbytes(x, gy)
+            times = []
+            for fn in (lambda: K.fused_resnet_fc(params, cfg, z, x, d_out),
+                       lambda: K.fused_resnet_fc_plain(params, cfg, z, x, d_out),
+                       lambda: K.fused_resnet_fc_bwd(params, cfg, z, x, gy, d_out),
+                       lambda: K.fused_resnet_fc_bwd_plain(params, cfg, z, x, gy, d_out)):
+                times.append(cuda_time_ms(fn, reps=3, warmup=1))
+            fdev = device_ms(lambda: K.fused_resnet_fc(params, cfg, z, x, d_out), reps=3)
+            bdev = device_ms(lambda: K.fused_resnet_fc_bwd(params, cfg, z, x, gy, d_out), reps=3)
+            fbound = max(fbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+            bbound = max(bbytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_BF16_FLOPS) * 1e3
+            print(f"K7-fwd one level {width} N={npts} d_out={d_out}: max_abs_err {ferr:.3e} "
+                  f"rel_to_scale {ferr / fscale:.3e} (tol 1e-2 of scale); ms kernel "
+                  f"{times[0]:.4f} plain {times[1]:.4f} device {fdev:.4f} bound {fbound:.4f}")
+            print(f"K7-bwd one level {width} N={npts} d_out={d_out}: dW/db max_abs_err "
+                  f"{berr:.3e}; against the legacy kernel worst leaf {vs_legacy:.3e} of scale "
+                  f"(tol 1e-4); against the plain version worst leaf {leaf:.3e} of scale (tol "
+                  f"{leaf_tol:.3e}), {leaf_l2:.3e} in l2 (tol {l2_tol:.3e}); dz {dzl2:.3e} in "
+                  f"l2 (tol 1e-2); ms kernel {times[2]:.4f} plain {times[3]:.4f} device "
+                  f"{bdev:.4f} bound {bbound:.4f}")
+            check(ok, f"K7 one level {width} N={npts} d_out={d_out} disagrees with its plain "
+                  "version")
+            del got, want, grads, dz, pgrads, pdz, lgrads
+        del z, x
+    # K9 at the e2e configuration's stride-1 convs: layer1 of a 48x64 image,
+    # batch 4, 64 channels (the e2e drive's bf16 run launches them)
+    x = torch.randn((4, 12, 16, 64), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3, 3, 64, 64), generator=g, device=dev) / 24.0).to(torch.bfloat16)
+    gy = torch.randn((4, 12, 16, 64), generator=g, device=dev).to(torch.bfloat16)
+    for name, fn, plain in (("K9-fwd", lambda: K.conv3x3_s1(x, w),
+                             lambda: K.conv3x3_s1_plain(x, w)),
+                            ("K9-dgrad", lambda: K.conv3x3_s1_dgrad(gy, w),
+                             lambda: K.conv3x3_s1_dgrad_plain(gy, w)),
+                            ("K9-wgrad", lambda: K.conv3x3_s1_wgrad(x, gy),
+                             lambda: K.conv3x3_s1_wgrad_plain(x, gy))):
+        got, want = fn(), plain()
+        err = (got.float() - want.float()).abs()
+        if name == "K9-wgrad":  # float32 sums reordered
+            ok, tol = rel_err(got, want) <= 1e-4, "1e-4 of scale"
+        else:  # one bf16 rounding of a float32 sum on each side
+            ok, tol = bool((err <= 2.0 ** -7 * want.float().abs() + 1e-3).all()), \
+                "2^-7|ref| + 1e-3 per element"
+        print(f"{name} at the e2e shape 4x12x16x64: max_abs_err {float(err.max()):.3e} "
+              f"rel_to_scale {rel_err(got, want):.3e} (tol {tol}); ms kernel "
+              f"{cuda_time_ms(fn):.4f} plain {cuda_time_ms(plain):.4f} device "
+              f"{device_ms(fn):.4f}")
+        check(ok, f"{name} at the e2e shape disagrees with its plain version")
+    legacy = K.legacy_launch_counts()
+    check(legacy["K7-bwd"] == forced and not any(v for k, v in legacy.items() if k != "K7-bwd"),
+          f"K7 one level: legacy launches {legacy} beyond the {forced} forced ones")
+    K.reset_launch_counts()
+    torch.cuda.empty_cache()
 
 
 def k10_checks(dev):
@@ -2050,6 +2216,280 @@ def action_phase(dev, timings, mode, supervision, stage1):
     return counts
 
 
+# ------------------------------------------------------------------ phase 8
+
+CLI_STEPS, CLI_SPC, CLI_WARMUP, CLI_VAL = 198, 6, 12, 195
+
+
+def cli_overrides(scene, work):
+    """The flagship CLI run's overrides (configurations/config.yaml with
+    dataset_allegro + model_allegro): the scene, bf16, K9 convs (the YAML
+    leaves the encoder's conv_impl at the JAX default, "xla"; bench.py's
+    flagship takes "pallas"), six steps per call, a proposal warm-up short
+    enough to reach the steady programs, validation once near the end."""
+    return [f"dataset.root={scene}", "dataset.max_num_frames_per_traj=4",
+            "training.compute_dtype=bfloat16", "model.encoder.conv_impl=pallas",
+            f"training.steps_per_call={CLI_SPC}",
+            f"model.rendering.proposal_warmup={CLI_WARMUP}", f"training.max_steps={CLI_STEPS}",
+            f"training.val_check_interval={CLI_VAL}", "validation.video.num_frames=2",
+            f"checkpoint.dir={work / 'ck1'}", f"checkpoint.every_n_train_steps={CLI_STEPS}"]
+
+
+def cli_run(dev, label, overrides, log_dir, profile=0):
+    """train() in process on the card from the dotted overrides; returns the
+    state, run.json, the launch counts (reset just before, read just after)
+    and the peak reserved memory (GiB)."""
+    import torch
+
+    from neural_jacobian_field_torch import train as cli
+    from neural_jacobian_field_torch.config import CONFIG_DIR, get_typed_root_config, load_config
+    from neural_jacobian_field_torch.ops import kernels as K
+
+    cfg = get_typed_root_config(load_config(CONFIG_DIR, overrides))
+    peak_window(dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = cli.train(cfg, log_dir=log_dir, device=dev, profile=profile)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check_no_legacy(label)
+    run = json.loads((log_dir / "run.json").read_text())
+    peak = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    losses = [v for _, v in run["losses"]]
+    print(f"{label}: {run['steps']} steps in {wall:.1f} s (set-up, captures and validation "
+          f"included); loader paths {run['loader_paths']}, decoders {run['decoders']}; "
+          f"{run['programs']} captured programs ({run['steady_programs']} steady "
+          f"{CLI_SPC}-step); logged losses {losses}; peak reserved {peak:.2f} GiB")
+    print(f"{label} launches: {counts}")
+    check(run["steps"] >= CLI_STEPS or label == "cli tracks", f"{label}: stopped early")
+    check(all(math.isfinite(v) for v in losses), f"{label}: a logged loss is not finite")
+    return state, run, counts, peak, wall
+
+
+def cli_phase(dev, timings, paths):
+    """Phase 8: the training CLI at full width on the card (lines "cli"): a
+    480x640 synthetic scene written by the port, stage 1 at the flagship
+    configuration through train(), a check that a train replay after the
+    validation render still equals eager steps, stage 2 warm-started from
+    stage 1's checkpoint, a short tracks run; the loader alone, the idle
+    share of one steady window, the rates beside the captured cycle of
+    phase 5."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import torch
+
+    from neural_jacobian_field_torch.data import (
+        collate, get_dataset, make_synthetic_scene, native)
+    from neural_jacobian_field_torch.parallel import to_device
+
+    import PIL
+    import yaml
+
+    print(f"cli machine: PyYAML {yaml.__version__}, Pillow {PIL.__version__}, matplotlib "
+          f"{importlib.util.find_spec('matplotlib') is not None}, native decoder "
+          f"{native.status()}")
+    work = Path(tempfile.mkdtemp(prefix="njf_cli_"))
+    try:
+        t0 = time.perf_counter()
+        scene = make_synthetic_scene(work / "scene", num_cameras=3, num_trajs=3,
+                                     frames_per_traj=4, height=H, width=W, action_dim=16)
+        print(f"cli scene: 3 cameras x 3 trajectories x 4 frames at {H}x{W}, action_dim 16 "
+              f"(dataset_allegro disables 8: the model's 8), written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        base = cli_overrides(scene, work)
+
+        # stage 1, its first steady dispatch (after the log point at 96)
+        # under torch.profiler, the logged window 102-192 after it
+        state, run, counts, peak, wall = cli_run(dev, "cli stage1", base, work / "logs1",
+                                                 profile=1)
+        paths["cli_stage1"] = counts
+        check_cli_counts("cli stage1", counts, run["steps"], paths, CLI_STAGE1_KERNELS)
+        rows = [json.loads(x) for x in (work / "logs1" / "metrics.jsonl").read_text().splitlines()]
+        rates = {r["step"]: r["perf/rays_per_sec"] for r in rows}
+        steady = rates[max(rates)]
+        cycle = timings.get("train_program6_cycle_rays_per_s")
+        check("profile" in run, "cli stage1: no steady dispatch was traced")
+        prof = run["profile"]
+        timings.update(cli_stage1_rays_per_s=steady, cli_stage1_peak_reserved_gib=peak,
+                       cli_stage1_s=wall)
+        if cycle:
+            timings["cli_stage1_host_cost"] = 1.0 - steady / cycle
+        if prof["device_events"]:
+            timings["cli_stage1_idle_share"] = prof["idle_share"]
+        print(f"cli stage1 logged perf/rays_per_sec by step {rates}; steady window (steps "
+              f"{prof['steps'][1]}-{max(rates)}, the traced dispatch left out) {steady:.1f} "
+              f"rays/s against phase 5's captured 5-frozen + 1-update cycle as one 6-step "
+              f"program {cycle or float('nan'):.1f} rays/s: CLI / captured "
+              f"{steady / cycle if cycle else float('nan'):.3f}, the host pipeline's cost "
+              f"1 - CLI / captured = {1 - steady / cycle if cycle else float('nan'):.3f}")
+        print(f"cli stage1 one steady dispatch under torch.profiler (steps "
+              f"{prof['steps'][0]}-{prof['steps'][1]}, inside the steady window, profiler "
+              f"overhead included): traced wall {prof['wall_ms']:.3f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle share "
+              + (f"{prof['idle_share']:.4f}" if prof["device_events"] else
+                 "not measured (the profiler delivered no device event)")
+              + f", {prof['device_events']} device events")
+        check(run["steady_programs"] >= 1, "cli stage1: no steady 6-step program was reached")
+        frames = run["validation_frames"]
+        print(f"cli stage1 validation frames written: {len(frames)} "
+              f"{[Path(f).name for f in frames]}")
+        check(len(frames) == 6 and all(Path(f).stat().st_size > 0 for f in frames),
+              "cli stage1: validation wrote no frames")
+
+        # a train replay after the validation render (its programs share the
+        # model) against eager steps from the same state
+        ds = get_dataset(state_cfg_dataset(base), "train")
+        batch = to_device(collate([ds[i] for i in range(TRAIN_B)]), dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 11)
+        plan = [(gate, *step_draws(dev, g)) for gate in (True, False, False)]
+        names, eager, ops = eager_runs(state, batch, plan, runs=3)
+        snap = snapshot(state)
+        _, captured = run_steps(state, batch, plan)
+        restore(state, snap)
+        compare_captured("cli stage1 after validation", names, eager, captured, ops)
+        del state, batch, eager, captured, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the loader alone, as the CLI builds it, in both stages' modes
+        for stage, mode in (("stage1", "perception"), ("stage2", "action")):
+            ds = get_dataset(dataclasses.replace(state_cfg_dataset(base), mode=mode), "train")
+            bps, made = loader_alone(dev, ds)
+            timings[f"cli_{stage}_loader_batches_per_s"] = bps
+            print(f"cli loader alone, {mode} (batch {TRAIN_B}, 16 threads, pinned, {made}): "
+                  f"{bps:.2f} batches/s = {bps * TRAIN_B * TRAIN_RAYS:.1f} rays/s of steps it "
+                  f"can feed")
+
+        # stage 2: flow, warm-started from stage 1's checkpoint
+        s2 = [*base, "dataset.mode=action", f"checkpoint.load={work / 'ck1'}",
+              f"checkpoint.dir={work / 'ck2'}"]
+        state, run, counts, peak, wall = cli_run(dev, "cli stage2", s2, work / "logs2")
+        paths["cli_stage2"] = counts
+        check_cli_counts("cli stage2", counts, run["steps"], paths, CLI_STAGE2_KERNELS)
+        rows = [json.loads(x) for x in (work / "logs2" / "metrics.jsonl").read_text().splitlines()]
+        rates = {r["step"]: r["perf/rays_per_sec"] for r in rows}
+        timings.update(cli_stage2_rays_per_s=rates[max(rates)], cli_stage2_peak_reserved_gib=peak,
+                       cli_stage2_s=wall)
+        # the warm start's parameters: stage 1's checkpoint
+        stage1 = torch.load(work / "ck1" / f"ckpt_{CLI_STEPS:09d}.pt", map_location="cpu",
+                            weights_only=True)["model"]
+        moved = [k for k, p in state.model.named_parameters()
+                 if not torch.equal(p.detach().cpu(), stage1[k])]
+        frozen_moved = [k for k in moved if not k.startswith("decoder.jacobian_head.")]
+        print(f"cli stage2 logged perf/rays_per_sec by step {rates}; {len(moved)} parameters "
+              f"moved, all in decoder.jacobian_head: {not frozen_moved}; "
+              f"{len(stage1) - len(moved)}/{len(stage1)} bit for bit unchanged")
+        check(moved and not frozen_moved,
+              f"cli stage2: frozen parameters moved {frozen_moved[:4]} (or none moved)")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # tracks: _pad_tracks and the tracks batch on the card
+        tr = [*base, "dataset.mode=action", "dataset.action_supervision_type=tracks",
+              "training.steps_per_call=1", "training.max_steps=4", "training.val_check_interval=0",
+              f"checkpoint.load={work / 'ck1'}", f"checkpoint.dir={work / 'ck3'}"]
+        state, run, counts, _, _ = cli_run(dev, "cli tracks", tr, work / "logs3")
+        paths["cli_tracks"] = counts
+        check(run["steps"] == 4 and counts["K7-tz-bwd"] > 0, "cli tracks: the steps did not run")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# the kernels each CLI stage's steps run at the flagship configuration:
+# stage 2 trains the Jacobian head alone, so no encoder or packing backward
+CLI_STAGE1_KERNELS = ("K9-fwd", "K9-dgrad", "K9-wgrad", "K6-fwd", "K6-bwd", "K5", "K7-tz-fwd",
+                      "K7-tz-bwd")
+CLI_STAGE2_KERNELS = ("K9-fwd", "K6-fwd", "K5", "K7-tz-fwd", "K7-tz-bwd")
+
+
+def check_cli_counts(label, counts, steps, paths, kernels):
+    """Each kernel of the stage's steps launched at least steps times phase
+    5's frozen step's count of it (an update step launches as many or more;
+    the capture warm-ups and the validation render add to it), and at
+    least once where phase 5's counts are not at hand."""
+    per_step = paths.get("train_frozen", {})
+    short = {k: (counts[k], steps * per_step.get(k, 0)) for k in kernels
+             if counts[k] < max(steps * per_step.get(k, 0), 1)}
+    print(f"{label} launch gate: " + ", ".join(
+        f"{k} {counts[k]} >= {max(steps * per_step.get(k, 0), 1)}" for k in kernels))
+    check(not short, f"{label}: kernels launched fewer times than its {steps} steps need "
+                     f"(count, needed) {short}")
+
+
+def loader_alone(dev, ds, warm=5, timed=30):
+    """Batches/s of the CLI's DataLoader (16 threads, pinned on the card) over
+    `timed` batches after `warm`, nothing else running; and its path counts."""
+    from neural_jacobian_field_torch.data import DataLoader
+
+    loader = DataLoader(ds, TRAIN_B, num_workers=16, pin_memory=dev.type == "cuda")
+    it = iter(loader)
+    for _ in range(warm):
+        next(it)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        next(it)
+    bps = timed / (time.perf_counter() - t0)
+    loader.close()
+    return bps, dict(loader.paths)
+
+
+def state_cfg_dataset(overrides):
+    from neural_jacobian_field_torch.config import CONFIG_DIR, get_typed_root_config, load_config
+
+    return get_typed_root_config(load_config(CONFIG_DIR, overrides)).dataset
+
+
+# ------------------------------------------------------------------ phase 9
+
+def e2e_phase(dev, timings, paths):
+    """Phase 9: the e2e drive (neural_jacobian_field_torch.verify_e2e) on
+    the card, its checks as gates, in float32 and in bf16 (the bf16 run with
+    K9 convs: the fused trunks take K7 with one 128-wide latent level, K9
+    the six 64-channel stride-1 convs); the loss curves side by side."""
+    import tempfile
+
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.verify_e2e import run
+
+    outs, total = {}, None
+    for label, extra in (("float32", []), ("bfloat16", ["training.compute_dtype=bfloat16",
+                                                        "model.encoder.conv_impl=pallas"])):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="njf_e2e_") as root:
+            outs[label] = run(dev, extra, root=root,
+                              log=lambda m, lb=label: print(f"e2e {lb}: {m}"))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check_no_legacy(f"e2e {label}")
+        timings[f"e2e_{label}_s"] = time.perf_counter() - t0
+        print(f"e2e {label}: {timings[f'e2e_{label}_s']:.1f} s; launches {counts}")
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    check(total["K7-fwd"] > 0 and total["K9-fwd"] > 0, "e2e: the bf16 run reached no K7 or K9")
+    paths["e2e"] = total
+    for stage, key, every in (("stage1 rgb", "stage1_rgb", 10), ("stage2 total", "stage2_total",
+                                                                 10)):
+        a, b = outs["float32"][key], outs["bfloat16"][key]
+        print(f"e2e {stage} loss, float32 | bf16, every {every} steps: " + "; ".join(
+            f"{i}: {a[i]:.5f} | {b[i]:.5f}" for i in range(0, len(a), every))
+              + f"; last: {a[-1]:.5f} | {b[-1]:.5f}")
+    print(f"e2e flow residual float32 {outs['float32']['flow_residual']:.4%} bf16 "
+          f"{outs['bfloat16']['flow_residual']:.4%}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def trace(fn):
     """torch.profiler around one fn() (ended by a synchronize): the profile,
     the traced wall time (the first host event to the last device event),
@@ -2304,6 +2744,9 @@ def main() -> int:
             paths[name] = counts["update"]
             paths[name + "_captured"] = counts["update captured"]
         del stage1
+        concat_layout_checks(dev)
+        cli_phase(dev, timings, paths)
+        e2e_phase(dev, timings, paths)
         timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
         print("launches by path: " + json.dumps(paths))

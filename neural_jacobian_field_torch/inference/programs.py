@@ -15,6 +15,8 @@ one launch per operation:
 - static outputs in the graph's private memory pool: a call returns copies
   of them, or copies them into destinations the caller hands in, so a later
   replay never overwrites a result the caller holds;
+- no garbage collection during a capture (a graph that a collection frees
+  mid-capture invalidates it: `gc.collect()` runs first, then waits);
 - two warm-up calls on a side stream before the capture (the allocator,
   cuBLAS and cuDNN handles, the kernels' once-per-process attributes); a
   function that updates tensors in place (`writes`: a train step's
@@ -38,6 +40,7 @@ replay raises: nothing falls back to eager execution. On the CPU, and inside
 
 import contextlib
 import functools
+import gc
 import itertools
 
 import torch
@@ -61,6 +64,22 @@ def _set_launches(state: dict, delta: dict | None = None) -> None:
         w.launches = n + dn
         if hasattr(w, "legacy_launches"):
             w.legacy_launches = legacy + dlegacy
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cyclic garbage collected first, then held off: a model
+    dropped earlier still holds its programs (the two refer to each other),
+    and a CUDA graph freed by a collection that lands inside another graph's
+    capture invalidates that capture."""
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class CudaGraphs:
@@ -116,7 +135,8 @@ class CapturedProgram:
             backend.warm_up(fn, self.inputs)
             before = _launch_state()
             try:
-                self._graph, outputs = capture(fn, self.inputs)
+                with _no_collection():
+                    self._graph, outputs = capture(fn, self.inputs)
             finally:
                 after = _launch_state()
                 _set_launches(before)

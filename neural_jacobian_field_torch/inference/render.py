@@ -15,7 +15,9 @@ eagerly.
 """
 
 from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ..models.decoders import PixelEncoding
@@ -132,3 +134,66 @@ def render_camera(model: Model, camera_input: CameraInput, robot_input: RobotInp
                         z_near=per_camera(z_near), z_far=per_camera(z_far))
     return patch_render(model, camera_input, ri, robot_input, patch_size=patch_size,
                         render_height=height, render_width=width)
+
+
+# -- host-side colormaps (validation frames) ------------------------------------
+
+# the turbo colormap at 33 evenly spaced points (matplotlib's table, 8-bit),
+# interpolated where matplotlib is not installed: within 7 levels of it
+_TURBO_KNOTS = np.array([
+    [48, 18, 59], [57, 42, 115], [64, 64, 162], [68, 86, 199], [70, 107, 227],
+    [70, 128, 246], [66, 148, 255], [55, 168, 250], [40, 188, 235], [28, 205, 216],
+    [24, 221, 194], [31, 233, 175], [50, 242, 152], [78, 249, 125], [109, 254, 98],
+    [139, 255, 75], [164, 252, 60], [185, 246, 53], [205, 236, 52], [223, 223, 55],
+    [238, 207, 58], [248, 190, 57], [253, 172, 52], [254, 150, 43], [251, 126, 33],
+    [244, 102, 23], [235, 80, 14], [223, 63, 8], [208, 47, 5], [190, 33, 2],
+    [169, 22, 1], [146, 11, 1], [122, 4, 3]]) / 255.0
+
+
+def turbo(x: np.ndarray) -> np.ndarray:
+    """The turbo colormap at x in [0, 1] -> [..., 3] floats in [0, 1]:
+    matplotlib's where matplotlib is installed, else `_TURBO_KNOTS`
+    interpolated linearly."""
+    try:
+        import matplotlib
+    except ImportError:
+        knots = np.linspace(0.0, 1.0, len(_TURBO_KNOTS))
+        return np.stack([np.interp(x, knots, _TURBO_KNOTS[:, c]) for c in range(3)], -1)
+    return matplotlib.colormaps["turbo"](x)[..., :3]
+
+
+def depth_colormap(depth: np.ndarray, near=None, far=None) -> np.ndarray:
+    """Turbo-colormapped depth (nerfstudio apply_depth_colormap): depth
+    [..., 1] or [...] -> uint8 [..., 3], scaled to [near, far] (the depth's
+    own range by default)."""
+    d = np.asarray(depth)
+    if d.shape[-1] == 1:
+        d = d[..., 0]
+    lo = np.min(d) if near is None else near
+    hi = np.max(d) if far is None else far
+    x = np.clip((d - lo) / (hi - lo + 1e-10), 0, 1)
+    return (turbo(x) * 255).astype(np.uint8)
+
+
+def flow_to_rgb(flow: np.ndarray, max_norm: Optional[float] = None) -> np.ndarray:
+    """Optical-flow colour wheel (torchvision flow_to_image semantics: hue
+    the direction, saturation the magnitude over max_norm): [..., 2] ->
+    uint8 [..., 3]."""
+    f = np.asarray(flow, dtype=np.float64)
+    mag = np.linalg.norm(f, axis=-1)
+    if max_norm is None:
+        max_norm = max(float(mag.max()), 1e-8)
+    h = (np.arctan2(-f[..., 1], -f[..., 0]) + np.pi) / (2 * np.pi)  # [0, 1)
+    sat = np.clip(mag / max_norm, 0, 1)
+    # HSV -> RGB at value 1
+    i = np.floor(h * 6).astype(int) % 6
+    frac = h * 6 - np.floor(h * 6)
+    p, q, t = 1 - sat, 1 - sat * frac, 1 - sat * (1 - frac)
+    one = np.ones_like(sat)
+    lut = np.stack([
+        np.stack([one, t, p], -1), np.stack([q, one, p], -1),
+        np.stack([p, one, t], -1), np.stack([p, q, one], -1),
+        np.stack([t, p, one], -1), np.stack([one, p, q], -1),
+    ], 0)
+    rgb = np.take_along_axis(lut, i[None, ..., None], axis=0)[0]
+    return (rgb * 255).astype(np.uint8)

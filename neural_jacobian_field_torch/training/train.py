@@ -398,6 +398,10 @@ class MultiStepDispatch:
         self.warmup = max(warmup, 10)
         self.max_programs = max_programs
 
+    def __len__(self) -> int:
+        """The gate-tuple programs built so far."""
+        return len(self._programs)
+
     def select(self, step, gates, default):
         """step: the window's first step; gates: its host_step_schedule
         values. Returns the statically gated program of a recurring

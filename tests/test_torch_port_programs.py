@@ -141,6 +141,41 @@ def test_failed_capture_raises_and_counts_nothing(counts):
     assert K.pack_2x2_flat.launches == 2 and K.conv3x3_s1.launches == 4
 
 
+def test_no_garbage_collection_during_a_capture():
+    """Cyclic garbage (a dropped model and its programs refer to each other)
+    is collected before a capture, and no collection runs inside it: a CUDA
+    graph freed mid-capture invalidates the capture. Collection is on again
+    after, also where the capture raised."""
+    import gc
+    import weakref
+
+    class Cycle:
+        pass
+
+    seen = []
+
+    class Records(CountingBackend):
+        def capture(self, fn, inputs):
+            seen.append((gc.isenabled(), ref() is None))
+            return super().capture(fn, inputs)
+
+    garbage = Cycle()
+    garbage.me = garbage
+    ref = weakref.ref(garbage)
+    del garbage
+    assert gc.isenabled()
+    CapturedProgram(lambda x: (x + 1,), (torch.ones(2),), Records())
+    assert seen == [(False, True)] and gc.isenabled()
+
+    class Fails(CountingBackend):
+        def capture(self, fn, inputs):
+            raise RuntimeError("capture invalidated")
+
+    with pytest.raises(RuntimeError):
+        CapturedProgram(lambda x: (x + 1,), (torch.ones(2),), Fails())
+    assert gc.isenabled()
+
+
 def test_program_buffers_copies_and_destinations():
     prog = CapturedProgram(lambda x, y: (x + y, 7), (torch.zeros(2), torch.ones(2)),
                            EagerReplay())
