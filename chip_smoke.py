@@ -4,8 +4,8 @@
     python3 chip_smoke.py                   # every check below
     python3 chip_smoke.py --profile [MODE]  # only: where a train step's device
                                             # time goes, eager and captured
-                                            # (MODE epipolar, exact, fused or
-                                            # action)
+                                            # (MODE epipolar, exact, fused,
+                                            # action or transformer)
     python3 chip_smoke.py --profile serve [MODE]  # only: one render and one
                                             # 100-step solve, eager and
                                             # captured (MODE epipolar or exact)
@@ -96,8 +96,11 @@ K7 trunks that project the latent themselves):
      eager runs, counts through replay, replayed step times and peak
      memory), a
      loss that falls from its early peak over 20 captured steps on a fixed
-     batch at lr 1e-4, every parameter outside decoder.jacobian_head bit for
-     bit unchanged and the BatchNorm running statistics moved;
+     batch at lr 1e-4, every parameter outside the decoder's action pattern
+     (action_param_pattern: "jacobian_head" here, `action_names`) bit for
+     bit unchanged, the trainable set exactly those parameters, and the
+     BatchNorm running means moved (with another norm: no running
+     statistics at all; `running_means_gate`);
   7. the concat layout's shapes: K7-fwd and K7-bwd with one latent level,
      128 wide at the e2e step's 4,096 points and at 458,752, 512 wide at
      458,752, on the wgmma kernels, against the plain versions and the
@@ -121,16 +124,34 @@ K7 trunks that project the latent themselves):
      6-step program, the launches of each run (paths cli_stage1,
      cli_stage2, cli_tracks), the captured programs, the frames written,
      the peak reserved memory. Gates: finite losses, the steady programs
-     reached, the frames, the freezing, the counts (each kernel of a
-     stage's steps at least its steps times phase 5's per-step count),
-     the legacy counters;
+     reached, the frames, the freezing (stage 2 moved only the decoder's
+     action parameters, by the pattern: `cli_freezing_gate`), the counts
+     (each kernel of a stage's steps at least its steps times phase 5's
+     per-step count), the legacy counters;
   9. the e2e drive (neural_jacobian_field_torch.verify_e2e) on the card in
      float32 and in bf16 (K9 convs, K7 with one 128-wide level), its checks
      as gates, the two loss curves side by side every 10 steps (lines
      "e2e"; path e2e);
-  10. timings and peak memory.
-Every main path also checks that no K9 wrapper went to its legacy kernel
-(C or Cout not a multiple of 8), and no K7 wrapper to its legacy WMMA
+  10. other decoders and norms (lines "transformer", "defaults",
+     "flow_mlp"): model_allegro_transformer as the YAML builds it (bf16,
+     epipolar, K9 convs, BatchNorm): the 480x640 render eager against
+     captured with its launches, inverse dynamics as in 4, stage 1 (three
+     steps captured against five eager runs, launches, the cycle's rays/s
+     and peak memory), stage 1 again with remat=True (its peak memory, its
+     captured steps held to the remat-off eager runs), stage 2 as in 6
+     (freezing by "jacobian"), and the CLI at model=model_allegro_transformer
+     on phase 8's scene (96 stage-1 steps, 96 stage-2 steps warm-started
+     from its checkpoint); the JAX defaults, Model(make_model_cfg())
+     (float32, exact, group norm, cuDNN convs, plain trunks): the render
+     eager against captured (K6-fwd, K1-fwd, K5) and a stage-1 step eager
+     and captured (K1-bwd, K6-bwd) with finite non-zero gradients on every
+     encoder parameter; flow_mlp: one render chunk, encode_image refused,
+     stage-2 steps captured against eager, freezing by "flow_head";
+  11. timings and peak memory.
+Each phase prints `phase <n> <name>: ok, <s> s` as it ends, so a failed
+run's log shows where it stopped. Every main path also checks that no K9
+wrapper went to its legacy kernel (C or Cout not a multiple of 8), and no
+K7 wrapper to its legacy WMMA
 kernel (shapes off fwd_plan's or bwd_plan's wgmma kernels). Any failed
 phase exits non-zero.
 Without a CUDA device, or without the package beside this script, it exits
@@ -150,6 +171,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -188,6 +210,11 @@ K1_BWD_STAGES = {"count": r"bucket_count_kernel", "scan": r"bucket_scan_kernel",
 
 class PhaseError(RuntimeError):
     pass
+
+
+def phase_line(n, name, t0):
+    """The line that says a phase ended: `phase <n> <name>: ok, <s> s`."""
+    print(f"phase {n} {name}: ok, {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def check(cond, msg):
@@ -1073,25 +1100,34 @@ def backward_kernel_checks(dev):
 
 # ------------------------------------------------------------------ phase 3+
 
-def build_model(dev, mode):
+def serving_weights(model, g):
+    """Seeded weights for serving: the Jacobian head drawn so that J(x)
+    varies over the scene at ~0.1 m per unit action (a fresh head is N(0,
+    1e-4) everywhere: the same ~1e-4 constant at every point), and BatchNorm
+    running statistics of a trained encoder, not the identity. The
+    transformer's Dense head is drawn at a fiftieth of its kaiming scale:
+    at a tenth, Adam's first 0.1 steps of the action carried composited
+    points across the target camera's plane, and at a twenty-fifth the
+    projection's curvature left the least-squares step close to its 2%
+    bound, which holds the solve to the regime where the flow is close to
+    linear in the action."""
     import numpy as np
     import torch
 
-    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.models import initializers as init
 
-    g = torch.Generator().manual_seed(SEED)
-    model = Model(flagship_model_cfg(pixel_feature_mode=mode),
-                  compute_dtype=torch.bfloat16).init_weights(g)
-    # a fresh Jacobian head is N(0, 1e-4) everywhere, so every point's
-    # Jacobian is the same ~1e-4 constant; draw it at the density head's
-    # scale instead and shrink its output layer so that J(x) varies over the
-    # scene at ~0.1 m per unit action
-    head = model.decoder.jacobian_head
-    head.near_zero_init = False
-    head.init_weights(g)
+    head = getattr(model.decoder, "jacobian_head", None)  # flow_mlp has none
     with torch.no_grad():
-        head.lin_out.weight.mul_(0.01)
-    # BatchNorm running statistics of a trained encoder, not the identity
+        if head is None:
+            pass
+        elif isinstance(head, torch.nn.Linear):  # the transformer's Dense head
+            init.kaiming_normal_in_(head.weight, g)
+            head.weight.mul_(0.02)
+            head.bias.zero_()
+        else:  # a ResnetFC at the density head's scale, its output layer shrunk
+            head.near_zero_init = False
+            head.init_weights(g)
+            head.lin_out.weight.mul_(0.01)
     rng = np.random.default_rng(SEED)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -1099,7 +1135,21 @@ def build_model(dev, mode):
                 buf.copy_(torch.from_numpy(rng.normal(0, 0.1, buf.shape).astype(np.float32)))
             elif name.endswith("running_var"):
                 buf.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, buf.shape).astype(np.float32)))
-    return model.to(dev).eval()
+    return model
+
+
+def build_model(dev, mode, cfg=None, dtype="bfloat16"):
+    """The flagship model in this feature mode (or the model of `cfg`, in
+    float32 where dtype is None) with seeded serving weights, in eval mode
+    on the card."""
+    import torch
+
+    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+
+    g = torch.Generator().manual_seed(SEED)
+    model = Model(cfg or flagship_model_cfg(pixel_feature_mode=mode),
+                  compute_dtype=dtype and getattr(torch, dtype)).init_weights(g)
+    return serving_weights(model, g).to(dev).eval()
 
 
 def cameras(dev, seed=SEED, degrees=10.0):
@@ -1274,31 +1324,20 @@ def sweep_program(model, cam, robot):
     return render
 
 
-def serve_phase(dev, model, cam, robot, timings, mode):
+def render_vs_eager(dev, model, label, render, want_counts, af_width, timings, tag,
+                    hw=None):
+    """render() eager (launch counters reset just before, read just after),
+    then captured: the first call captures the chunk program, the main-path
+    run after it is counted through replay, a third repeats it. Checks: the
+    captured outputs equal the eager ones bit for bit and repeat, both runs'
+    launches equal want_counts, no legacy kernel ran, the outputs are finite
+    and of their shapes (action features af_width wide). Returns the
+    captured outputs and launches."""
     import torch
 
-    from neural_jacobian_field_torch.inference.render import camera_rays, render_camera
-    from neural_jacobian_field_torch.models.model import RenderingInput
     from neural_jacobian_field_torch.ops import kernels as K
-    from neural_jacobian_field_torch.ops.pixel_gather import feature_fields
 
-    tag = "" if mode == "epipolar" else "exact_"
-
-    def encode():
-        with torch.no_grad():
-            return feature_fields(model.compute_pixel_encoding(cam, robot).features)[:3]
-
-    def render(c=cam, r=robot):
-        return render_camera(model, c, r, Z_NEAR, Z_FAR, H, W, patch_size=PATCH)
-
-    # the encoder: eager, then its captured program (CUDA events, median of 5)
-    _, t = captured_vs_eager(f"encode {mode} (24 K9 + 2 K6)", model, encode,
-                             timer=lambda: cuda_time_ms(encode, reps=5, warmup=1))
-    timings[tag + "eager_encode_ms"], timings[tag + "encode_ms"] = t["eager_ms"], t["captured_ms"]
-
-    # the render: eager (launch counters reset just before, read just after),
-    # then captured: the first call captures the chunk program, the main-path
-    # run after it is counted through replay
+    h, w = hw or (H, W)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     with model.programs.eager():
@@ -1320,34 +1359,60 @@ def serve_phase(dev, model, cam, robot, timings, mode):
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = K.launch_counts()
-    check_no_legacy(f"{mode} serving")
+    check_no_legacy(f"{label} serving")
     t0 = time.perf_counter()
     again = render()
     torch.cuda.synchronize()
     render2_s = time.perf_counter() - t0
     timings[tag + "eager_render_s"] = eager_s
     timings[tag + "render_s"] = render_s
-    timings[tag + "render_rays_per_s"] = H * W / render_s
+    timings[tag + "render_rays_per_s"] = h * w / render_s
     timings[tag + "render_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     timings[tag + "eager_render_peak_mem_gib"] = eager_peak
     same, repeat = (same_bits(outputs_of(out), outputs_of(want)),
                     same_bits(outputs_of(again), outputs_of(out)))
-    print(f"render {mode} {H}x{W}: captured {render_s:.3f} s and {render2_s:.3f} s "
-          f"({H * W / render_s:.1f} rays/s), eager {eager_s:.3f} s ({H * W / eager_s:.1f} "
+    print(f"render {label} {h}x{w}: captured {render_s:.3f} s and {render2_s:.3f} s "
+          f"({h * w / render_s:.1f} rays/s), eager {eager_s:.3f} s ({h * w / eager_s:.1f} "
           f"rays/s; eager/captured {eager_s / render_s:.2f}x), first captured call "
           f"{capture_s:.3f} s; peak {timings[tag + 'render_peak_mem_gib']:.2f} GiB captured "
           f"(the programs' pools), {eager_peak:.2f} GiB eager; captured == eager bit for "
           f"bit: {same}; two replays bit-identical: {repeat}; launches {launches}")
-    check(same and repeat, f"{mode} render: captured disagrees with eager or does not repeat")
+    check(same and repeat, f"{label} render: captured disagrees with eager or does not repeat")
 
-    for name, shape in (("rgb", (1, H, W, 3)), ("depth_raw", (1, H, W, 1)),
-                        ("flow_raw", (1, H, W, 2)), ("action_features", (1, H, W, 24))):
+    for name, shape in (("rgb", (1, h, w, 3)), ("depth_raw", (1, h, w, 1)),
+                        ("flow_raw", (1, h, w, 2)), ("action_features", (1, h, w, af_width))):
         t = getattr(out, name)
-        check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
-        check(bool(torch.isfinite(t).all()), f"{name} has non-finite values")
-    print(f"rgb range [{float(out.rgb.min()):.4f}, {float(out.rgb.max()):.4f}], depth range "
-          f"[{float(out.depth_raw.min()):.4f}, {float(out.depth_raw.max()):.4f}], "
+        check(tuple(t.shape) == shape, f"{label} {name} shape {tuple(t.shape)} != {shape}")
+        check(bool(torch.isfinite(t).all()), f"{label} {name} has non-finite values")
+    print(f"{label} rgb range [{float(out.rgb.min()):.4f}, {float(out.rgb.max()):.4f}], depth "
+          f"range [{float(out.depth_raw.min()):.4f}, {float(out.depth_raw.max()):.4f}], "
           f"|flow| max {float(out.flow_raw.abs().max()):.4e}")
+    check(launches == want_counts and eager_launches == want_counts,
+          f"{label} serving launches {launches} (eager {eager_launches}) != {want_counts}")
+    return out, launches
+
+
+def serve_phase(dev, model, cam, robot, timings, mode):
+    import torch
+
+    from neural_jacobian_field_torch.inference.render import camera_rays, render_camera
+    from neural_jacobian_field_torch.models.model import RenderingInput
+    from neural_jacobian_field_torch.ops.pixel_gather import feature_fields
+
+    tag = "" if mode == "epipolar" else "exact_"
+
+    def encode():
+        with torch.no_grad():
+            return feature_fields(model.compute_pixel_encoding(cam, robot).features)[:3]
+
+    def render(c=cam, r=robot):
+        return render_camera(model, c, r, Z_NEAR, Z_FAR, H, W, patch_size=PATCH)
+
+    # the encoder: eager, then its captured program (CUDA events, median of 5)
+    _, t = captured_vs_eager(f"encode {mode} (24 K9 + 2 K6)", model, encode,
+                             timer=lambda: cuda_time_ms(encode, reps=5, warmup=1))
+    timings[tag + "eager_encode_ms"], timings[tag + "encode_ms"] = t["eager_ms"], t["captured_ms"]
+
     n = H * W // PATCH
     if mode == "epipolar":  # K6 packs the coarse level per chunk for the knots
         want_counts = all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n,
@@ -1355,8 +1420,7 @@ def serve_phase(dev, model, cam, robot, timings, mode):
     else:
         want_counts = all_zero_but({"K9-fwd": 24, "K6-fwd": 2, "K5": n, "K7-fwd": 3 * n,
                                     "K1-fwd": 2 * n})
-    check(launches == want_counts and eager_launches == want_counts,
-          f"{mode} serving launches {launches} (eager {eager_launches}) != {want_counts}")
+    out, launches = render_vs_eager(dev, model, mode, render, want_counts, 24, timings, tag)
 
     # the whole sweep as one graph, against the chunk program's replays
     t0 = time.perf_counter()
@@ -1445,7 +1509,7 @@ def serve_phase(dev, model, cam, robot, timings, mode):
     return launches
 
 
-def inverse_dynamics_phase(dev, model, cam, robot, timings, mode):
+def inverse_dynamics_phase(dev, model, cam, robot, timings, mode, tag=None):
     import torch
 
     from neural_jacobian_field_torch.inference.action_opt import (
@@ -1454,7 +1518,8 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings, mode):
     from neural_jacobian_field_torch.models.model import (
         ModelInferenceEncoding, RenderingInput, RobotInput)
 
-    tag = "" if mode == "epipolar" else "exact_"
+    if tag is None:
+        tag = "" if mode == "epipolar" else "exact_"
     g = torch.Generator(device=dev).manual_seed(SEED)
     origins, dirs = camera_rays(H, W, cam.trgt_intrinsics, cam.trgt_extrinsics)
     pick = torch.randperm(H * W, generator=g, device=dev)[:ID_RAYS]
@@ -1604,28 +1669,39 @@ def compare_grads(label, state, batch, yx, draws, groups):
     return sorted(kg)
 
 
-def new_train_state(dev, mode, conv_impl="pallas"):
-    """The flagship model with seeded weights and its stage-1 train state."""
+def new_model(dev, cfg, seed, dtype="bfloat16", remat=False):
+    """Model(cfg) with seeded weights on the card, computing in `dtype`
+    (float32 where it is None)."""
     import torch
 
-    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.models.model import Model
+
+    model = Model(cfg, compute_dtype=dtype and getattr(torch, dtype), remat=remat)
+    return model.init_weights(torch.Generator().manual_seed(seed)).to(dev)
+
+
+def new_train_state(dev, mode, conv_impl="pallas", variant=None):
+    """The flagship model (or the phase-10 variant's) with seeded weights and
+    its stage-1 train state."""
+    from neural_jacobian_field_torch.models.model import flagship_model_cfg
     from neural_jacobian_field_torch.training import TrainCfg, create_train_state
 
-    model = Model(flagship_model_cfg(conv_impl=conv_impl, pixel_feature_mode=mode),
-                  compute_dtype=torch.bfloat16)
-    model.init_weights(torch.Generator().manual_seed(SEED)).to(dev)
+    model = (variant.model(dev, SEED) if variant else
+             new_model(dev, flagship_model_cfg(conv_impl=conv_impl, pixel_feature_mode=mode),
+                       SEED))
     cfg = TrainCfg(lr=TRAIN_LR, warm_up_steps=TRAIN_WARMUP, rays_per_batch=TRAIN_RAYS)
     return model, create_train_state(model, cfg)
 
 
-def train_setup(dev, mode, conv_impl="pallas"):
-    """The flagship model with seeded weights, its train state, a batch and a
-    generator, warmed up on both gates (allocator, cuBLAS)."""
+def train_setup(dev, mode, conv_impl="pallas", variant=None):
+    """The flagship model (or the phase-10 variant's) with seeded weights,
+    its train state, a batch and a generator, warmed up on both gates
+    (allocator, cuBLAS)."""
     import torch
 
     from neural_jacobian_field_torch.training import train_step
 
-    model, state = new_train_state(dev, mode, conv_impl)
+    model, state = new_train_state(dev, mode, conv_impl, variant)
     batch = train_batch(dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     for updated in (True, True, False, False):
@@ -1771,8 +1847,9 @@ def compare_captured(label, names, eager, captured, ops):
     worst = max(ratios, key=ratios.get, default="-")
     median = statistics.median(ratios.values()) if ratios else 0.0
     bad += [n for n, r in ratios.items() if r > 10.0]
-    print(f"{label} captured vs eager, 3 steps (update, frozen, frozen) from one state: "
-          f"{len(names)} tensors (metrics, parameters, BatchNorm statistics, Adam state); "
+    steps = len({n.split()[1] for n in names if n.startswith("step ")})
+    print(f"{label} captured vs eager, {steps} step{'s' if steps > 1 else ''} from one state: "
+          f"{len(names)} tensors; "
           f"{len(eager)} eager runs bit-identical in {repeat}, captured == eager bit for bit in "
           f"{equal} (required where the eager runs are); eager differs from itself in "
           f"{len(ratios)} {list(ratios)[:3]}: captured's l2 distance to the nearest eager run "
@@ -1890,6 +1967,78 @@ def dispatch_run(state, stacked, g, label):
           f"{label}: MultiStepDispatch did not reach a program, or a loss is not finite")
 
 
+def stage1_counts(mode, conv="K9-fwd", trunks=True):
+    """Launches per stage-1 update and frozen step: the 24 stride-1 convs
+    forward (`conv`: K9-fwd or K10; None where cuDNN runs them) and their
+    K9-dgrad and K9-wgrad, K5, the packing (K6) and in exact mode the
+    coarse-level gathers (K1), and, where the trunks are fused (`trunks`),
+    two trunks forward: the proposal and NeRF densities (no flow is rendered
+    in stage 1, so no Jacobian trunk or transformer runs); the backward of
+    both on an update step, of the NeRF density alone on a frozen one."""
+    want = {}
+    for kind, n_bwd in (("update", 2), ("frozen", 1)):
+        c = {"K5": 1}
+        if conv:
+            c.update({conv: 24, "K9-dgrad": 24, "K9-wgrad": 24})
+        if mode == "epipolar":
+            c.update({"K6-fwd": 3, "K6-bwd": 3})
+            if trunks:
+                c.update({"K7-tz-fwd": 2, "K7-tz-bwd": n_bwd})
+        else:
+            c.update({"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2, "K1-bwd": n_bwd})
+            if trunks:
+                c.update({"K7-fwd": 2, "K7-bwd": n_bwd})
+        want[kind] = all_zero_but(c)
+    return want
+
+
+def gate_counts(state, batch, g, label, want):
+    """The launch counts of one eager frozen and one eager update step
+    (counters reset before each), each equal to want[kind], no legacy
+    kernel. Returns {kind: counts}."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.training import train_step
+
+    counts = {}
+    for kind, updated in (("frozen", False), ("update", True)):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        train_step(state, batch, g, updated)
+        torch.cuda.synchronize()
+        counts[kind] = K.launch_counts()
+        check_no_legacy(f"{label} {kind} step")
+        print(f"{label} launches per {kind} step: {counts[kind]}")
+        check(counts[kind] == want[kind],
+              f"{label} {kind} step launches {counts[kind]} != {want[kind]}")
+    return counts
+
+
+def replay_counts(state, batch, g, label, want):
+    """As gate_counts, through the captured programs of both gates (counted
+    through replay: each program is called once first, so a capture's
+    warm-up calls are not counted). Returns {"<kind> captured": counts}."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.training import make_train_step
+
+    counts = {}
+    for kind, updated in (("frozen", False), ("update", True)):
+        step = make_train_step(state.model, state.cfg, static_updated=updated)
+        step(state, batch, generator=g)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        step(state, batch, generator=g)
+        torch.cuda.synchronize()
+        got = counts[kind + " captured"] = K.launch_counts()
+        check_no_legacy(f"{label} captured {kind} step")
+        print(f"{label} launches per captured {kind} step (counted through replay): {got}")
+        check(got == want[kind], f"{label} captured {kind} step launches {got} != {want[kind]}")
+    return counts
+
+
 def train_phase(dev, timings, mode, conv_impl="pallas"):
     """The stage-1 train step at batch 7 x 256 rays, eager, then captured
     from the eager state. Returns the launch counts of one update step and
@@ -1897,7 +2046,6 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
     state dict after the phase."""
     import torch
 
-    from neural_jacobian_field_torch.ops import kernels as K
     from neural_jacobian_field_torch.training import (
         make_train_step, step_randomness, train_step)
 
@@ -1911,29 +2059,8 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
     compare_grads(label, state, batch, yx, draws, ("encoder.", "proposal_networks_", "decoder."))
 
     # launch counts of each step type; then the gradients reach the params
-    counts = {}
-    for kind, updated in (("frozen", False), ("update", True)):
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        train_step(state, batch, g, updated)
-        torch.cuda.synchronize()
-        counts[kind] = K.launch_counts()
-        check_no_legacy(f"{label} {kind} step")
-        print(f"{label} launches per {kind} step: {counts[kind]}")
-    conv = {"K10" if fused else "K9-fwd": 24, "K9-dgrad": 24, "K9-wgrad": 24, "K5": 1}
-    want = {}
-    for kind, n_bwd in (("update", 2), ("frozen", 1)):
-        # two trunks forward: the proposal and NeRF densities (no flow is
-        # rendered in stage 1, so the Jacobian trunk does not run)
-        if mode == "epipolar":
-            want[kind] = all_zero_but(dict(conv, **{"K6-fwd": 3, "K6-bwd": 3, "K7-tz-fwd": 2,
-                                                    "K7-tz-bwd": n_bwd}))
-        else:
-            want[kind] = all_zero_but(dict(conv, **{"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2,
-                                                    "K1-bwd": n_bwd, "K7-fwd": 2,
-                                                    "K7-bwd": n_bwd}))
-        check(counts[kind] == want[kind],
-              f"{label} {kind} step launches {counts[kind]} != {want[kind]}")
+    want = stage1_counts(mode, "K10" if fused else "K9-fwd")
+    counts = gate_counts(state, batch, g, label, want)
     dead = [name for name, p in model.named_parameters()
             if name.startswith(("encoder.", "decoder.density_head.", "decoder.color_head.",
                                 "proposal_networks_"))
@@ -1986,20 +2113,7 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
           f"{time.perf_counter() - t0:.2f} s")
     compare_captured(label, names, eager, captured, ops)
 
-    # launches through replay
-    for kind, updated in (("frozen", False), ("update", True)):
-        step = make_train_step(model, state.cfg, static_updated=updated)
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        step(state, batch, generator=g)
-        torch.cuda.synchronize()
-        counts[kind + " captured"] = K.launch_counts()
-        check_no_legacy(f"{label} captured {kind} step")
-        print(f"{label} launches per captured {kind} step (counted through replay): "
-              f"{counts[kind + ' captured']}")
-        check(counts[kind + " captured"] == want[kind],
-              f"{label} captured {kind} step launches {counts[kind + ' captured']} != "
-              f"{want[kind]}")
+    counts.update(replay_counts(state, batch, g, label, want))
 
     stacked, (alloc, peak) = captured_step_times(dev, state, batch, g, label, tag, timings)
     timings[tag + "captured_peak_mem_gib"] = alloc
@@ -2050,72 +2164,101 @@ def action_batch(dev, supervision):
         pixel_visible_mask=torch.ones((b, TRACKS), device=dev))
 
 
-def new_action_state(dev, mode, stage1=None):
-    """The flagship model under pallas_fused and its stage-2 train state,
-    warm-started from the stage-1 state dict `stage1` when given."""
-    import torch
-
-    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+def new_action_state(dev, mode, stage1=None, variant=None):
+    """The flagship model under pallas_fused (or the phase-10 variant's) and
+    its stage-2 train state, warm-started from the stage-1 state dict
+    `stage1` when given."""
+    from neural_jacobian_field_torch.models.model import flagship_model_cfg
     from neural_jacobian_field_torch.training import TrainCfg, create_train_state
 
-    model = Model(flagship_model_cfg(conv_impl="pallas_fused", pixel_feature_mode=mode),
-                  compute_dtype=torch.bfloat16)
-    model.init_weights(torch.Generator().manual_seed(SEED + 6)).to(dev)
+    model = (variant.model(dev, SEED + 6) if variant else
+             new_model(dev, flagship_model_cfg(conv_impl="pallas_fused",
+                                               pixel_feature_mode=mode), SEED + 6))
     cfg = TrainCfg(mode="action", lr=ACTION_LR, warm_up_steps=TRAIN_WARMUP,
                    rays_per_batch=TRAIN_RAYS)
     return model, create_train_state(model, cfg, init_params=stage1)
 
 
-def action_setup(dev, mode, supervision, stage1=None):
+def action_setup(dev, mode, supervision, stage1=None, variant=None):
     """`new_action_state`, an action batch and a generator."""
     import torch
 
-    model, state = new_action_state(dev, mode, stage1)
+    model, state = new_action_state(dev, mode, stage1, variant)
     return model, state, action_batch(dev, supervision), torch.Generator(
         device=dev).manual_seed(SEED + 7)
 
 
-def action_phase(dev, timings, mode, supervision, stage1):
-    """The stage-2 train step under pallas_fused, warm-started from the
-    stage-1 state dict `stage1`: flow at batch 7 x 256 rays, or tracks at
-    7 x TRACKS; eager, then captured from the eager state. Returns the
-    launch counts of one step, eager and through replay."""
+def action_names(model) -> list:
+    """The parameters stage 2 trains, by the decoder's action pattern (the
+    JAX optax mask): the decoder's whose name holds action_param_pattern,
+    "jacobian_head" for the Jacobian MLP, "jacobian" for the transformer,
+    "flow_head" for the flow MLP."""
+    from neural_jacobian_field_torch.models.decoders import action_param_pattern
+
+    pattern = action_param_pattern(model.cfg.action_decoder)
+    return sorted(n for n, _ in model.named_parameters()
+                  if n.startswith("decoder.") and pattern in n)
+
+
+def running_means_gate(model, stats0):
+    """Stage 2 runs the encoder in training mode: with BatchNorm every
+    running mean must have moved from `stats0` (buffers by name before the
+    steps); other norms keep no running statistics, and the model must hold
+    none. Returns (passed, a line saying which)."""
     import torch
 
-    from neural_jacobian_field_torch.ops import kernels as K
+    bufs = {n: b.detach().cpu() for n, b in model.named_buffers()}
+    means = [n for n in bufs if n.endswith("running_mean")]
+    if model.cfg.encoder.norm_type != "batch":
+        return not means, (f"{model.cfg.encoder.norm_type} norm: {len(means)} running means "
+                           f"(bound 0)")
+    still = [n for n in means if torch.equal(bufs[n], stats0[n])]
+    return bool(means) and not still, (f"{len(means) - len(still)}/{len(means)} BatchNorm "
+                                       f"running means moved")
+
+
+def action_phase(dev, timings, mode, supervision, stage1, variant=None, want=None):
+    """The stage-2 train step under pallas_fused (or of the phase-10
+    variant, whose launches per step are `want`), warm-started from the
+    stage-1 state dict `stage1`: flow at batch 7 x 256 rays, or tracks at
+    7 x TRACKS; eager, then captured from the eager state. The trainable
+    parameters are the decoder's action parameters (`action_names`), the
+    rest must stay bit for bit as the warm start left them, and the
+    BatchNorm running means must move (a model without BatchNorm must have
+    none). Returns the launch counts of one step, eager and through
+    replay."""
+    import torch
+
+    from neural_jacobian_field_torch.models.decoders import action_param_pattern
     from neural_jacobian_field_torch.training import (
         host_step_schedule, make_train_step, step_randomness, train_step)
 
     label = f"action {mode}" if supervision == "flow" else "action tracks"
+    if variant:
+        label = f"{variant.name} action"
     tag = label.replace(" ", "_") + "_"
     rays = TRAIN_RAYS if supervision == "flow" else TRACKS
-    model, state, batch, g = action_setup(dev, mode, supervision, stage1)
-    head = "decoder.jacobian_head."
-    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
-    check(trainable and all(n.startswith(head) for n in trainable),
-          f"{label}: the trainable parameters are not the Jacobian head's: {trainable[:4]}")
+    model, state, batch, g = action_setup(dev, mode, supervision, stage1, variant)
+    trained = action_names(model)
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    check(trained and trainable == trained,
+          f"{label}: the trainable parameters {trainable[:4]}... are not the decoder's action "
+          f"parameters {trained[:4]}...")
     frozen0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
-               if not n.startswith(head)}
+               if n not in trained}
     stats0 = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
 
     yx, draws = step_draws(dev, g, rays)
-    reached = compare_grads(label, state, batch, yx, draws, (head,))
-    check(reached == sorted(trainable), f"{label}: gradients on {reached[:4]}..., not the head's")
+    reached = compare_grads(label, state, batch, yx, draws, ("decoder.",))
+    check(reached == trainable, f"{label}: gradients on {reached[:4]}..., not the action "
+                                f"parameters'")
 
-    counts = {}
-    want = all_zero_but({"K10": 24, "K6-fwd": 3, "K5": 1, "K7-tz-fwd": 3, "K7-tz-bwd": 1}
-                        if mode == "epipolar" else
-                        {"K10": 24, "K6-fwd": 2, "K1-fwd": 2, "K5": 1, "K7-fwd": 3,
-                         "K7-bwd": 1})
-    for kind, updated in (("frozen", False), ("update", True)):
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        train_step(state, batch, g, updated)
-        torch.cuda.synchronize()
-        counts[kind] = K.launch_counts()
-        check_no_legacy(f"{label} {kind} step")
-        print(f"{label} launches per {kind}-gate step: {counts[kind]}")
-        check(counts[kind] == want, f"{label} {kind} step launches {counts[kind]} != {want}")
+    want = want or all_zero_but(
+        {"K10": 24, "K6-fwd": 3, "K5": 1, "K7-tz-fwd": 3, "K7-tz-bwd": 1}
+        if mode == "epipolar" else
+        {"K10": 24, "K6-fwd": 2, "K1-fwd": 2, "K5": 1, "K7-fwd": 3, "K7-bwd": 1})
+    want = {"frozen": want, "update": want}  # the gate moves no stage-2 launch
+    counts = gate_counts(state, batch, g, label, want)
 
     def timed_steps(step_fn):
         times = []
@@ -2136,7 +2279,7 @@ def action_phase(dev, timings, mode, supervision, stage1):
     eager_alloc, eager_peak = peaks_gib(dev)
     timings[tag + "peak_mem_gib"], timings[tag + "peak_reserved_gib"] = eager_alloc, eager_peak
     print(f"{label} step (batch {TRAIN_B} x {rays} rays, 480x640 context, bf16, "
-          f"pallas_fused), eager: {step_ms:.2f} ms (median of 8), "
+          f"{model.cfg.encoder.conv_impl}), eager: {step_ms:.2f} ms (median of 8), "
           f"{timings[tag + 'rays_per_s']:.1f} rays/s; peak {eager_alloc:.2f} GiB allocated, "
           f"{eager_peak:.2f} GiB reserved")
 
@@ -2148,22 +2291,12 @@ def action_phase(dev, timings, mode, supervision, stage1):
     del model, state
     gc.collect()
     torch.cuda.empty_cache()
-    model, state = new_action_state(dev, mode)
+    model, state = new_action_state(dev, mode, variant=variant)
     restore(state, snap)
+    captured_from = state.step
     _, captured = run_steps(state, batch, plan)
     compare_captured(label, names, eager, captured, ops)
-    for kind, updated in (("frozen", False), ("update", True)):
-        step = make_train_step(model, state.cfg, static_updated=updated)
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        step(state, batch, generator=g)
-        torch.cuda.synchronize()
-        counts[kind + " captured"] = K.launch_counts()
-        check_no_legacy(f"{label} captured {kind} step")
-        print(f"{label} launches per captured {kind}-gate step (counted through replay): "
-              f"{counts[kind + ' captured']}")
-        check(counts[kind + " captured"] == want,
-              f"{label} captured {kind} step launches {counts[kind + ' captured']} != {want}")
+    counts.update(replay_counts(state, batch, g, label, want))
     steps = {u: make_train_step(model, state.cfg, static_updated=u) for u in (True, False)}
     peak_window(dev)
     cap_ms = timed_steps(lambda u: steps[u](state, batch, generator=g))
@@ -2197,19 +2330,16 @@ def action_phase(dev, timings, mode, supervision, stage1):
 
     params = {n: p.detach().cpu() for n, p in model.named_parameters()}
     changed = [n for n in frozen0 if not torch.equal(params[n], frozen0[n])]
-    bufs = {n: b.cpu() for n, b in model.named_buffers()}
-    means = [n for n in stats0 if n.endswith("running_mean")]
-    still = [n for n in means if torch.equal(bufs[n], stats0[n])]
-    head_moved = any(not torch.equal(params[n], stage1[n].cpu()) for n in params
-                     if n.startswith(head))
-    print(f"{label} after {state.step} steps (the last {LOSS_STEPS + 12} captured): "
-          f"{len(frozen0) - len(changed)}/{len(frozen0)} parameters outside {head} "
-          f"bit-identical to the warm start (passed={not changed}); "
-          f"{len(means) - len(still)}/{len(means)} BatchNorm running means moved; "
-          f"Jacobian head moved={head_moved}")
-    check(not changed and not still and head_moved,
-          f"{label}: frozen parameters moved {changed[:4]}, or running stats {still[:4]} "
-          f"or the head did not")
+    moved = [n for n in trained if not torch.equal(params[n], stage1[n].cpu())]
+    stats_ok, stats_line = running_means_gate(model, stats0)
+    print(f"{label} after {state.step} steps (the last {state.step - captured_from} captured): "
+          f"{len(frozen0) - len(changed)}/{len(frozen0)} parameters outside the action "
+          f"pattern {action_param_pattern(model.cfg.action_decoder)!r} bit-identical to the "
+          f"warm start (passed={not changed}); {stats_line}; {len(moved)}/{len(trained)} "
+          f"action parameters moved")
+    check(not changed and stats_ok and moved,
+          f"{label}: frozen parameters moved {changed[:4]}, or the running statistics gate "
+          f"failed, or no action parameter moved")
     del model, state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2235,10 +2365,10 @@ def cli_overrides(scene, work):
             f"checkpoint.dir={work / 'ck1'}", f"checkpoint.every_n_train_steps={CLI_STEPS}"]
 
 
-def cli_run(dev, label, overrides, log_dir, profile=0):
-    """train() in process on the card from the dotted overrides; returns the
-    state, run.json, the launch counts (reset just before, read just after)
-    and the peak reserved memory (GiB)."""
+def cli_run(dev, label, overrides, log_dir, profile=0, steps=CLI_STEPS):
+    """train() in process on the card from the dotted overrides, `steps`
+    steps; returns the state, run.json, the launch counts (reset just
+    before, read just after) and the peak reserved memory (GiB)."""
     import torch
 
     from neural_jacobian_field_torch import train as cli
@@ -2263,22 +2393,21 @@ def cli_run(dev, label, overrides, log_dir, profile=0):
           f"{run['programs']} captured programs ({run['steady_programs']} steady "
           f"{CLI_SPC}-step); logged losses {losses}; peak reserved {peak:.2f} GiB")
     print(f"{label} launches: {counts}")
-    check(run["steps"] >= CLI_STEPS or label == "cli tracks", f"{label}: stopped early")
+    check(run["steps"] >= steps, f"{label}: stopped early")
     check(all(math.isfinite(v) for v in losses), f"{label}: a logged loss is not finite")
     return state, run, counts, peak, wall
 
 
-def cli_phase(dev, timings, paths):
+def cli_phase(dev, timings, paths, work):
     """Phase 8: the training CLI at full width on the card (lines "cli"): a
-    480x640 synthetic scene written by the port, stage 1 at the flagship
+    480x640 synthetic scene written by the port under `work` (returned; phase
+    10 trains on it too), stage 1 at the flagship
     configuration through train(), a check that a train replay after the
     validation render still equals eager steps, stage 2 warm-started from
     stage 1's checkpoint, a short tracks run; the loader alone, the idle
     share of one steady window, the rates beside the captured cycle of
     phase 5."""
     import importlib.util
-    import shutil
-    import tempfile
 
     import torch
 
@@ -2292,115 +2421,127 @@ def cli_phase(dev, timings, paths):
     print(f"cli machine: PyYAML {yaml.__version__}, Pillow {PIL.__version__}, matplotlib "
           f"{importlib.util.find_spec('matplotlib') is not None}, native decoder "
           f"{native.status()}")
-    work = Path(tempfile.mkdtemp(prefix="njf_cli_"))
-    try:
-        t0 = time.perf_counter()
-        scene = make_synthetic_scene(work / "scene", num_cameras=3, num_trajs=3,
-                                     frames_per_traj=4, height=H, width=W, action_dim=16)
-        print(f"cli scene: 3 cameras x 3 trajectories x 4 frames at {H}x{W}, action_dim 16 "
-              f"(dataset_allegro disables 8: the model's 8), written in "
-              f"{time.perf_counter() - t0:.1f} s")
-        base = cli_overrides(scene, work)
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(work / "scene", num_cameras=3, num_trajs=3,
+                                 frames_per_traj=4, height=H, width=W, action_dim=16)
+    print(f"cli scene: 3 cameras x 3 trajectories x 4 frames at {H}x{W}, action_dim 16 "
+          f"(dataset_allegro disables 8: the model's 8), written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    base = cli_overrides(scene, work)
 
-        # stage 1, its first steady dispatch (after the log point at 96)
-        # under torch.profiler, the logged window 102-192 after it
-        state, run, counts, peak, wall = cli_run(dev, "cli stage1", base, work / "logs1",
-                                                 profile=1)
-        paths["cli_stage1"] = counts
-        check_cli_counts("cli stage1", counts, run["steps"], paths, CLI_STAGE1_KERNELS)
-        rows = [json.loads(x) for x in (work / "logs1" / "metrics.jsonl").read_text().splitlines()]
-        rates = {r["step"]: r["perf/rays_per_sec"] for r in rows}
-        steady = rates[max(rates)]
-        cycle = timings.get("train_program6_cycle_rays_per_s")
-        check("profile" in run, "cli stage1: no steady dispatch was traced")
-        prof = run["profile"]
-        timings.update(cli_stage1_rays_per_s=steady, cli_stage1_peak_reserved_gib=peak,
-                       cli_stage1_s=wall)
-        if cycle:
-            timings["cli_stage1_host_cost"] = 1.0 - steady / cycle
-        if prof["device_events"]:
-            timings["cli_stage1_idle_share"] = prof["idle_share"]
-        print(f"cli stage1 logged perf/rays_per_sec by step {rates}; steady window (steps "
-              f"{prof['steps'][1]}-{max(rates)}, the traced dispatch left out) {steady:.1f} "
-              f"rays/s against phase 5's captured 5-frozen + 1-update cycle as one 6-step "
-              f"program {cycle or float('nan'):.1f} rays/s: CLI / captured "
-              f"{steady / cycle if cycle else float('nan'):.3f}, the host pipeline's cost "
-              f"1 - CLI / captured = {1 - steady / cycle if cycle else float('nan'):.3f}")
-        print(f"cli stage1 one steady dispatch under torch.profiler (steps "
-              f"{prof['steps'][0]}-{prof['steps'][1]}, inside the steady window, profiler "
-              f"overhead included): traced wall {prof['wall_ms']:.3f} ms, device busy "
-              f"{prof['busy_ms']:.3f} ms, idle share "
-              + (f"{prof['idle_share']:.4f}" if prof["device_events"] else
-                 "not measured (the profiler delivered no device event)")
-              + f", {prof['device_events']} device events")
-        check(run["steady_programs"] >= 1, "cli stage1: no steady 6-step program was reached")
-        frames = run["validation_frames"]
-        print(f"cli stage1 validation frames written: {len(frames)} "
-              f"{[Path(f).name for f in frames]}")
-        check(len(frames) == 6 and all(Path(f).stat().st_size > 0 for f in frames),
-              "cli stage1: validation wrote no frames")
+    # stage 1, its first steady dispatch (after the log point at 96)
+    # under torch.profiler, the logged window 102-192 after it
+    state, run, counts, peak, wall = cli_run(dev, "cli stage1", base, work / "logs1",
+                                             profile=1)
+    paths["cli_stage1"] = counts
+    check_cli_counts("cli stage1", counts, run["steps"], paths, CLI_STAGE1_KERNELS)
+    rows = [json.loads(x) for x in (work / "logs1" / "metrics.jsonl").read_text().splitlines()]
+    rates = {r["step"]: r["perf/rays_per_sec"] for r in rows}
+    steady = rates[max(rates)]
+    cycle = timings.get("train_program6_cycle_rays_per_s")
+    check("profile" in run, "cli stage1: no steady dispatch was traced")
+    prof = run["profile"]
+    timings.update(cli_stage1_rays_per_s=steady, cli_stage1_peak_reserved_gib=peak,
+                   cli_stage1_s=wall)
+    if cycle:
+        timings["cli_stage1_host_cost"] = 1.0 - steady / cycle
+    if prof["device_events"]:
+        timings["cli_stage1_idle_share"] = prof["idle_share"]
+    print(f"cli stage1 logged perf/rays_per_sec by step {rates}; steady window (steps "
+          f"{prof['steps'][1]}-{max(rates)}, the traced dispatch left out) {steady:.1f} "
+          f"rays/s against phase 5's captured 5-frozen + 1-update cycle as one 6-step "
+          f"program {cycle or float('nan'):.1f} rays/s: CLI / captured "
+          f"{steady / cycle if cycle else float('nan'):.3f}, the host pipeline's cost "
+          f"1 - CLI / captured = {1 - steady / cycle if cycle else float('nan'):.3f}")
+    print(f"cli stage1 one steady dispatch under torch.profiler (steps "
+          f"{prof['steps'][0]}-{prof['steps'][1]}, inside the steady window, profiler "
+          f"overhead included): traced wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['busy_ms']:.3f} ms, idle share "
+          + (f"{prof['idle_share']:.4f}" if prof["device_events"] else
+             "not measured (the profiler delivered no device event)")
+          + f", {prof['device_events']} device events")
+    check(run["steady_programs"] >= 1, "cli stage1: no steady 6-step program was reached")
+    frames = run["validation_frames"]
+    print(f"cli stage1 validation frames written: {len(frames)} "
+          f"{[Path(f).name for f in frames]}")
+    check(len(frames) == 6 and all(Path(f).stat().st_size > 0 for f in frames),
+          "cli stage1: validation wrote no frames")
 
-        # a train replay after the validation render (its programs share the
-        # model) against eager steps from the same state
-        ds = get_dataset(state_cfg_dataset(base), "train")
-        batch = to_device(collate([ds[i] for i in range(TRAIN_B)]), dev)
-        g = torch.Generator(device=dev).manual_seed(SEED + 11)
-        plan = [(gate, *step_draws(dev, g)) for gate in (True, False, False)]
-        names, eager, ops = eager_runs(state, batch, plan, runs=3)
-        snap = snapshot(state)
-        _, captured = run_steps(state, batch, plan)
-        restore(state, snap)
-        compare_captured("cli stage1 after validation", names, eager, captured, ops)
-        del state, batch, eager, captured, snap
-        gc.collect()
-        torch.cuda.empty_cache()
+    # a train replay after the validation render (its programs share the
+    # model) against eager steps from the same state
+    ds = get_dataset(state_cfg_dataset(base), "train")
+    batch = to_device(collate([ds[i] for i in range(TRAIN_B)]), dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    plan = [(gate, *step_draws(dev, g)) for gate in (True, False, False)]
+    names, eager, ops = eager_runs(state, batch, plan, runs=3)
+    snap = snapshot(state)
+    _, captured = run_steps(state, batch, plan)
+    restore(state, snap)
+    compare_captured("cli stage1 after validation", names, eager, captured, ops)
+    del state, batch, eager, captured, snap
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # the loader alone, as the CLI builds it, in both stages' modes
-        for stage, mode in (("stage1", "perception"), ("stage2", "action")):
-            ds = get_dataset(dataclasses.replace(state_cfg_dataset(base), mode=mode), "train")
-            bps, made = loader_alone(dev, ds)
-            timings[f"cli_{stage}_loader_batches_per_s"] = bps
-            print(f"cli loader alone, {mode} (batch {TRAIN_B}, 16 threads, pinned, {made}): "
-                  f"{bps:.2f} batches/s = {bps * TRAIN_B * TRAIN_RAYS:.1f} rays/s of steps it "
-                  f"can feed")
+    # the loader alone, as the CLI builds it, in both stages' modes
+    for stage, mode in (("stage1", "perception"), ("stage2", "action")):
+        ds = get_dataset(dataclasses.replace(state_cfg_dataset(base), mode=mode), "train")
+        bps, made = loader_alone(dev, ds)
+        timings[f"cli_{stage}_loader_batches_per_s"] = bps
+        print(f"cli loader alone, {mode} (batch {TRAIN_B}, 16 threads, pinned, {made}): "
+              f"{bps:.2f} batches/s = {bps * TRAIN_B * TRAIN_RAYS:.1f} rays/s of steps it "
+              f"can feed")
 
-        # stage 2: flow, warm-started from stage 1's checkpoint
-        s2 = [*base, "dataset.mode=action", f"checkpoint.load={work / 'ck1'}",
-              f"checkpoint.dir={work / 'ck2'}"]
-        state, run, counts, peak, wall = cli_run(dev, "cli stage2", s2, work / "logs2")
-        paths["cli_stage2"] = counts
-        check_cli_counts("cli stage2", counts, run["steps"], paths, CLI_STAGE2_KERNELS)
-        rows = [json.loads(x) for x in (work / "logs2" / "metrics.jsonl").read_text().splitlines()]
-        rates = {r["step"]: r["perf/rays_per_sec"] for r in rows}
-        timings.update(cli_stage2_rays_per_s=rates[max(rates)], cli_stage2_peak_reserved_gib=peak,
-                       cli_stage2_s=wall)
-        # the warm start's parameters: stage 1's checkpoint
-        stage1 = torch.load(work / "ck1" / f"ckpt_{CLI_STEPS:09d}.pt", map_location="cpu",
-                            weights_only=True)["model"]
-        moved = [k for k, p in state.model.named_parameters()
-                 if not torch.equal(p.detach().cpu(), stage1[k])]
-        frozen_moved = [k for k in moved if not k.startswith("decoder.jacobian_head.")]
-        print(f"cli stage2 logged perf/rays_per_sec by step {rates}; {len(moved)} parameters "
-              f"moved, all in decoder.jacobian_head: {not frozen_moved}; "
-              f"{len(stage1) - len(moved)}/{len(stage1)} bit for bit unchanged")
-        check(moved and not frozen_moved,
-              f"cli stage2: frozen parameters moved {frozen_moved[:4]} (or none moved)")
-        del state
-        gc.collect()
-        torch.cuda.empty_cache()
+    # stage 2: flow, warm-started from stage 1's checkpoint
+    s2 = [*base, "dataset.mode=action", f"checkpoint.load={work / 'ck1'}",
+          f"checkpoint.dir={work / 'ck2'}"]
+    state, run, counts, peak, wall = cli_run(dev, "cli stage2", s2, work / "logs2")
+    paths["cli_stage2"] = counts
+    check_cli_counts("cli stage2", counts, run["steps"], paths, CLI_STAGE2_KERNELS)
+    rows = [json.loads(x) for x in (work / "logs2" / "metrics.jsonl").read_text().splitlines()]
+    rates = {r["step"]: r["perf/rays_per_sec"] for r in rows}
+    timings.update(cli_stage2_rays_per_s=rates[max(rates)], cli_stage2_peak_reserved_gib=peak,
+                   cli_stage2_s=wall)
+    # the warm start's parameters: stage 1's checkpoint
+    stage1 = torch.load(work / "ck1" / f"ckpt_{CLI_STEPS:09d}.pt", map_location="cpu",
+                        weights_only=True)["model"]
+    moved, frozen_moved = cli_freezing_gate("cli stage2", state.model, stage1)
+    print(f"cli stage2 logged perf/rays_per_sec by step {rates}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # tracks: _pad_tracks and the tracks batch on the card
-        tr = [*base, "dataset.mode=action", "dataset.action_supervision_type=tracks",
-              "training.steps_per_call=1", "training.max_steps=4", "training.val_check_interval=0",
-              f"checkpoint.load={work / 'ck1'}", f"checkpoint.dir={work / 'ck3'}"]
-        state, run, counts, _, _ = cli_run(dev, "cli tracks", tr, work / "logs3")
-        paths["cli_tracks"] = counts
-        check(run["steps"] == 4 and counts["K7-tz-bwd"] > 0, "cli tracks: the steps did not run")
-        del state
-        gc.collect()
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    # tracks: _pad_tracks and the tracks batch on the card
+    tr = [*base, "dataset.mode=action", "dataset.action_supervision_type=tracks",
+          "training.steps_per_call=1", "training.max_steps=4", "training.val_check_interval=0",
+          f"checkpoint.load={work / 'ck1'}", f"checkpoint.dir={work / 'ck3'}"]
+    state, run, counts, _, _ = cli_run(dev, "cli tracks", tr, work / "logs3", steps=4)
+    paths["cli_tracks"] = counts
+    check(run["steps"] == 4 and counts["K7-tz-bwd"] > 0, "cli tracks: the steps did not run")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return scene
+
+
+def cli_freezing_gate(label, model, stage1):
+    """A stage-2 CLI run moved only the decoder's action parameters
+    (`action_names`) from its warm start `stage1` (a state dict), and at
+    least one of them. Returns (moved, frozen that moved)."""
+    import torch
+
+    from neural_jacobian_field_torch.models.decoders import action_param_pattern
+
+    trained = set(action_names(model))
+    moved = [k for k, p in model.named_parameters()
+             if not torch.equal(p.detach().cpu(), stage1[k])]
+    frozen_moved = [k for k in moved if k not in trained]
+    print(f"{label}: {len(moved)} parameters moved from the warm start, all {len(trained)} of "
+          f"them action parameters (pattern "
+          f"{action_param_pattern(model.cfg.action_decoder)!r}): {not frozen_moved}; "
+          f"{len(stage1) - len(moved)}/{len(stage1)} bit for bit unchanged")
+    check(moved and not frozen_moved,
+          f"{label}: frozen parameters moved {frozen_moved[:4]} (or none moved)")
+    return moved, frozen_moved
 
 
 # the kernels each CLI stage's steps run at the flagship configuration:
@@ -2488,6 +2629,375 @@ def e2e_phase(dev, timings, paths):
           f"{outs['bfloat16']['flow_residual']:.4%}")
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 10
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """A model phase 10 drives beside the flagship: its name on the lines, its
+    ModelCfg, its compute dtype (float32 where None) and remat."""
+
+    name: str
+    cfg: object
+    dtype: object = "bfloat16"
+    remat: bool = False
+
+    def model(self, dev, seed):
+        return new_model(dev, self.cfg, seed, self.dtype, self.remat)
+
+
+def yaml_model_cfg(*overrides):
+    """The model section of configurations/ under these overrides, as the
+    CLI reads it."""
+    from neural_jacobian_field_torch.config import CONFIG_DIR, get_typed_root_config, load_config
+
+    return get_typed_root_config(load_config(CONFIG_DIR, list(overrides))).model
+
+
+TRANSFORMER_OVERRIDES = ("model=model_allegro_transformer", "model.encoder.conv_impl=pallas")
+FLOW_MLP_OVERRIDES = ("model.action_decoder.name=flow_mlp", "model.encoder.conv_impl=pallas")
+# a stage-2 step of a decoder whose action parameters hold no fused trunk:
+# the encoder (K9, forward only), the packing, K5, the proposal and density
+# trunks forward; no kernel backward
+STAGE2_FORWARD_ONLY = {"K9-fwd": 24, "K6-fwd": 3, "K5": 1, "K7-tz-fwd": 2}
+
+
+def variant_train_phase(dev, timings, variant, want, remat_variant=None):
+    """A stage-1 step of a phase-10 variant at batch 7 x 256 rays: launches
+    of an eager frozen and update step (`want`), the eager peak memory over
+    three steps, the three steps (update, frozen, frozen) captured in a
+    fresh model against five eager runs from the same state (the phase-5
+    rule), the launches through replay, and the 5-frozen + 1-update cycle
+    as six replays and as one 6-step program (rays/s, peak memory). With
+    `remat_variant` (the model with remat=True): the same three steps from
+    the same state, eager (peak memory) and captured, the captured ones held
+    to the remat-off eager runs by the same rule, and its cycle and peak
+    memory beside. Returns the launch counts and the stage-1 state dict."""
+    import torch
+
+    from neural_jacobian_field_torch.training import step_randomness
+
+    label, tag = f"{variant.name} train", f"{variant.name}_train_"
+    model, state, batch, g = train_setup(dev, "epipolar", variant=variant)
+    counts = gate_counts(state, batch, g, label, want)
+    plan = [(u, *step_randomness(state, batch, g)) for u in (True, False, False)]
+    snap = snapshot(state)
+
+    def eager_peak(st):
+        peak_window(dev)
+        with st.model.programs.eager():
+            run_steps(st, batch, plan)
+        restore(st, snap)
+        return peaks_gib(dev)
+
+    peaks = {"off": eager_peak(state)}
+    names, eager, ops = eager_runs(state, batch, plan)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state = new_train_state(dev, "epipolar", variant=variant)
+    restore(state, snap)
+    _, captured = run_steps(state, batch, plan)
+    compare_captured(label, names, eager, captured, ops)
+    counts.update(replay_counts(state, batch, g, label, want))
+    stacked, cycle_peaks = captured_step_times(dev, state, batch, g, label, tag, timings)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    timings[tag + "peak_mem_gib"], timings[tag + "peak_reserved_gib"] = peaks["off"]
+    timings[tag + "captured_peak_mem_gib"], timings[tag + "captured_peak_reserved_gib"] = \
+        cycle_peaks
+    print(f"{label} peak memory: eager steps {peaks['off'][0]:.2f} GiB allocated, "
+          f"{peaks['off'][1]:.2f} reserved; captured cycle {cycle_peaks[0]:.2f} allocated, "
+          f"{cycle_peaks[1]:.2f} reserved; {card_line()}")
+    del model, state, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    if remat_variant is None:
+        return counts, trained
+
+    rlabel, rtag = f"{label} remat", f"{tag}remat_"
+    model, state = new_train_state(dev, "epipolar", variant=remat_variant)
+    restore(state, snap)
+    peaks["on"] = eager_peak(state)
+    _, captured = run_steps(state, batch, plan)
+    compare_captured(f"{rlabel} (against the remat-off eager runs)", names, eager, captured,
+                     ops)
+    restore(state, snap)
+    stacked, remat_cycle = captured_step_times(dev, state, batch, g, rlabel, rtag, timings)
+    timings[rtag + "peak_mem_gib"], timings[rtag + "peak_reserved_gib"] = peaks["on"]
+    timings[rtag + "captured_peak_mem_gib"], timings[rtag + "captured_peak_reserved_gib"] = \
+        remat_cycle
+    print(f"{rlabel}: eager peak {peaks['on'][0]:.2f} GiB allocated against "
+          f"{peaks['off'][0]:.2f} without remat ({peaks['on'][0] / peaks['off'][0]:.3f}x); "
+          f"captured cycle {remat_cycle[1]:.2f} GiB reserved against {cycle_peaks[1]:.2f} "
+          f"({remat_cycle[1] / cycle_peaks[1]:.3f}x); cycle as one 6-step program "
+          f"{timings[rtag + 'program6_cycle_rays_per_s']:.1f} rays/s against "
+          f"{timings[tag + 'program6_cycle_rays_per_s']:.1f}")
+    del model, state, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, trained
+
+
+def median_step_ms(fn, n=5):
+    """Median milliseconds of n synchronised calls of fn (host clock)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def variant_action_steps(dev, variant, want, timings):
+    """Three stage-2 steps (flow, batch 7 x 256) of a phase-10 variant from
+    seeded weights: the trainable parameters are the decoder's action
+    parameters, launches per gate (`want`), eager and through replay, the
+    steps captured in a fresh model against three eager runs (the phase-5
+    rule), the captured update step's time, then the freezing: every other
+    parameter bit for bit as it was, the action parameters moved, and the
+    running-statistics gate. Returns the launch counts."""
+    import torch
+
+    from neural_jacobian_field_torch.training import make_train_step, step_randomness
+
+    label = f"{variant.name} action"
+    want = {"frozen": want, "update": want}
+    model, state, batch, g = action_setup(dev, "epipolar", "flow", variant=variant)
+    trained = action_names(model)
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    check(trained and trainable == trained,
+          f"{label}: trainable {trainable[:4]}... are not the action parameters {trained[:4]}")
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+    counts = gate_counts(state, batch, g, label, want)
+    plan = [(u, *step_randomness(state, batch, g)) for u in (True, False, False)]
+    snap = snapshot(state)
+    names, eager, ops = eager_runs(state, batch, plan, runs=3)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state = new_action_state(dev, "epipolar", variant=variant)
+    restore(state, snap)
+    _, captured = run_steps(state, batch, plan)
+    compare_captured(label, names, eager, captured, ops)
+    counts.update(replay_counts(state, batch, g, label, want))
+    update = make_train_step(model, state.cfg, static_updated=True)
+    ms = timings[f"{variant.name}_action_captured_step_ms"] = median_step_ms(
+        lambda: update(state, batch, generator=g))
+    print(f"{label} captured update step (batch {TRAIN_B} x {TRAIN_RAYS} rays): {ms:.2f} ms "
+          f"(median of 5), {TRAIN_B * TRAIN_RAYS / ms * 1e3:.1f} rays/s; {card_line()}")
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    changed = [n for n in params if n not in trained and not torch.equal(params[n], before[n])]
+    moved = [n for n in trained if not torch.equal(params[n], before[n])]
+    stats_ok, stats_line = running_means_gate(model, stats0)
+    print(f"{label} after {state.step} steps: {len(params) - len(trained) - len(changed)}/"
+          f"{len(params) - len(trained)} frozen parameters bit for bit unchanged; "
+          f"{len(moved)}/{len(trained)} action parameters ({trained[0].split('.')[1]}...) "
+          f"moved; {stats_line}")
+    check(not changed and moved and stats_ok,
+          f"{label}: frozen parameters moved {changed[:4]}, no action parameter moved, or the "
+          f"running-statistics gate failed")
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def transformer_cli(dev, timings, paths, scene, work):
+    """The CLI at model=model_allegro_transformer on phase 8's scene (bf16, K9
+    convs, 6 steps per call): stage 1 for 96 steps (a log point at 96, the
+    steady programs reached), then stage 2 (flow) warm-started from its
+    checkpoint for 96 steps; finite logged losses, the kernels of each
+    stage at least its steps times phase 5's per-step counts (stage 2 runs
+    no kernel backward: the transformer is cuBLAS's), and stage 2's
+    freezing by the pattern against the checkpoint."""
+    import torch
+
+    steps = 96
+    base = [*cli_overrides(scene, work), *TRANSFORMER_OVERRIDES[:1],
+            f"training.max_steps={steps}", f"checkpoint.every_n_train_steps={steps}",
+            f"checkpoint.dir={work / 'ckt1'}"]
+    for stage, extra, kernels in (
+            ("stage1", [], CLI_STAGE1_KERNELS),
+            ("stage2", ["dataset.mode=action", f"checkpoint.load={work / 'ckt1'}",
+                        f"checkpoint.dir={work / 'ckt2'}"], tuple(STAGE2_FORWARD_ONLY))):
+        label = f"transformer cli {stage}"
+        state, run, counts, peak, wall = cli_run(dev, label, [*base, *extra],
+                                                 work / f"logs_t{stage}", steps=steps)
+        paths[f"transformer_cli_{stage}"] = counts
+        check_cli_counts(label, counts, run["steps"], paths, kernels)
+        check(run["losses"] and all(math.isfinite(v) for _, v in run["losses"]),
+              f"{label}: no finite logged loss")
+        rows = [json.loads(x) for x in
+                (work / f"logs_t{stage}" / "metrics.jsonl").read_text().splitlines()]
+        timings.update({f"transformer_cli_{stage}_rays_per_s": rows[-1]["perf/rays_per_sec"],
+                        f"transformer_cli_{stage}_peak_reserved_gib": peak,
+                        f"transformer_cli_{stage}_s": wall})
+        print(f"{label}: logged loss {run['losses']}, perf/rays_per_sec "
+              f"{rows[-1]['perf/rays_per_sec']:.1f} at step {rows[-1]['step']}")
+        if stage == "stage2":
+            ckpt = torch.load(work / "ckt1" / f"ckpt_{steps:09d}.pt", map_location="cpu",
+                              weights_only=True)["model"]
+            cli_freezing_gate(label, state.model, ckpt)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def other_decoders_phase(dev, timings, paths, cam, robot, scene, work):
+    """Phase 10: the other decoders and norms (lines "transformer",
+    "defaults", "flow_mlp"):
+      - model_allegro_transformer (the YAML's model, bf16, epipolar, fused
+        trunks, BatchNorm, K9 convs): the 480x640 render eager against
+        captured, inverse dynamics (phase 4's), stage 1 captured against
+        eager with the cycle's rays/s, then with remat (its peak memory, its
+        steps held to the remat-off ones), stage 2 as phase 6 (freezing by
+        "jacobian"), and the CLI;
+      - the JAX defaults, Model(make_model_cfg()): float32, exact, group
+        norm, cuDNN convs, plain trunks: the render eager against captured,
+        a stage-1 step eager and captured with finite non-zero gradients on
+        every encoder parameter;
+      - flow_mlp (model_allegro's with the flow decoder, bf16): one render
+        chunk, encode_image refused, stage-2 steps captured against eager,
+        freezing by "flow_head"."""
+    import torch
+
+    from neural_jacobian_field_torch.inference.render import render_camera
+    from neural_jacobian_field_torch.models.model import RenderingInput, make_model_cfg
+    from neural_jacobian_field_torch.training import make_train_step, step_randomness
+
+    n = H * W // PATCH
+
+    def render_all(model):
+        return lambda: render_camera(model, cam, robot, Z_NEAR, Z_FAR, H, W, patch_size=PATCH)
+
+    def free():
+        gc.collect()  # a model and its programs' cache refer to each other
+        torch.cuda.empty_cache()
+
+    # model_allegro_transformer
+    tv = Variant("transformer", yaml_model_cfg(*TRANSFORMER_OVERRIDES))
+    print(f"transformer config: {tv.cfg.action_decoder}")
+    model = build_model(dev, None, cfg=tv.cfg)
+    _, paths["transformer_serve"] = render_vs_eager(
+        dev, model, "transformer", render_all(model),
+        all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n, "K7-tz-fwd": 2 * n}), 24, timings,
+        "transformer_")
+    inverse_dynamics_phase(dev, model, cam, robot, timings, "transformer", tag="transformer_")
+    del model
+    free()
+    counts, stage1 = variant_train_phase(dev, timings, tv, stage1_counts("epipolar"),
+                                         dataclasses.replace(tv, remat=True))
+    paths["transformer_train_update"] = counts["update"]
+    paths["transformer_train_update_captured"] = counts["update captured"]
+    counts = action_phase(dev, timings, "epipolar", "flow", stage1, tv,
+                          all_zero_but(STAGE2_FORWARD_ONLY))
+    paths["transformer_action"] = counts["update"]
+    paths["transformer_action_captured"] = counts["update captured"]
+    del stage1
+    transformer_cli(dev, timings, paths, scene, work)
+
+    # the JAX defaults
+    dv = Variant("defaults", make_model_cfg(), dtype=None)
+    print(f"defaults config: encoder {dv.cfg.encoder}, {dv.cfg.rendering.pixel_feature_mode} "
+          f"features, fused trunks {dv.cfg.rendering.use_fused_trunk}, float32")
+    model = build_model(dev, None, cfg=dv.cfg, dtype=None)
+    _, paths["defaults_serve"] = render_vs_eager(
+        dev, model, "defaults", render_all(model),
+        all_zero_but({"K6-fwd": 2, "K5": n, "K1-fwd": 2 * n}), 24, timings, "defaults_")
+    del model
+    free()
+    want = stage1_counts("exact", conv=None, trunks=False)
+    model, state, batch, g = train_setup(dev, "exact", variant=dv)
+    counts = gate_counts(state, batch, g, "defaults train", want)
+    enc = [(k, p.grad) for k, p in model.named_parameters() if k.startswith("encoder.")]
+    bad = [k for k, gr in enc if gr is None or not bool(torch.isfinite(gr).all())
+           or not bool(gr.abs().sum() > 0)]
+    norms = [k for k, _ in enc if ".bn" in k or "_norm." in k]
+    print(f"defaults train: {len(enc) - len(bad)}/{len(enc)} encoder parameters with a finite "
+          f"non-zero gradient after an update step, {len(norms)} of them GroupNorm scales and "
+          f"biases; {bad[:4]}")
+    check(enc and not bad and norms, "defaults train: an encoder gradient is missing or not "
+                                     "finite")
+    # one update step, captured against five eager runs by the phase-5 rule
+    # on its metrics and its parameter gradients, not on the state after
+    # Adam: a first Adam step moves each element by about lr times the sign
+    # of its gradient, so a tensor that cuDNN's, max-pool's, upsampling's and
+    # the gathers' atomic sums make differ from run to run can still repeat
+    # by chance over five runs after it (a GroupNorm scale did so on the
+    # card), while its gradient differs in every run
+    plan = [(True, *step_randomness(state, batch, g))]
+    snap = snapshot(state)
+
+    def metrics_and_grads(st):
+        names, values = run_steps(st, batch, plan)
+        named = [(n, v) for n, v in zip(names, values) if n.startswith("step ")]
+        named += [(f"grad {n}", p.grad.detach().cpu().clone())
+                  for n, p in st.model.named_parameters()]
+        return [n for n, _ in named], [v for _, v in named]
+
+    eager = []
+    with model.programs.eager():
+        for _ in range(5):
+            names, record = metrics_and_grads(state)
+            eager.append(record)
+            restore(state, snap)
+        ops = ops_with_atomics(lambda: run_steps(state, batch, plan))
+        restore(state, snap)
+    del model, state
+    free()
+    model, state = new_train_state(dev, "exact", variant=dv)
+    restore(state, snap)
+    _, captured = metrics_and_grads(state)
+    compare_captured("defaults train (metrics and gradients)", names, eager, captured, ops)
+    counts.update(replay_counts(state, batch, g, "defaults train", want))
+    update = make_train_step(model, state.cfg, static_updated=True)
+    with model.programs.eager():
+        eager_ms = median_step_ms(lambda: update(state, batch, generator=g), n=3)
+    ms = median_step_ms(lambda: update(state, batch, generator=g), n=3)
+    timings["defaults_train_update_step_ms"] = ms
+    timings["defaults_train_eager_update_step_ms"] = eager_ms
+    print(f"defaults train update step (batch {TRAIN_B} x {TRAIN_RAYS} rays, float32): captured "
+          f"{ms:.2f} ms, eager {eager_ms:.2f} ms (medians of 3); {card_line()}")
+    paths["defaults_train_update"] = counts["update"]
+    paths["defaults_train_update_captured"] = counts["update captured"]
+    del model, state, batch, update
+    free()
+
+    # flow_mlp
+    fv = Variant("flow_mlp", yaml_model_cfg(*FLOW_MLP_OVERRIDES))
+    model = build_model(dev, None, cfg=fv.cfg)
+    hw = (32, PATCH // 32)  # one chunk of rays from the 480x640 context
+
+    def chunk():
+        return render_camera(model, cam, robot, Z_NEAR, Z_FAR, *hw, patch_size=PATCH)
+
+    _, paths["flow_mlp_serve"] = render_vs_eager(
+        dev, model, "flow_mlp", chunk,
+        all_zero_but({"K9-fwd": 24, "K6-fwd": 3, "K5": 1, "K7-tz-fwd": 2}),
+        fv.cfg.action_decoder.mlp.n_blocks * fv.cfg.action_decoder.mlp.d_hidden, timings,
+        "flow_mlp_", hw=hw)
+    ri = RenderingInput(origins=torch.zeros((1, 16, 3), device=dev),
+                        directions=torch.ones((1, 16, 3), device=dev) / math.sqrt(3.0),
+                        z_near=torch.full((1,), Z_NEAR, device=dev),
+                        z_far=torch.full((1,), Z_FAR, device=dev))
+    try:
+        model.encode_image(cam, ri, robot)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"flow_mlp encode_image refused: {refused!r}")
+    check(refused is not None and "nonlinear" in refused, "flow_mlp: encode_image did not raise")
+    del model
+    free()
+    counts = variant_action_steps(dev, fv, all_zero_but(STAGE2_FORWARD_ONLY), timings)
+    paths["flow_mlp_action"] = counts["update"]
+    paths["flow_mlp_action_captured"] = counts["update captured"]
 
 
 def trace(fn):
@@ -2584,7 +3094,8 @@ def profile_train(dev, mode, top=15):
     optimizer step, the `top` kernels by device time, and the device time
     and launches by kernel of the stride-1 conv kernels (K9-fwd or K10,
     K9-dgrad, K9-wgrad and their ordered sums), the K7 trunks, K1-bwd and
-    K5."""
+    K5. "transformer" traces the stage-2 step of model_allegro_transformer
+    (K9 convs) as "action" does, then `transformer_layers`."""
     import collections
 
     import torch
@@ -2592,8 +3103,10 @@ def profile_train(dev, mode, top=15):
     from neural_jacobian_field_torch.training import (
         make_multi_train_step, make_train_step, stack_batches, train_step)
 
-    if mode == "action":
-        _, state, batch, g = action_setup(dev, "epipolar", "flow")
+    if mode in ("action", "transformer"):
+        variant = (Variant("transformer", yaml_model_cfg(*TRANSFORMER_OVERRIDES))
+                   if mode == "transformer" else None)
+        _, state, batch, g = action_setup(dev, "epipolar", "flow", variant=variant)
         for updated in (True, False):
             train_step(state, batch, g, updated)
     elif mode == "fused":
@@ -2605,7 +3118,7 @@ def profile_train(dev, mode, top=15):
         step = make_train_step(state.model, state.cfg, static_updated=updated)
         runs += [(kind, lambda u=updated: train_step(state, batch, g, u)),
                  (kind + " captured", lambda s=step: s(state, batch, generator=g))]
-    if mode != "action":
+    if mode not in ("action", "transformer"):
         cycle = make_multi_train_step(state.model, state.cfg, 6,
                                       static_schedule=(False,) * 5 + (True,))
         stacked = stack_batches([batch] * 6)
@@ -2643,6 +3156,46 @@ def profile_train(dev, mode, top=15):
                   f"{sum(v[1] for v in group.values())} launches; "
                   + "; ".join(f"{k} {v[0] / 1e3:.3f} ms x{v[1]}"
                               for k, v in sorted(group.items(), key=lambda kv: -kv[1][0])))
+    if mode == "transformer":
+        transformer_layers(state, batch)
+
+
+def transformer_layers(state, batch):
+    """The device time (torch.profiler, forward + backward) of each part of
+    the transformer decoder's Jacobian at a stage-2 step's points (7 x 256
+    rays x 256 samples): the query MLP (its [N, 575] float32 input built from
+    random xyz and pixel-aligned features of the step's shapes), each of the
+    attention layers and feed-forward blocks, and the float32 head; beside
+    it the whole captured step's busy time from the traces above."""
+    import torch
+
+    from neural_jacobian_field_torch.models.transformer import dense
+
+    dec = state.model.decoder
+    dev = dec.jacobian_index_embedding.device
+    tr = dec.jacobian_attn_decoder
+    n = TRAIN_B * TRAIN_RAYS * state.model.cfg.rendering.num_nerf_samples
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    query = torch.randn((n, dec.jacobian_query_mlp.in_features), generator=g, device=dev)
+    x = dense(query, dec.jacobian_query_mlp, None).detach()
+    z = dec.jacobian_index_embedding
+    parts = [("query MLP", lambda: dense(query, dec.jacobian_query_mlp, None))]
+    for i in range(tr.depth):
+        attn, an = getattr(tr, f"layers_{i}_attn"), getattr(tr, f"layers_{i}_attn_norm")
+        ff, fn_ = getattr(tr, f"layers_{i}_ff"), getattr(tr, f"layers_{i}_ff_norm")
+        parts += [(f"layer {i} attention", lambda a=attn, m=an: x + a(m(x), z)),
+                  (f"layer {i} feed-forward", lambda f=ff, m=fn_: x + f(m(x)))]
+    parts.append(("head", lambda: dense(x, dec.jacobian_head, None)))
+    total = 0.0
+    for name, fn in parts:
+        def fwd_bwd(fn=fn):
+            out = fn()
+            out.backward(torch.ones_like(out))
+        ms = device_ms(fwd_bwd)
+        total += ms
+        print(f"profile transformer {name}: {ms:.3f} ms of device time, forward + backward, "
+              f"N = {n}")
+    print(f"profile transformer layers: {total:.3f} ms in all; {card_line()}")
 
 
 def main() -> int:
@@ -2651,7 +3204,9 @@ def main() -> int:
                         help="only profile, with torch.profiler, one frozen and one update "
                              "train step of the given feature mode (epipolar, the default, or "
                              "exact), of the epipolar step under pallas_fused (fused) or of the "
-                             "stage-2 step (action); or, with 'serve [MODE]', one render and "
+                             "stage-2 step (action), or of the transformer model's stage-2 step "
+                             "with the device time of each of its layers (transformer); "
+                             "or, with 'serve [MODE]', one render and "
                              "one 100-step solve, eager and captured; and print where the "
                              "device time goes")
     args = parser.parse_args()
@@ -2659,7 +3214,8 @@ def main() -> int:
     if profile is not None:
         serve = profile[:1] == ["serve"]
         what = (profile[1:] if serve else profile) or ["epipolar"]
-        if len(what) != 1 or what[0] not in (MODES if serve else MODES + ("fused", "action")):
+        if len(what) != 1 or what[0] not in (MODES if serve else
+                                                MODES + ("fused", "action", "transformer")):
             parser.error(f"--profile {' '.join(profile)}: expected [serve] MODE")
     try:
         import torch
@@ -2717,36 +3273,57 @@ def main() -> int:
             (profile_serve if serve else profile_train)(dev, what[0])
             return 0
 
+        phase_line(1, "card and build", t_start)
+        t0 = time.perf_counter()
         rows = kernel_checks(dev)
         rows.update(k10_checks(dev))
         rows.update(backward_kernel_checks(dev))
+        phase_line(2, "kernels against their plain versions", t0)
         timings, paths = {}, {}
         cam, robot = cameras(dev)
         for mode in MODES:
+            t0 = time.perf_counter()
             model = build_model(dev, mode)
             paths[("" if mode == "epipolar" else "exact_") + "serve"] = serve_phase(
                 dev, model, cam, robot, timings, mode)
+            phase_line(3, f"serving {mode}", t0)
+            t0 = time.perf_counter()
             inverse_dynamics_phase(dev, model, cam, robot, timings, mode)
+            phase_line(4, f"inverse dynamics {mode}", t0)
             del model
             gc.collect()  # the model and its programs' cache refer to each other
             torch.cuda.empty_cache()
         timings["serve_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         for prefix, mode, conv_impl in (("", "epipolar", "pallas"), ("exact_", "exact", "pallas"),
                                         ("fused_", "epipolar", "pallas_fused")):
+            t0 = time.perf_counter()
             counts, stage1 = train_phase(dev, timings, mode, conv_impl)
             for kind in ("update", "frozen"):
                 paths[f"{prefix}train_{kind}"] = counts[kind]
                 paths[f"{prefix}train_{kind}_captured"] = counts[kind + " captured"]
+            phase_line(5, f"train {mode} {conv_impl}", t0)
         for mode, supervision in (("epipolar", "flow"), ("exact", "flow"),
                                   ("epipolar", "tracks")):
+            t0 = time.perf_counter()
             name = "action_" + ("tracks" if supervision == "tracks" else mode + "_flow")
             counts = action_phase(dev, timings, mode, supervision, stage1)
             paths[name] = counts["update"]
             paths[name + "_captured"] = counts["update captured"]
+            phase_line(6, f"action {mode} {supervision}", t0)
         del stage1
+        t0 = time.perf_counter()
         concat_layout_checks(dev)
-        cli_phase(dev, timings, paths)
-        e2e_phase(dev, timings, paths)
+        phase_line(7, "concat layout", t0)
+        with tempfile.TemporaryDirectory(prefix="njf_cli_") as work:
+            t0 = time.perf_counter()
+            scene = cli_phase(dev, timings, paths, Path(work))
+            phase_line(8, "training CLI", t0)
+            t0 = time.perf_counter()
+            e2e_phase(dev, timings, paths)
+            phase_line(9, "e2e drive", t0)
+            t0 = time.perf_counter()
+            other_decoders_phase(dev, timings, paths, cam, robot, scene, Path(work))
+            phase_line(10, "other decoders and norms", t0)
         timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
         print("launches by path: " + json.dumps(paths))

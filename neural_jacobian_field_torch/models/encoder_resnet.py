@@ -23,8 +23,10 @@ biased variance), which torch.nn.BatchNorm2d does not: its momentum weighs
 the batch, not the running value, and its running variance is unbiased. Like
 the JAX `__call__(x, train)`, `forward(rgb, train)` normalises with the
 running statistics in eval mode and with the batch's in training mode,
-updating the running buffers in place. The group/instance norms are not
-ported.
+updating the running buffers in place. The group norm (32 groups, affine)
+and the instance norm (a group per channel, no scale or bias) have Flax's
+GroupNorm semantics (`GroupNorm`): no running statistics, the same in
+training and eval mode. K10 stays with BatchNorm, as in JAX.
 """
 
 from dataclasses import dataclass
@@ -138,6 +140,45 @@ class BatchNorm(nn.Module):
         return out.to(y.dtype)
 
 
+class GroupNorm(nn.Module):
+    """Flax nn.GroupNorm(epsilon=1e-5) over NHWC: per example and group of
+    channels, the mean and E[y^2] - mean^2 (clamped at 0) over (H, W, the
+    group's channels) in float32, then (y - mean) * (rsqrt(var + eps) *
+    scale) + bias in float32 and one cast back. `affine` False (the
+    instance norm: a group per channel) has no scale or bias. The batch
+    axis is never reduced, so training and eval mode are the same."""
+
+    def __init__(self, c: int, num_groups: int, affine: bool = True, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(c))
+            self.bias = nn.Parameter(torch.zeros(c))
+        else:
+            self.weight = self.bias = None
+
+    def init_weights(self, g=None):
+        if self.weight is not None:
+            with torch.no_grad():
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+
+    def forward(self, y, train: bool = False):
+        c = y.shape[-1]
+        groups = (self.num_groups, c // self.num_groups)
+        at = torch.promote_types(y.dtype, torch.float32)
+        yg = y.to(at).reshape(*y.shape[:-1], *groups)  # [B, H, W, G, C/G], a view
+        mean = yg.mean(dim=(1, 2, 4), keepdim=True)
+        var = torch.clamp((yg * yg).mean(dim=(1, 2, 4), keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight.to(at).reshape(groups)
+        out = (yg - mean) * mul
+        if self.bias is not None:
+            out = out + self.bias.to(at).reshape(groups)
+        return out.reshape(y.shape).to(y.dtype)
+
+
 class _NoNorm(nn.Module):
     def forward(self, y, train: bool = False):
         return y
@@ -146,9 +187,13 @@ class _NoNorm(nn.Module):
 def _norm(norm_type: str, c: int):
     if norm_type == "batch":
         return BatchNorm(c)
+    if norm_type == "group":
+        return GroupNorm(c, 32)
+    if norm_type == "instance":
+        return GroupNorm(c, c, affine=False)
     if norm_type == "none":
         return _NoNorm()
-    raise NotImplementedError(f"norm_type={norm_type!r} is not ported (batch, none are)")
+    raise ValueError(f"unknown norm_type: {norm_type}")
 
 
 def _init(m, g):

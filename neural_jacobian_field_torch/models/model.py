@@ -25,6 +25,7 @@ from ..rendering.samplers import (
     ProposalSamplerCfg, RayBundle, proposal_anneal, proposal_sample, sdist_edges,
     tdist_edges)
 from .decoders import (
+    DECODERS,
     ActionDecoderFlowMlpCfg,
     ActionDecoderJacobianMlpCfg,
     ActionDecoderJacobianTransformerCfg,
@@ -207,22 +208,25 @@ def step_anneal(count: torch.Tensor, cfg: RenderingCfg) -> torch.Tensor:
 
 
 class Model(nn.Module):
-    """Encoder + proposal sampling + Jacobian-field decoder."""
+    """Encoder + proposal sampling + action decoder. `remat` recomputes the
+    proposal nets' and the decoder's trunk activations in the backward
+    (torch.utils.checkpoint, the JAX Model's remat): less memory for one
+    more forward of those trunks."""
 
     def __init__(self, cfg: ModelCfg = ModelCfg(),
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
-        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.cfg, self.compute_dtype, self.remat = cfg, compute_dtype, remat
         fused = cfg.rendering.use_fused_trunk
         self.encoder = EncoderResnet(cfg.encoder, compute_dtype)
         encoder_dim = EncoderResnet.output_dim(cfg.encoder)
         self.decoder = get_action_decoder(cfg.action_decoder, cfg.action_dim, encoder_dim,
-                                          compute_dtype, fused_trunk=fused)
+                                          compute_dtype, fused_trunk=fused, remat=remat)
         self.num_proposal_networks = len(cfg.rendering.num_proposal_samples)
         for i in range(self.num_proposal_networks):
             self.add_module(f"proposal_networks_{i}",
                             DensityDecoderMlp(cfg.density_decoder, encoder_dim,
-                                              compute_dtype, fused_trunk=fused))
+                                              compute_dtype, fused_trunk=fused, remat=remat))
         self.sampler_cfg = ProposalSamplerCfg(
             num_proposal_samples=tuple(cfg.rendering.num_proposal_samples),
             num_nerf_samples=cfg.rendering.num_nerf_samples,
@@ -364,7 +368,8 @@ class Model(nn.Module):
         pixel_encoding = self.attach_ray_features(pixel_encoding, ray_bundle)
         ray_samples, positions, directions, weights_list, ray_samples_list = (
             self.compute_proposal(ray_bundle, pixel_encoding, ctx, stratified=train))
-        dec = self.decoder(positions, directions, pixel_encoding, flow=render_flow)
+        dec = self.decoder(positions, directions, pixel_encoding, flow=render_flow,
+                           features=compute_vis_features)
         weights = ray_samples.get_weights(dec.density)
         rgb = torch.sum(weights * dec.color, dim=-2)
         steps = (ray_samples.starts + ray_samples.ends) / 2
@@ -430,3 +435,11 @@ class Model(nn.Module):
             encoding.weights, encoding.ray_samples_positions, scene_flow[..., :3],
             camera_input.trgt_extrinsics, camera_input.trgt_intrinsics)
         return optical_flow
+
+
+def make_model_cfg(action_decoder_name: str = "jacobian_transformer",
+                   action_dim: int = 8, **overrides) -> ModelCfg:
+    """A ModelCfg with the named action decoder's default config (the JAX
+    make_model_cfg); other fields from `overrides`."""
+    decoder_cfg_cls, _ = DECODERS[action_decoder_name]
+    return ModelCfg(action_dim=action_dim, action_decoder=decoder_cfg_cls(), **overrides)

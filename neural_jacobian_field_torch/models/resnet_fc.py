@@ -16,6 +16,11 @@ Three forms, chosen by configuration as in the JAX package:
     levels concatenated.
 The JAX package resolves the fused branch by backend (TPU only); the port
 resolves it by configuration, and the kernel wrapper by the tensor's device.
+`compute_features` (the flow decoder's head) takes the plain chain and
+returns the block outputs too, as JAX's does. `remat` (the JAX
+`nn.remat(ResnetFC)` of a Model built with remat=True) evaluates the trunk
+under torch.utils.checkpoint: its activations are recomputed in the
+backward instead of kept.
 """
 
 from dataclasses import dataclass
@@ -24,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.epipolar import KnotFeatures
 from . import initializers as init
@@ -45,19 +51,21 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dt) -> torch.Tensor:
 
 
 class ResnetFC(nn.Module):
-    """forward(z, x): z = latent features [..., d_latent] (or KnotFeatures,
-    or a tuple of levels whose widths sum to d_latent), x = encoded coords
-    [..., d_in]. Returns output [..., d_out] float32.
+    """forward(z, x[, compute_features]): z = latent features [..., d_latent]
+    (or KnotFeatures, or a tuple of levels whose widths sum to d_latent), x =
+    encoded coords [..., d_in]. Returns output [..., d_out] float32.
     Layer names match the JAX param tree."""
 
     def __init__(self, cfg: MlpCfg, d_in: int, d_out: int, d_latent: int,
                  compute_dtype: Optional[torch.dtype] = None,
-                 near_zero_init: bool = False, fused_trunk: bool = False):
+                 near_zero_init: bool = False, fused_trunk: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.cfg, self.d_in, self.d_out, self.d_latent = cfg, d_in, d_out, d_latent
         self.compute_dtype = compute_dtype
         self.near_zero_init = near_zero_init
         self.fused_trunk = fused_trunk
+        self.remat = remat
         dh = cfg.d_hidden
         self.n_lin_z = min(cfg.combine_layer, cfg.n_blocks) if d_latent > 0 else 0
         self.lin_in = nn.Linear(d_in, dh)
@@ -99,10 +107,21 @@ class ResnetFC(nn.Module):
             return F.softplus(self.cfg.beta * v) / self.cfg.beta
         return torch.relu(v)
 
-    def forward(self, z, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, z, x: torch.Tensor, compute_features: bool = False):
+        """The output [..., d_out] float32; with compute_features, (output,
+        the block outputs concatenated [..., n_blocks * d_hidden] float32)."""
+        if self.remat and torch.is_grad_enabled():
+            # the trunks draw no randomness (every draw is passed in), so no
+            # RNG state is kept for the recompute: reading the CUDA RNG state
+            # would fail inside a CUDA-graph capture
+            return checkpoint(self._forward, z, x, compute_features, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._forward(z, x, compute_features)
+
+    def _forward(self, z, x: torch.Tensor, compute_features: bool):
         cfg, dt = self.cfg, self.compute_dtype
-        use_fused = (self.fused_trunk and cfg.beta == 0 and self.d_latent > 0
-                     and dt == torch.bfloat16)
+        use_fused = (self.fused_trunk and not compute_features and cfg.beta == 0
+                     and self.d_latent > 0 and dt == torch.bfloat16)
         if use_fused:
             from ..ops.kernels.field_mlp import fused_resnet_fc_train, fused_resnet_fc_train_tz
 
@@ -133,10 +152,16 @@ class ResnetFC(nn.Module):
             zt = z.to(dt) if dt is not None else z
             tz_all = F.linear(zt, w_cat.to(zt.dtype), b_cat.to(zt.dtype))
             tz_parts = torch.split(tz_all, cfg.d_hidden, dim=-1)
+        features = []
         for i in range(cfg.n_blocks):
             if tz_parts is not None and i < self.n_lin_z:
                 h = h + tz_parts[i]
             net = _linear(self._act(h), self._layer(f"blocks_{i}_fc_0"), dt)
             dx = _linear(self._act(net), self._layer(f"blocks_{i}_fc_1"), dt)
             h = h + dx
-        return _linear(self._act(h), self.lin_out, dt).to(torch.float32)
+            if compute_features:
+                features.append(h)
+        out = _linear(self._act(h), self.lin_out, dt).to(torch.float32)
+        if compute_features:
+            return out, torch.cat(features, dim=-1).to(torch.float32)
+        return out

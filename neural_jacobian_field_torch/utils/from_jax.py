@@ -5,7 +5,10 @@ conv1, decoder/density_head/blocks_0_fc_0, proposal_networks_0/...), so the
 bridge is a leaf-by-leaf rename:
   Dense `kernel` [in, out]      -> `weight` [out, in] (nn.Linear)
   Conv  `kernel` HWIO           -> `weight` HWIO (the port's conv and K9 layout)
-  norm  `scale` / `bias`        -> `weight` / `bias`
+  norm  `scale` / `bias`        -> `weight` / `bias` (BatchNorm, GroupNorm,
+                                   LayerNorm)
+  a bare param (`BARE_PARAMS`: `jacobian_index_embedding`) -> the parameter
+                                   of that name
   batch_stats `mean` / `var`    -> buffers `running_mean` / `running_var`
 Inputs are the Flax trees as nested dicts of arrays (numpy, or anything
 np.asarray takes); nothing here imports JAX.
@@ -22,6 +25,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+
+# parameters a Flax module declares itself (self.param), kept by name
+BARE_PARAMS = ("jacobian_index_embedding",)
 
 
 def _flatten(tree, prefix=()):
@@ -46,6 +53,8 @@ def from_jax_variables(params, batch_stats: Optional[dict] = None) -> Dict[str, 
             state[f"{base}.weight"] = arr
         elif name == "bias":
             state[f"{base}.bias"] = arr
+        elif name in BARE_PARAMS:
+            state[".".join(path)] = arr
         else:
             raise KeyError(f"unmapped param leaf {'/'.join(path)}")
     for path, leaf in _flatten(batch_stats or {}):

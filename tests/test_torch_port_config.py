@@ -35,6 +35,7 @@ OVERRIDE_SETS = {
                         "dataset.action_supervision_type=tracks",
                         "dataset.num_positive_samples=24", "training.val_check_interval=0"],
     "transformer": ["model=model_allegro_transformer"],
+    "flow_mlp": ["model.action_decoder.name=flow_mlp"],
 }
 
 
@@ -159,12 +160,20 @@ def test_override_values_are_typed():
 
 
 def test_transformer_decoder_reaches_the_ports_not_implemented():
-    """model_allegro_transformer.yaml is a valid configuration; building its
-    model stops at the port's missing transformer decoder, not earlier."""
+    """model_allegro_transformer.yaml is a valid configuration, and the port
+    builds its model: the transformer decoder at the YAML's widths (the name
+    is kept from when the port raised here). So does the flow-MLP decoder
+    chosen by `model.action_decoder.name=flow_mlp`."""
+    from neural_jacobian_field_torch.models.decoders import (
+        ActionDecoderFlowMlp, ActionDecoderJacobianTransformer)
     from neural_jacobian_field_torch.models.model import Model
 
     cfg = get_typed_root_config(load_config(CONFIG_DIR, OVERRIDE_SETS["transformer"]))
     assert cfg.model.action_decoder.name == "jacobian_transformer"
     assert cfg.model.action_decoder.transformer.num_attn_heads == 8
-    with pytest.raises(NotImplementedError, match="jacobian_transformer"):
-        Model(cfg.model)
+    model = Model(cfg.model)
+    assert isinstance(model.decoder, ActionDecoderJacobianTransformer)
+    assert model.decoder.jacobian_index_embedding.shape == (1, 8, 64)
+    assert model.decoder.jacobian_attn_decoder.layers_2_attn.to_q.weight.shape == (512, 64)
+    cfg = get_typed_root_config(load_config(CONFIG_DIR, OVERRIDE_SETS["flow_mlp"]))
+    assert isinstance(Model(cfg.model).decoder, ActionDecoderFlowMlp)
