@@ -147,7 +147,25 @@ K7 trunks that project the latent themselves):
      and captured (K1-bwd, K6-bwd) with finite non-zero gradients on every
      encoder parameter; flow_mlp: one render chunk, encode_image refused,
      stage-2 steps captured against eager, freezing by "flow_head";
-  11. timings and peak memory.
+  11. tools and flow (lines "tools", "raft"): load_model on phase 8's
+     stage-2 checkpoint (bf16, its overrides), every parameter and
+     BatchNorm buffer bit for bit the file's; the render camera through
+     parse_camera_json from camera jsons written from phase 8's scene; a
+     480x640 render through the captured programs (counted through replay:
+     K9-fwd, K6-fwd, K5, K7-tz-fwd, no legacy kernel) and its
+     joint-sensitivity map [1, 8, 480, 640] in [0, 1] and image; a
+     reference checkpoint fabricated at the flagship's widths (exact mode,
+     jacobian_mlp, action_dim 8) through port_reference_checkpoint, loaded
+     with strict=True, one 2048-ray chunk (K1-fwd, K7-fwd); RAFT at
+     raft_large's widths from a fabricated torchvision state dict:
+     compute_video_flow forward and backward on a 9-frame 480x640 video
+     (8 pairs in one chunk, float32), two runs bit for bit, one pair
+     against the module in float64 (float32 within 1e-4 of the largest
+     flow component, the same pair under cuDNN's TF32 beyond it), ms per
+     pair, peak memory, TFLOP per
+     pair (FlopCounterMode); a draw_pixel_motion overlay where cv2 is
+     installed;
+  12. timings and peak memory.
 Each phase prints `phase <n> <name>: ok, <s> s` as it ends, so a failed
 run's log shows where it stopped. Every main path also checks that no K9
 wrapper went to its legacy kernel (C or Cout not a multiple of 8), and no
@@ -3000,6 +3018,449 @@ def other_decoders_phase(dev, timings, paths, cam, robot, scene, work):
     paths["flow_mlp_action_captured"] = counts["update captured"]
 
 
+# ----------------------------------------------------------------- phase 11
+
+# RAFT: a 9-frame 480x640 video, 8 pairs in one chunk; the float64 check's
+# tolerance on one pair (relative to the float64 flow's largest component):
+# on an H100 float32 reads 2.7e-6 to 3.3e-6 and the same pair under cuDNN's
+# TF32 2.3e-3, so 1e-4 passes the one and refuses the other with ~20x room
+# on each side
+RAFT_FRAMES, RAFT_CHUNK, RAFT_F64_TOL = 9, 8, 1e-4
+
+
+def fabricate_raft_large(seed=SEED) -> dict:
+    """A torchvision raft_large state_dict (its names and shapes) drawn with
+    seeded numpy: convolution kernels N(0, 1 / fan_in), biases N(0, 0.01),
+    the context encoder's BatchNorms near the identity with their
+    num_batches_tracked counters; the feature encoder's instance norms have
+    no tensors."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, cout, cin, kh, kw):
+        sd[f"{name}.weight"] = rng.normal(0, 1 / math.sqrt(cin * kh * kw), (cout, cin, kh, kw))
+        sd[f"{name}.bias"] = rng.normal(0, 0.01, cout)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1 + rng.normal(0, 0.1, c)
+        sd[f"{name}.bias"] = rng.normal(0, 0.1, c)
+        sd[f"{name}.running_mean"] = rng.normal(0, 0.1, c)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c)
+        sd[f"{name}.num_batches_tracked"] = np.asarray(1000)
+
+    for enc, batch in (("feature_encoder", False), ("context_encoder", True)):
+        conv(f"{enc}.convnormrelu.0", 64, 3, 7, 7)
+        if batch:
+            bn(f"{enc}.convnormrelu.1", 64)
+        cin = 64
+        for li, (ch, stride) in enumerate(((64, 1), (96, 2), (128, 2)), start=1):
+            for bi in range(2):
+                base = f"{enc}.layer{li}.{bi}"
+                inp = cin if bi == 0 else ch
+                conv(f"{base}.convnormrelu1.0", ch, inp, 3, 3)
+                conv(f"{base}.convnormrelu2.0", ch, ch, 3, 3)
+                if batch:
+                    bn(f"{base}.convnormrelu1.1", ch)
+                    bn(f"{base}.convnormrelu2.1", ch)
+                if bi == 0 and (stride != 1 or inp != ch):
+                    conv(f"{base}.downsample.0", ch, inp, 1, 1)
+                    if batch:
+                        bn(f"{base}.downsample.1", ch)
+            cin = ch
+        conv(f"{enc}.conv", 256, 128, 1, 1)
+    me = "update_block.motion_encoder"
+    conv(f"{me}.convcorr1.0", 256, 4 * 81, 1, 1)
+    conv(f"{me}.convcorr2.0", 192, 256, 3, 3)
+    conv(f"{me}.convflow1.0", 128, 2, 7, 7)
+    conv(f"{me}.convflow2.0", 64, 128, 3, 3)
+    conv(f"{me}.conv.0", 126, 256, 3, 3)
+    for i, (kh, kw) in ((1, (1, 5)), (2, (5, 1))):
+        for gate in ("convz", "convr", "convq"):
+            conv(f"update_block.recurrent_block.convgru{i}.{gate}", 128, 384, kh, kw)
+    conv("update_block.flow_head.conv1", 256, 128, 3, 3)
+    conv("update_block.flow_head.conv2", 2, 256, 3, 3)
+    conv("mask_predictor.convrelu.0", 256, 128, 3, 3)
+    conv("mask_predictor.conv", 64 * 9, 256, 1, 1)
+    return {k: torch.from_numpy(np.asarray(v, np.int64 if k.endswith("tracked") else np.float32))
+            for k, v in sd.items()}
+
+
+def _reference_fc(name: str) -> str:
+    """A ResnetFC submodule's port name -> the reference repo's."""
+    if name.startswith("lin_z_"):
+        return "lin_z." + name.split("_")[-1]
+    if name.startswith("blocks_"):
+        _, n, fc, m = name.split("_")
+        return f"blocks.{n}.{fc}_{m}"
+    return name
+
+
+def reference_name(key: str) -> str:
+    """A port state-dict key -> the reference checkpoint's key (the inverse
+    of port_reference_checkpoint's name map)."""
+    *mods, leaf = key.split(".")
+    if mods[0] == "encoder":
+        if mods[1].startswith("layer"):
+            layer, block = mods[1].split("_block")
+            sub = {"downsample_conv": "downsample.0",
+                   "downsample_norm": "downsample.1"}.get(mods[2], mods[2])
+            mods = ["encoder", "model", layer, block, sub]
+        else:
+            mods = ["encoder", "model", mods[1]]
+    elif mods[0].startswith("proposal_networks_"):
+        mods = ["proposal_networks", mods[0].split("_")[-1], mods[1],
+                _reference_fc(mods[2])]
+    elif mods[0] == "decoder" and len(mods) > 1:  # not a bare parameter
+        head = mods[1]
+        if head == "color_head":
+            mods = ["decoder", "color_head", {"fc1": "0", "fc2": "2", "fc3": "4"}[mods[2]]]
+        elif len(mods) == 3:
+            mods = ["decoder", head, _reference_fc(mods[2])]
+    return "model." + ".".join(mods + [leaf])
+
+
+def fabricate_reference_flagship(model, seed=SEED) -> dict:
+    """A reference Lightning checkpoint's state_dict at `model`'s widths
+    (names and layouts of the reference repo, utils/port_torch.py), drawn
+    with seeded numpy: kaiming-normal linears and convolutions (the Jacobian
+    head's at a hundredth, so that the warped points stay in front of the
+    camera), biases N(0, 0.01), BatchNorms near the identity."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if key.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith(("running_mean", "bias")) or key.endswith("embedding"):
+            v = rng.normal(0, 0.01, shape)
+        elif t.dim() == 1:  # a norm's scale
+            v = 1 + rng.normal(0, 0.1, shape)
+        else:
+            fan_in = shape[1] if t.dim() == 2 else shape[0] * shape[1] * shape[2]
+            v = rng.normal(0, math.sqrt(2 / fan_in), shape)
+            if ".jacobian_head." in f".{key}":
+                v *= 0.01
+            if t.dim() == 4:  # the port's HWIO -> the reference's [out, in, kh, kw]
+                v = v.transpose(3, 2, 0, 1)
+        sd[reference_name(key)] = np.ascontiguousarray(v, dtype=np.float32)
+    return sd
+
+
+def raft_video(dev):
+    """[RAFT_FRAMES, 480, 640, 3] in [0, 1] on the card: a seeded low-frequency
+    texture (64x86 noise, bicubic upsampled) drifting 3 px right and 1 px
+    down per frame."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    frames = RAFT_FRAMES
+    rng = np.random.default_rng(SEED + 21)
+    noise = torch.from_numpy(rng.uniform(size=(1, 3, 64, 86)).astype(np.float32))
+    big = F.interpolate(noise, size=(H + frames, W + 3 * frames), mode="bicubic",
+                        align_corners=False).clamp(0, 1)[0].permute(1, 2, 0)
+    return torch.stack([big[frames - i:frames - i + H, 3 * (frames - i):3 * (frames - i) + W]
+                        for i in range(frames)]).contiguous().to(dev)
+
+
+def tools_phase(dev, timings, paths, work):
+    """Phase 11: the inference toolbox and the flow helper (lines "tools",
+    "raft"). Returns nothing; every gate raises."""
+    tools_load_model(dev, timings, paths, work)
+    tools_reference_checkpoint(dev, timings, paths)
+    flow, video = raft_phase(dev, timings)
+    tools_overlays(flow, video)
+
+
+def tools_load_model(dev, timings, paths, work):
+    """load_model on phase 8's stage-2 checkpoint (its overrides, bf16): the
+    state bit for bit the file's; a camera json written from phase 8's
+    scene through parse_camera_json; a 480x640 render through the captured
+    programs (counted through replay) and its joint-sensitivity map."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from neural_jacobian_field_torch.config import CONFIG_DIR
+    from neural_jacobian_field_torch.data import image_io
+    from neural_jacobian_field_torch.inference import (
+        JACOBIAN_COLORMAP, compute_joint_sensitivity, load_model, parse_camera_json,
+        visualize_joint_sensitivity)
+    from neural_jacobian_field_torch.inference.render import render_camera
+    from neural_jacobian_field_torch.models.model import CameraInput, RobotInput
+    from neural_jacobian_field_torch.ops import kernels as K
+
+    scene = work / "scene"
+    ckpt_dir = work / "ck2"
+    overrides = [*cli_overrides(scene, work), "dataset.mode=action"]
+    peak_window(dev)
+    t0 = time.perf_counter()
+    model = load_model(CONFIG_DIR, ckpt_dir, overrides, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    saved = torch.load(ckpt_dir / f"ckpt_{CLI_STEPS:09d}.pt", map_location="cpu",
+                       weights_only=True)["model"]
+    state = model.state_dict()
+    differ = [k for k in saved if not torch.equal(state[k].cpu(), saved[k])]
+    stats = sum(k.endswith(("running_mean", "running_var")) for k in saved)
+    print(f"tools load_model: {CONFIG_DIR.name}/ + {len(overrides)} overrides, checkpoint "
+          f"{ckpt_dir.name}/ckpt_{CLI_STEPS:09d}.pt, bf16, on {next(model.parameters()).device}, "
+          f"eval mode {not model.training}: {load_s:.3f} s; {len(saved)} entries ({stats} "
+          f"BatchNorm statistics) bit for bit the file's: {not differ and set(saved) == set(state)}")
+    check(not differ and set(saved) == set(state) and not model.training,
+          f"tools load_model: state differs from the checkpoint at {differ[:5]}")
+
+    # the cameras through camera jsons written from the scene's transforms
+    cams = _json.loads((scene / "transforms.json").read_text())["cameras"]
+    parsed = []
+    for name, c in (("ctxt", cams[0]), ("trgt", cams[1])):
+        path = work / f"camera_{name}.json"
+        path.write_text(_json.dumps(c))
+        parsed.append(parse_camera_json(path))
+    ctxt, trgt = parsed
+    check((ctxt["height"], ctxt["width"]) == (H, W), f"tools camera json: {ctxt['height']}x"
+          f"{ctxt['width']}")
+    image = image_io.read_image(scene / "rgb" / "view_0" / "00000_00000.png")[..., :3]
+    image = torch.from_numpy(np.asarray(image, np.float32) / 255.0)[None].to(dev)
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].to(dev)  # noqa: E731
+    cam = CameraInput(input_image=image, ctxt_extrinsics=as_t(ctxt["c2w"]),
+                      ctxt_intrinsics=as_t(ctxt["intrinsics"]),
+                      trgt_extrinsics=as_t(trgt["c2w"]), trgt_intrinsics=as_t(trgt["intrinsics"]))
+    action = torch.from_numpy(np.random.default_rng(SEED + 5).normal(
+        0, 0.3, (1, model.cfg.action_dim)).astype(np.float32)).to(dev)
+    robot = RobotInput(robot_action=action)
+
+    def render():
+        return render_camera(model, cam, robot, Z_NEAR, Z_FAR, trgt["height"], trgt["width"],
+                             patch_size=PATCH)
+
+    t0 = time.perf_counter()
+    render()  # captures the encoder's and the chunk's programs
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = render()
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check_no_legacy("tools load_model render")
+    paths["tools_load_model"] = counts
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n = H * W // PATCH
+    want = all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n, "K7-tz-fwd": 3 * n})
+    print(f"tools render {H}x{W} of the loaded model (camera json, captured programs): "
+          f"{render_s:.3f} s ({H * W / render_s:.1f} rays/s), first call with the captures "
+          f"{capture_s:.3f} s, peak {peak:.2f} GiB; launches {counts}")
+    check(counts == want, f"tools render launches {counts} != {want}")
+    af = out.action_features
+    check(tuple(af.shape) == (1, H, W, 24) and bool(torch.isfinite(af).all()),
+          f"tools action_features {tuple(af.shape)} or not finite")
+
+    t0 = time.perf_counter()
+    sens = compute_joint_sensitivity(af)
+    sens_s = time.perf_counter() - t0
+    palette = np.asarray(JACOBIAN_COLORMAP["model_allegro"]).T
+    img = visualize_joint_sensitivity(sens[0], palette)
+    print(f"tools joint sensitivity: {sens.shape} in [{sens.min():.4f}, {sens.max():.4f}] "
+          f"({sens_s * 1e3:.1f} ms on the host, the copy included); image {img.shape} "
+          f"{img.dtype}, mean {img.mean():.2f}")
+    check(sens.shape == (1, 8, H, W) and np.isfinite(sens).all() and sens.min() >= 0
+          and sens.max() <= 1, "tools sensitivity: shape, finiteness or range")
+    check(img.shape == (H, W, 3) and img.dtype == np.uint8, "tools sensitivity image")
+    timings.update(tools_load_model_s=load_s, tools_render_s=render_s,
+                   tools_render_peak_mem_gib=peak, tools_sensitivity_ms=sens_s * 1e3)
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tools_reference_checkpoint(dev, timings, paths):
+    """A reference checkpoint fabricated at the flagship's widths (exact
+    mode, jacobian_mlp, action_dim 8), ported with port_reference_checkpoint
+    and loaded with strict=True; one 2048-ray chunk rendered eagerly from a
+    480x640 context image."""
+    import torch
+
+    from neural_jacobian_field_torch.inference.render import render_camera
+    from neural_jacobian_field_torch.models.model import Model, flagship_model_cfg
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.utils.port_torch import is_stat, port_reference_checkpoint
+
+    model = Model(flagship_model_cfg(pixel_feature_mode="exact"), compute_dtype=torch.bfloat16)
+    sd = fabricate_reference_flagship(model)
+    t0 = time.perf_counter()
+    ported = port_reference_checkpoint(sd)
+    model.load_state_dict(ported, strict=True)
+    port_s = time.perf_counter() - t0
+    model.to(dev).eval()
+    print(f"tools reference checkpoint: {len(sd)} reference tensors -> {len(ported)} entries "
+          f"({sum(map(is_stat, ported))} BatchNorm statistics), loaded with strict=True in "
+          f"{port_s:.3f} s")
+    cam, robot = cameras(dev)
+    with model.programs.eager():
+        K.reset_launch_counts()
+        out = render_camera(model, cam, robot, Z_NEAR, Z_FAR, 32, 64, patch_size=PATCH)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    check_no_legacy("tools reference chunk")
+    paths["tools_reference"] = counts
+    want = all_zero_but({"K9-fwd": 24, "K6-fwd": 2, "K5": 1, "K7-fwd": 3, "K1-fwd": 2})
+    finite = all(bool(torch.isfinite(t).all()) for t in outputs_of(out))
+    print(f"tools reference chunk (exact, 32x64 = {PATCH} rays from a {H}x{W} context): "
+          f"finite {finite}, rgb [{float(out.rgb.min()):.4f}, {float(out.rgb.max()):.4f}], "
+          f"depth [{float(out.depth_raw.min()):.4f}, {float(out.depth_raw.max()):.4f}]; "
+          f"launches {counts}")
+    check(finite, "tools reference chunk: non-finite outputs")
+    check(counts == want, f"tools reference chunk launches {counts} != {want}")
+    timings["tools_reference_port_s"] = port_s
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def raft_phase(dev, timings):
+    """RAFT at raft_large's widths from a fabricated torchvision state dict:
+    compute_video_flow forward and backward on a 9-frame 480x640 video
+    (float32, TF32 off), twice, bit for bit; one pair against the module in
+    float64, in float32 (within the tolerance) and under cuDNN's TF32
+    (beyond it); ms per pair, peak memory, the operations per pair (counted by
+    torch's FlopCounterMode on that pair); ms per pair again with cuDNN's
+    TF32 and with the bf16 module. Returns the forward flow and the video."""
+    import copy
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from neural_jacobian_field_torch.flow import (
+        RAFT, compute_video_flow, load_torch_raft_state_dict)
+
+    sd = fabricate_raft_large()
+    raft = RAFT(num_iters=20)
+    unused = []
+    ported = load_torch_raft_state_dict(raft, sd, unused_out=unused)
+    state = raft.state_dict()
+    print(f"raft raft_large from a fabricated torchvision state dict: {len(sd)} tensors, "
+          f"{len(ported)} module entries of {len(state)} ported, unused {unused}; "
+          f"{sum(p.numel() for p in raft.parameters())} parameters")
+    check(not unused and set(ported) == set(state), "raft: the loader left tensors or entries")
+    raft.eval()
+    video = raft_video(dev)
+    pairs = RAFT_FRAMES - 1
+
+    peak_window(dev)
+    t0 = time.perf_counter()
+    fwd = compute_video_flow(raft, video, chunk=RAFT_CHUNK)
+    bwd = compute_video_flow(raft, video, chunk=RAFT_CHUNK, backward=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    fwd2 = compute_video_flow(raft, video, chunk=RAFT_CHUNK)
+    bwd2 = compute_video_flow(raft, video, chunk=RAFT_CHUNK, backward=True)
+    same = bool(torch.equal(fwd, fwd2)) and bool(torch.equal(bwd, bwd2))
+    finite = bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(bwd).all())
+    shape = (pairs, H, W, 2)
+    print(f"raft compute_video_flow {RAFT_FRAMES} frames {H}x{W}, chunk {RAFT_CHUNK}: forward "
+          f"{tuple(fwd.shape)}, backward {tuple(bwd.shape)}, finite {finite}, two runs bit "
+          f"for bit {same}; median |flow| forward {float(fwd.norm(dim=-1).median()):.3f} px, "
+          f"mean flow ({float(fwd[..., 0].mean()):.3f}, {float(fwd[..., 1].mean()):.3f}) px "
+          f"(random weights: no relation to the video's 3 px, 1 px drift)")
+    check(tuple(fwd.shape) == shape and tuple(bwd.shape) == shape, "raft: flow shapes")
+    check(finite and same, "raft: flow not finite, or two runs differ")
+
+    ms = cuda_time_ms(lambda: compute_video_flow(raft, video, chunk=RAFT_CHUNK), reps=3,
+                      warmup=0) / pairs
+    with FlopCounterMode(display=False) as fc:
+        with torch.no_grad():
+            one = raft(video[:1], video[1:2])
+    flops = fc.get_total_flops()
+    by_op = {str(k).split(".")[-1]: v / 1e9 for k, v in fc.get_flop_counts()["Global"].items()}
+    print(f"raft {ms:.3f} ms per pair (CUDA events, median of 3 runs of {pairs} pairs in one "
+          f"chunk, float32, TF32 off), peak {peak:.3f} GiB allocated (forward and backward "
+          f"runs); {flops / 1e12:.4f} TFLOP per pair (FlopCounterMode: "
+          + ", ".join(f"{k} {v:.1f} GFLOP" for k, v in by_op.items())
+          + f"), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; the first forward and "
+          f"backward run {first_s:.3f} s; {card_line()}")
+
+    # the same pairs as a user would run them: cuDNN with TF32 (PyTorch's
+    # default; the flag restored after) and the bf16 module (JAX's float32
+    # pins); without TF32 cuDNN's heuristic takes an FFT algorithm for
+    # float32 (on an H100, 80% of RAFT's device time in its complex GEMMs)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ms_tf32 = cuda_time_ms(lambda: compute_video_flow(raft, video, chunk=RAFT_CHUNK),
+                               reps=3, warmup=1) / pairs
+        with torch.no_grad():
+            one_tf32 = raft(video[:1], video[1:2])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    raft16 = RAFT(num_iters=20, dtype=torch.bfloat16)
+    raft16.load_state_dict(raft.state_dict())
+    peak_window(dev)
+    flow16 = compute_video_flow(raft16.eval(), video, chunk=RAFT_CHUNK)
+    peak16 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms16 = cuda_time_ms(lambda: compute_video_flow(raft16, video, chunk=RAFT_CHUNK), reps=3,
+                        warmup=0) / pairs
+    dev16 = float((flow16 - fwd).norm(dim=-1).median())
+    print(f"raft as a user runs it: cuDNN with TF32 {ms_tf32:.3f} ms per pair "
+          f"({flops / (ms_tf32 * 1e-3) / 1e12:.2f} TFLOP/s); dtype=bfloat16 {ms16:.3f} ms per "
+          f"pair, peak {peak16:.3f} GiB, flow {flow16.dtype} finite "
+          f"{bool(torch.isfinite(flow16).all())}, median |bf16 - float32| {dev16:.3f} px")
+    check(flow16.dtype == torch.float32 and bool(torch.isfinite(flow16).all()),
+          "raft bf16: the flow is not float32 or not finite")
+    del raft16, flow16
+
+    raft64 = copy.deepcopy(raft).double()
+    with torch.no_grad():
+        ref = raft64(video[:1].double(), video[1:2].double())
+    err, pair_err, tf32_err = (float((x.double() - ref).abs().max() / ref.abs().max())
+                               for x in (one, fwd[:1], one_tf32))
+    print(f"raft float32 against float64 (the same module and pair): max |err| / max |flow| "
+          f"{err:.3e} alone, {pair_err:.3e} in the {RAFT_CHUNK}-pair chunk, {tf32_err:.3e} "
+          f"alone with cuDNN's TF32 (tolerance {RAFT_F64_TOL:.0e}: float32 within it, TF32 "
+          f"beyond it); max |flow| {float(ref.abs().max()):.3f} px")
+    check(err <= RAFT_F64_TOL and pair_err <= RAFT_F64_TOL,
+          f"raft float32 vs float64: {err:.3e} / {pair_err:.3e} > {RAFT_F64_TOL:.0e}")
+    check(tf32_err > RAFT_F64_TOL,
+          f"raft: the float64 check does not see cuDNN's TF32 ({tf32_err:.3e} <= "
+          f"{RAFT_F64_TOL:.0e})")
+    timings.update(raft_ms_per_pair=ms, raft_peak_mem_gib=peak, raft_tflop_per_pair=flops / 1e12,
+                   raft_f64_rel_err=max(err, pair_err), raft_tf32_f64_rel_err=tf32_err,
+                   raft_tf32_ms_per_pair=ms_tf32,
+                   raft_bf16_ms_per_pair=ms16, raft_bf16_peak_mem_gib=peak16)
+    del raft, raft64
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, video
+
+
+def tools_overlays(flow, video):
+    """draw_pixel_motion of the RAFT flow where cv2 is installed; a line
+    saying so where it is not (nothing depends on the overlays)."""
+    import importlib.util
+
+    import numpy as np
+
+    if importlib.util.find_spec("cv2") is None:
+        print("tools overlays: cv2 is not installed; no overlay drawn")
+        return
+    from neural_jacobian_field_torch.visualization import draw_pixel_motion
+
+    yx = np.stack(np.meshgrid(np.arange(20, H, 40), np.arange(20, W, 40), indexing="ij"),
+                  -1).reshape(-1, 2)
+    motion = flow[0].cpu().numpy()[yx[:, 0], yx[:, 1]]
+    img = draw_pixel_motion(video[0].cpu().numpy(), yx, motion)
+    print(f"tools overlays: cv2 present; draw_pixel_motion of {len(yx)} RAFT flow vectors: "
+          f"{img.shape} {img.dtype}")
+    check(img.shape == (H, W, 3) and img.dtype == np.uint8, "tools overlay shape or dtype")
+
+
 def trace(fn):
     """torch.profiler around one fn() (ended by a synchronize): the profile,
     the traced wall time (the first host event to the last device event),
@@ -3324,6 +3785,9 @@ def main() -> int:
             t0 = time.perf_counter()
             other_decoders_phase(dev, timings, paths, cam, robot, scene, Path(work))
             phase_line(10, "other decoders and norms", t0)
+            t0 = time.perf_counter()
+            tools_phase(dev, timings, paths, Path(work))
+            phase_line(11, "tools", t0)
         timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
         print("launches by path: " + json.dumps(paths))

@@ -19,10 +19,14 @@ def grid_sample_bilinear(features: torch.Tensor, coords: torch.Tensor,
     """Sample `features` [B, H, W, C] (NHWC) at xy coords [B, N, 2] in [-1, 1]
     (align_corners=True: -1 is pixel centre 0, +1 is W-1 / H-1). "border"
     clamps out-of-range coords; "zeros" reads 0 for each corner texel out of
-    bounds (torch grid_sample's default). Returns [B, N, C]."""
+    bounds (torch grid_sample's default). An empty map (H or W 0, RAFT's
+    coarsest correlation level below 64 px a side) reads zeros, as JAX's
+    gather does. Returns [B, N, C]."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     b, h, w, c = features.shape
+    if h == 0 or w == 0:
+        return features.new_zeros((b, coords.shape[1], c))
     x = (coords[..., 0] + 1.0) * 0.5 * (w - 1)
     y = (coords[..., 1] + 1.0) * 0.5 * (h - 1)
     if padding_mode == "border":

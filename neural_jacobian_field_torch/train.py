@@ -47,20 +47,11 @@ from .parallel import DevicePrefetcher, to_device
 from .training import (MultiStepDispatch, TrainCfg, create_train_state, host_step_schedule,
                        make_multi_train_step, make_train_step, stack_batches)
 from .training.checkpoint import CheckpointManager, load_params_only
+from .utils.device import resolve_device
 from .utils.logging import MetricsLogger, maybe_init_wandb
 from .utils.profiling import device_idle_share
 
 __all__ = ["CONFIG_DIR", "Trainer", "train", "main"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the card where it is None; raises where there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: training runs on the card; pass device='cpu' "
-                               "(--device cpu) to train on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 class Trainer:

@@ -10,6 +10,8 @@ bridge is a leaf-by-leaf rename:
   a bare param (`BARE_PARAMS`: `jacobian_index_embedding`) -> the parameter
                                    of that name
   batch_stats `mean` / `var`    -> buffers `running_mean` / `running_var`
+  params `mean` / `var`         -> the same buffers (RAFT's frozen BatchNorm
+                                   keeps its statistics among its params)
 Inputs are the Flax trees as nested dicts of arrays (numpy, or anything
 np.asarray takes); nothing here imports JAX.
 
@@ -55,6 +57,8 @@ def from_jax_variables(params, batch_stats: Optional[dict] = None) -> Dict[str, 
             state[f"{base}.bias"] = arr
         elif name in BARE_PARAMS:
             state[".".join(path)] = arr
+        elif name in ("mean", "var"):
+            state[f"{base}.running_{name}"] = arr
         else:
             raise KeyError(f"unmapped param leaf {'/'.join(path)}")
     for path, leaf in _flatten(batch_stats or {}):

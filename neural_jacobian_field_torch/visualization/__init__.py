@@ -1,8 +1,9 @@
 """Validation videos (PyTorch counterpart of the JAX package's
-visualization/): the interpolated-camera sweep the training CLI renders.
-The motion and match overlays are not ported yet."""
+visualization/): the interpolated-camera sweep the training CLI renders,
+and the motion and match overlays (cv2, imported only when one is
+drawn)."""
 
-from .validation import render_interpolated_view
+from .validation import draw_pixel_motion, draw_point_matches, ping_pong, render_interpolated_view
 from .view_interpolation import (
     cosine_smooth,
     generate_wobble,

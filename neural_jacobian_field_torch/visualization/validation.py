@@ -4,7 +4,9 @@ target camera towards the context camera with cosine easing, render each
 frame through `render_camera` (on the card, its captured programs: the
 encoder and the render chunk, captured at the first frame and replayed
 after), and colour the depth and flow with scales shared across the
-video."""
+video; and the overlays of the JAX module, on NumPy and OpenCV (imported
+inside each drawing, so the package imports where cv2 is missing): pixel
+motion arrows, a ping-pong loop, side-by-side point matches."""
 
 from typing import Dict, Optional
 
@@ -65,3 +67,67 @@ def render_interpolated_view(
         "depth": np.stack([depth_colormap(d, near=d_lo, far=d_hi) for d in depth_raws]),
         "optical_flow": np.stack([flow_to_rgb(f, max_norm=f_max) for f in flow_raws]),
     }
+
+
+def draw_pixel_motion(
+    image: np.ndarray,  # [H, W, 3] float in [0,1] or uint8
+    pixel_yx: np.ndarray,  # [N, 2]
+    motion_xy: np.ndarray,  # [N, 2]
+    visible: Optional[np.ndarray] = None,
+    color=(0, 255, 0),
+    thickness: int = 1,
+) -> np.ndarray:
+    """Arrow overlay of ground-truth pixel motion (model_wrapper.py:389-435).
+    Returns uint8 [H, W, 3]."""
+    import cv2
+
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    img = np.ascontiguousarray(img)
+    for i in range(len(pixel_yx)):
+        if visible is not None and not visible[i]:
+            continue
+        y, x = int(pixel_yx[i, 0]), int(pixel_yx[i, 1])
+        dx, dy = float(motion_xy[i, 0]), float(motion_xy[i, 1])
+        cv2.arrowedLine(img, (x, y), (int(round(x + dx)), int(round(y + dy))),
+                        color, thickness, tipLength=0.3)
+    return img
+
+
+def ping_pong(video: np.ndarray) -> np.ndarray:
+    """Seamless forward-backward loop (model_wrapper.py:334-387 videos)."""
+    return np.concatenate([video, video[::-1]], axis=0)
+
+
+def draw_point_matches(
+    image_a: np.ndarray,
+    image_b: np.ndarray,
+    points_a_xy: np.ndarray,
+    points_b_xy: np.ndarray,
+    color=(255, 80, 0),
+    radius: int = 2,
+) -> np.ndarray:
+    """Side-by-side correspondence visualization (inference/plotting.py:62-180):
+    images stacked horizontally with lines joining matched points."""
+    import cv2
+
+    def to_u8(img):
+        img = np.asarray(img)
+        if img.dtype != np.uint8:
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        return img
+
+    a, b = to_u8(image_a), to_u8(image_b)
+    h = max(a.shape[0], b.shape[0])
+    canvas = np.zeros((h, a.shape[1] + b.shape[1], 3), np.uint8)
+    canvas[: a.shape[0], : a.shape[1]] = a
+    canvas[: b.shape[0], a.shape[1]:] = b
+    offset = a.shape[1]
+    for pa, pb in zip(np.asarray(points_a_xy), np.asarray(points_b_xy)):
+        xa, ya = int(round(pa[0])), int(round(pa[1]))
+        xb, yb = int(round(pb[0])) + offset, int(round(pb[1]))
+        cv2.circle(canvas, (xa, ya), radius, color, -1)
+        cv2.circle(canvas, (xb, yb), radius, color, -1)
+        cv2.line(canvas, (xa, ya), (xb, yb), color, 1)
+    return canvas

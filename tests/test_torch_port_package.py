@@ -49,6 +49,12 @@ CLI_MODULES = (
     "visualization", "visualization.validation", "visualization.view_interpolation", "train",
     "verify_e2e")
 
+# the inference toolbox and the flow helper: compositing, sensitivity maps,
+# loaders, the overlays, reference checkpoints, RAFT, the ingest CLI
+TOOLS_MODULES = (
+    "ops", "ops.compositing", "inference", "inference.sensitivity", "inference.loaders",
+    "utils.device", "utils.port_torch", "utils.from_jax", "flow", "flow.raft", "ingest")
+
 
 def test_port_imports_without_jax():
     """Every module of the port imports with JAX, flax and the JAX package
@@ -59,7 +65,8 @@ def test_port_imports_without_jax():
     *_, listed, count = out.stdout.strip().splitlines()
     assert int(count) >= 20
     imported = set(listed.split())
-    missing = [m for m in CLI_MODULES if f"neural_jacobian_field_torch.{m}" not in imported]
+    missing = [m for m in CLI_MODULES + TOOLS_MODULES
+               if f"neural_jacobian_field_torch.{m}" not in imported]
     assert not missing, missing
 
 
