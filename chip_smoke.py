@@ -9,6 +9,9 @@
     python3 chip_smoke.py --profile serve [MODE]  # only: one render and one
                                             # 100-step solve, eager and
                                             # captured (MODE epipolar or exact)
+    python3 chip_smoke.py --determinism     # only: whether the stage-1 steps
+                                            # repeat bit for bit, the ops that
+                                            # sum with atomics, the cycle's rays/s
 
 Drives the port's main paths (neural_jacobian_field_torch, never JAX) at the
 flagship configuration with seeded random weights, in both pixel-feature
@@ -34,7 +37,12 @@ K7 trunks that project the latent themselves):
      K9-fwd's, its yardstick F.conv2d followed by the two reductions; the
      backward kernels (K9-dgrad, K9-wgrad, K6-bwd, K7-tz-bwd and K7-bwd at
      d_out 1, 16 and 24, K1-bwd) at the train step's, K1-bwd also onto a
-     45x80 map (a 720x1280 image's layer3, on a line of its own); K10, K5,
+     45x80 map (a 720x1280 image's layer3, on a line of its own);
+     K1-bwd-rows, K1-bwd's scatter generalised (the fixed-order backward of
+     the gathers and the upsampling), at the exact mode's fine-level
+     gather (7 x 65,536 rows of 512 bf16 onto 240x320) and, on a line of
+     its own, the pyramid's 2x upsampling (Q = 4 weighted corners), each
+     twice for identical bits; K10, K5,
      K1-bwd, K7-tz-bwd and K7-bwd twice, for identical bits (K7-tz-fwd and
      K7-fwd too). The
      K7 backward rows print each pass's device time (the gradient chain,
@@ -75,12 +83,15 @@ K7 trunks that project the latent themselves):
      make_train_step, make_multi_train_step), from the eager state loaded
      into a fresh model: three steps (update, frozen, frozen) captured
      against the same three steps run eagerly five times (metrics,
-     parameters, BatchNorm statistics, Adam's state: equal bit for bit
-     wherever the eager runs are; elsewhere, where a backward op sums with
-     atomics, the captured tensor's l2 distance to the nearest eager run
-     over the eager runs' spread at most 10, its median over the tensors at
-     most 1, and the ops with atomic sums on a step named), launch counts
-     through replay, replayed
+     parameters, BatchNorm statistics, Adam's state: the eager runs
+     bit-identical in every tensor and no op on a step summing with atomics
+     (ops_with_atomics; the gathers, the stem's max-pool and the upsampling
+     take fixed-order backwards, cuDNN its deterministic algorithms), and
+     the captured steps equal to them bit for bit; compare_captured's rule
+     for tensors where eager runs differ, which stage 2 keeps: the captured
+     tensor's l2 distance to the nearest eager run over the eager runs'
+     spread at most 10, its median over the tensors at most 1), launch
+     counts through replay, replayed
      update / frozen step times, the cycle as six replays and as one 6-step
      program (rays/s), the cycle's peak memory against the eager steps'
      (bound 1.3x), 30 steps through MultiStepDispatch past a short warm-up,
@@ -165,7 +176,23 @@ K7 trunks that project the latent themselves):
      pair, peak memory, TFLOP per
      pair (FlopCounterMode); a draw_pixel_motion overlay where cv2 is
      installed;
-  12. timings and peak memory.
+  12. timings and peak memory;
+  13. the 2D Jacobian-field family at full width (lines "2d"): the unet
+     (depth 3, 32 filters) and transformer (ViT-S/14 and a depth-3 UNet
+     decoder on 387 channels) configurations of configurations2d/, seeded,
+     252x252, batch 12, float32: the Jacobian map and flow captured
+     (jacobian2d.predict_2d) against eager bit for bit, three train steps
+     captured against five eager runs (exact: bit for bit, no atomic sums),
+     replayed step ms, steps/s and peak memory, a loss that falls over 20
+     captured steps on one batch, the transformer's dino parameters bit
+     for bit unchanged, one step's float32 gradients (TF32 off) within 1e-5
+     of float64's; train2d in process for pusher_only and left_finger, 60
+     steps each on synthetic trajectories written at 252x252, the .npz
+     loaded back bit for bit; tutorial 3's closed loop for 20 steps on the
+     trained pusher (its pixel error per step); the dinov2 ingest of a
+     fabricated ViT-S/14 hub state dict, loaded strict. The 2D family runs
+     no hand-written kernel (its convolutions are cuDNN's, as they were
+     XLA's in JAX).
 Each phase prints `phase <n> <name>: ok, <s> s` as it ends, so a failed
 run's log shows where it stopped. Every main path also checks that no K9
 wrapper went to its legacy kernel (C or Cout not a multiple of 8), and no
@@ -1025,6 +1052,8 @@ def backward_kernel_checks(dev):
                 f"{bound / d_ms:.1%})")
     del idx, w4, gy, got, want, again
     torch.cuda.empty_cache()
+    rows.update(row_scatter_checks(dev))  # its own generator: g's draws stay the K7 rows'
+    torch.cuda.empty_cache()
 
     # K7-tz-bwd and K7-bwd: the proposal (d_out 1) and density (d_out 16)
     # trunks of a stage-1 step and the Jacobian trunk (d_out 24) of a
@@ -1117,6 +1146,76 @@ def backward_kernel_checks(dev):
 
 
 # ------------------------------------------------------------------ phase 3+
+
+def row_scatter_checks(dev):
+    """K1-bwd-rows, the generalised scatter (the fixed-order backward of
+    the port's gathers and upsampling): the row is the exact mode's fine
+    level, a train step's per-sample gather of 7 x 65,536 packed rows (4 x
+    128 bf16) from a 240x320 map (Q = 1, unit weights, where
+    torch.gather's backward would scatter_add_ in bf16: the library call);
+    a line of its own holds the pyramid's 2x upsampling of layer1 (Q = 4
+    corners with their weights, 7 x 240x320 pixels of 64 channels onto
+    120x160). Each against its plain version (index_add_ in float32) and
+    twice for identical bits."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.ops.deterministic import _upsample_corners
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    b, n, (hf, wf), c = TRAIN_B, TRAIN_RAYS * 256, (H // 2, W // 2), 512
+    gy = torch.randn((b, n, c), generator=g, device=dev).to(torch.bfloat16)
+    # rows spread over the map
+    idx = (torch.rand((b, n, 1), generator=g, device=dev) * (hf - 1) * (wf - 1)).long()
+    got = K.row_scatter(gy, idx, None, hf * wf)
+    want = K.row_scatter_plain(gy, idx, None, hf * wf)
+    again = K.row_scatter(gy, idx, None, hf * wf)
+    err, same = rel_err(got, want), bool(torch.equal(got, again))
+    print(f"K1-bwd-rows {b}x{n}x{c} onto {hf}x{wf} rows (Q 1, unit weights): max_abs_err "
+          f"{float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} (tol 1e-4 of scale: "
+          f"float32 sums reordered); two calls bit-identical={same}")
+    check(err <= 1e-4 and same, "K1-bwd-rows disagrees with its plain version or does not "
+          "repeat")
+    scatter = torch.zeros((b, hf * wf, c), dtype=torch.bfloat16, device=dev)
+    ix = idx.expand(-1, -1, c)
+    row = Row()
+    row.add(float((got - want).abs().max()),
+            cuda_time_ms(lambda: K.row_scatter(gy, idx, None, hf * wf)),
+            cuda_time_ms(lambda: K.row_scatter_plain(gy, idx, None, hf * wf)),
+            nbytes(gy, idx, got),
+            library_ms=cuda_time_ms(lambda: scatter.zero_().scatter_add_(1, ix, gy)))
+    d_ms, stages = device_ms(lambda: K.row_scatter(gy, idx, None, hf * wf),
+                             groups=K1_BWD_STAGES)
+    print("  K1-bwd-rows stages (device ms per call): " + ", ".join(
+        f"{label} {ms:.4f}" for label, ms in stages.items()))
+    rec = row.record()
+    print_times("", row.ms, row.plain_ms, row.library_ms, extra=f" (device {d_ms:.4f}, bound "
+                f"{rec['bound_ms']:.4f}, bound/device {rec['bound_ms'] / d_ms:.1%})")
+    del gy, idx, got, want, again, scatter, ix
+    # the 2x upsampling's backward (Q = 4, weighted)
+    hi, wi, c = H // 4, W // 4, 64
+    gy = torch.randn((b, hf * wf, c), generator=g, device=dev).to(torch.bfloat16)
+    ids, w = _upsample_corners(hi, wi, hf, wf, torch.bfloat16, dev)
+    ids, w = ids.expand(b, -1, 4).contiguous(), w.expand(b, -1, 4).contiguous()
+    got = K.row_scatter(gy, ids, w, hi * wi)
+    want = K.row_scatter_plain(gy, ids, w, hi * wi)
+    again = K.row_scatter(gy, ids, w, hi * wi)
+    err, same = rel_err(got, want), bool(torch.equal(got, again))
+    print(f"K1-bwd-rows {b}x{hf}x{wf}x{c} onto {hi}x{wi} (Q 4, bilinear weights): max_abs_err "
+          f"{float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} (tol 1e-4 of scale); "
+          f"two calls bit-identical={same}")
+    check(err <= 1e-4 and same, "K1-bwd-rows (Q 4) disagrees with its plain version or does "
+          "not repeat")
+    nchw = gy.reshape(b, hf, wf, c).permute(0, 3, 1, 2)
+    lib_ms = cuda_time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+        nchw, [hf, wf], [b, c, hi, wi], False))
+    d_ms = device_ms(lambda: K.row_scatter(gy, ids, w, hi * wi))
+    bound = nbytes(gy, ids, w, got) / PEAK_BYTES_PER_S * 1e3
+    print_times("", cuda_time_ms(lambda: K.row_scatter(gy, ids, w, hi * wi)),
+                cuda_time_ms(lambda: K.row_scatter_plain(gy, ids, w, hi * wi)), lib_ms,
+                extra=f" (device {d_ms:.4f}, bound {bound:.4f}, bound/device {bound / d_ms:.1%})")
+    return {"K1-bwd-rows": rec}
+
 
 def serving_weights(model, g):
     """Seeded weights for serving: the Jacobian head drawn so that J(x)
@@ -1790,8 +1889,9 @@ def run_steps(state, batch, plan):
 
 
 # aten ops that CUDA implements with atomic adds, so that their sums come in
-# another order from run to run (cuDNN's convolution_backward depending on
-# the algorithm it picks)
+# another order from run to run (cuDNN's convolution_backward unless cuDNN
+# is held to its deterministic algorithms; index_put only when it
+# accumulates)
 ATOMIC_OPS = ("scatter_add", "index_add", "index_put", "_index_put_impl", "put",
               "max_pool2d_with_indices_backward", "upsample_bilinear2d_backward",
               "grid_sampler_2d_backward", "embedding_dense_backward", "convolution_backward")
@@ -1799,27 +1899,102 @@ ATOMIC_OPS = ("scatter_add", "index_add", "index_put", "_index_put_impl", "put",
 
 def ops_with_atomics(fn) -> list:
     """The ATOMIC_OPS that fn() runs, forward and backward (a dispatch mode
-    that records every aten op)."""
+    that records every aten op; convolution_backward where cuDNN was not
+    held to deterministic algorithms as it ran, index_put where it
+    accumulated)."""
+    import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     seen = set()
 
     class Record(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            seen.add(func.overloadpacket.__name__.rstrip("_"))
-            return func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            kwargs = kwargs or {}
+            if name == "convolution_backward" and torch.backends.cudnn.deterministic:
+                pass
+            elif name in ("index_put", "_index_put_impl") and not (
+                    kwargs.get("accumulate", len(args) > 3 and args[3])):
+                pass
+            else:
+                seen.add(name)
+            return func(*args, **kwargs)
 
     with Record():
         fn()
     return sorted(seen & {op.rstrip("_") for op in ATOMIC_OPS})
 
 
+def warned_ops(fn) -> list:
+    """The ops that warn, under torch.use_deterministic_algorithms(True,
+    warn_only=True), that they have no deterministic implementation while
+    fn() runs (each warning's text up to its first comma or period)."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({re.split(r"[,.]", str(w.message), maxsplit=1)[0][:120] for w in caught
+                   if "determinis" in str(w.message)})
+
+
+def determinism_report(dev, runs=3):
+    """`--determinism`: for phase 5's stage-1 steps (epipolar, exact,
+    pallas_fused) and phase 10's transformer model, the three steps of the
+    captured-vs-eager check run eagerly: the ops that warn under
+    torch.use_deterministic_algorithms(True, warn_only=True), the ops with
+    atomic sums that a step runs (ops_with_atomics), the tensors in which
+    `runs` eager runs differ; then the 5-frozen + 1-update cycle's rays/s,
+    as six replays and as one 6-step program (captured_step_times).
+    Returns the paths whose eager runs differ or that run an atomic sum."""
+    import torch
+
+    from neural_jacobian_field_torch.training import step_randomness
+
+    cases = [("train epipolar", "epipolar", "pallas", None),
+             ("train exact", "exact", "pallas", None),
+             ("train fused", "epipolar", "pallas_fused", None),
+             ("transformer train", "epipolar", "pallas",
+              Variant("transformer", yaml_model_cfg(*TRANSFORMER_OVERRIDES)))]
+    failed, timings = [], {}
+    for label, mode, conv_impl, variant in cases:
+        model, state, batch, g = train_setup(dev, mode, conv_impl, variant)
+        plan = [(u, *step_randomness(state, batch, g)) for u in (True, False, False)]
+        snap = snapshot(state)
+        with state.model.programs.eager():
+            warned = warned_ops(lambda: run_steps(state, batch, plan))
+            restore(state, snap)
+            ops = ops_with_atomics(lambda: run_steps(state, batch, plan[:1]))
+            restore(state, snap)
+        names, eager, _ = eager_runs(state, batch, plan, runs)
+        differ = [n for i, n in enumerate(names)
+                  if not all(torch.equal(eager[0][i], r[i]) for r in eager[1:])]
+        print(f"determinism {label}: ops that warn under use_deterministic_algorithms: "
+              f"{warned or 'none'}; ops with atomic sums on a step: {ops or 'none'}; "
+              f"{runs} eager runs of 3 steps differ in {len(differ)} of {len(names)} tensors "
+              f"{differ[:4]}")
+        if differ or ops:
+            failed.append(label)
+        captured_step_times(dev, state, batch, g, f"determinism {label}",
+                            label.replace(" ", "_") + "_", timings)
+        del model, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("determinism cycle rays/s: " + json.dumps(
+        {k: round(v, 1) for k, v in timings.items() if k.endswith("cycle_rays_per_s")}))
+    return failed
+
+
 def eager_runs(state, batch, plan, runs=5):
     """The plan's steps eagerly, `runs` times from the state as it is; the
     state is left as it was. Returns (names, the runs' host copies, the ops
-    with atomic sums that a step runs where the runs differ, else [])."""
-    import torch
-
+    with atomic sums that the plan's first step runs)."""
     snap = snapshot(state)
     out = []
     with state.model.programs.eager():
@@ -1827,16 +2002,17 @@ def eager_runs(state, batch, plan, runs=5):
             names, record = run_steps(state, batch, plan)
             out.append(record)
             restore(state, snap)
-        ops = []
-        if not all(torch.equal(a, b) for run in out[1:] for a, b in zip(out[0], run)):
-            ops = ops_with_atomics(lambda: run_steps(state, batch, plan[:1]))
-            restore(state, snap)
+        ops = ops_with_atomics(lambda: run_steps(state, batch, plan[:1]))
+        restore(state, snap)
     return names, out, ops
 
 
-def compare_captured(label, names, eager, captured, ops):
+def compare_captured(label, names, eager, captured, ops, exact=False):
     """Captured against the eager runs, tensor by tensor: equal bit for bit
-    where the eager runs all are. Elsewhere a step's sums come in another
+    where the eager runs all are. `exact` (the stage-1 steps, which sum in
+    a fixed order, as JAX's step does): the eager runs must also be
+    bit-identical in every tensor and no op on the step may sum with
+    atomics, so that captured == eager bit for bit everywhere. Elsewhere a step's sums come in another
     order from run to run, and the captured run is one more such run: per
     tensor, its l2 distance to the nearest eager run over the eager runs'
     largest distance from each other is at most 10, and the median of that
@@ -1876,6 +2052,10 @@ def compare_captured(label, names, eager, captured, ops):
           f"{ops or 'none'}")
     check(not bad and median <= 1.0,
           f"{label}: captured steps disagree with eager at {bad[:6]} (median ratio {median:.3f})")
+    if exact:
+        check(repeat == len(names) and not ops,
+              f"{label}: a stage-1 step does not repeat: eager runs differ in "
+              f"{len(names) - repeat} tensors {list(ratios)[:4]}, ops with atomic sums {ops}")
 
 
 def peak_window(dev):
@@ -1992,18 +2172,24 @@ def stage1_counts(mode, conv="K9-fwd", trunks=True):
     coarse-level gathers (K1), and, where the trunks are fused (`trunks`),
     two trunks forward: the proposal and NeRF densities (no flow is rendered
     in stage 1, so no Jacobian trunk or transformer runs); the backward of
-    both on an update step, of the NeRF density alone on a frozen one."""
+    both on an update step, of the NeRF density alone on a frozen one.
+    K1-bwd-rows, the fixed-order backward of the packed-row gathers (the
+    three knot levels once per step in epipolar mode; fine and mid per
+    density in exact mode), of layer1's upsampling to the fine level and,
+    on an update step, of the interlevel loss's gather."""
     want = {}
     for kind, n_bwd in (("update", 2), ("frozen", 1)):
         c = {"K5": 1}
         if conv:
             c.update({conv: 24, "K9-dgrad": 24, "K9-wgrad": 24})
+        loss = int(kind == "update")
         if mode == "epipolar":
-            c.update({"K6-fwd": 3, "K6-bwd": 3})
+            c.update({"K6-fwd": 3, "K6-bwd": 3, "K1-bwd-rows": 3 + 1 + loss})
             if trunks:
                 c.update({"K7-tz-fwd": 2, "K7-tz-bwd": n_bwd})
         else:
-            c.update({"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2, "K1-bwd": n_bwd})
+            c.update({"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2, "K1-bwd": n_bwd,
+                      "K1-bwd-rows": 2 * n_bwd + 1 + loss})
             if trunks:
                 c.update({"K7-fwd": 2, "K7-bwd": n_bwd})
         want[kind] = all_zero_but(c)
@@ -2129,7 +2315,7 @@ def train_phase(dev, timings, mode, conv_impl="pallas"):
     _, captured = run_steps(state, batch, plan)  # captures the update and frozen programs
     print(f"{label} captured the update and frozen programs and ran 3 steps in "
           f"{time.perf_counter() - t0:.2f} s")
-    compare_captured(label, names, eager, captured, ops)
+    compare_captured(label, names, eager, captured, ops, exact=True)
 
     counts.update(replay_counts(state, batch, g, label, want))
 
@@ -2495,7 +2681,7 @@ def cli_phase(dev, timings, paths, work):
     snap = snapshot(state)
     _, captured = run_steps(state, batch, plan)
     restore(state, snap)
-    compare_captured("cli stage1 after validation", names, eager, captured, ops)
+    compare_captured("cli stage1 after validation", names, eager, captured, ops, exact=True)
     del state, batch, eager, captured, snap
     gc.collect()
     torch.cuda.empty_cache()
@@ -2565,7 +2751,7 @@ def cli_freezing_gate(label, model, stage1):
 # the kernels each CLI stage's steps run at the flagship configuration:
 # stage 2 trains the Jacobian head alone, so no encoder or packing backward
 CLI_STAGE1_KERNELS = ("K9-fwd", "K9-dgrad", "K9-wgrad", "K6-fwd", "K6-bwd", "K5", "K7-tz-fwd",
-                      "K7-tz-bwd")
+                      "K7-tz-bwd", "K1-bwd-rows")
 CLI_STAGE2_KERNELS = ("K9-fwd", "K6-fwd", "K5", "K7-tz-fwd", "K7-tz-bwd")
 
 
@@ -2717,7 +2903,7 @@ def variant_train_phase(dev, timings, variant, want, remat_variant=None):
     model, state = new_train_state(dev, "epipolar", variant=variant)
     restore(state, snap)
     _, captured = run_steps(state, batch, plan)
-    compare_captured(label, names, eager, captured, ops)
+    compare_captured(label, names, eager, captured, ops, exact=True)
     counts.update(replay_counts(state, batch, g, label, want))
     stacked, cycle_peaks = captured_step_times(dev, state, batch, g, label, tag, timings)
     trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -2739,7 +2925,7 @@ def variant_train_phase(dev, timings, variant, want, remat_variant=None):
     peaks["on"] = eager_peak(state)
     _, captured = run_steps(state, batch, plan)
     compare_captured(f"{rlabel} (against the remat-off eager runs)", names, eager, captured,
-                     ops)
+                     ops, exact=True)
     restore(state, snap)
     stacked, remat_cycle = captured_step_times(dev, state, batch, g, rlabel, rtag, timings)
     timings[rtag + "peak_mem_gib"], timings[rtag + "peak_reserved_gib"] = peaks["on"]
@@ -2972,7 +3158,8 @@ def other_decoders_phase(dev, timings, paths, cam, robot, scene, work):
     model, state = new_train_state(dev, "exact", variant=dv)
     restore(state, snap)
     _, captured = metrics_and_grads(state)
-    compare_captured("defaults train (metrics and gradients)", names, eager, captured, ops)
+    compare_captured("defaults train (metrics and gradients)", names, eager, captured, ops,
+                     exact=True)
     counts.update(replay_counts(state, batch, g, "defaults train", want))
     update = make_train_step(model, state.cfg, static_updated=True)
     with model.programs.eager():
@@ -3461,6 +3648,368 @@ def tools_overlays(flow, video):
     check(img.shape == (H, W, 3) and img.dtype == np.uint8, "tools overlay shape or dtype")
 
 
+# ----------------------------------------------------------------- phase 13
+
+# the 2D family at full width: 252x252 (configurations2d/dataset/
+# left_finger.yaml's new_H / new_W: divisible by the ViT's 14 and by
+# 2^(depth - 1)), batch 12 (configurations2d/config.yaml), float32
+HW_2D, B_2D, STEPS_2D, CLI_STEPS_2D, CONTROL_ITERS_2D = 252, 12, 3, 60, 20
+# the model-level checks' optimizer: a short warm-up so that 20 steps move
+# the loss (the YAML's 10,000-step warm-up runs in the CLI part)
+OPTIM_2D = dict(lr=1e-3, weight_decay=1e-5, warm_up_steps=5)
+# float32 (TF32 off) against float64 gradients: the CPU tests' float32 bound
+GRAD_TOL_2D = 1e-5
+
+
+def model_2d(dev, name, dtype=None):
+    """The configuration the YAML builds: unet (wrapper/pusher_only: depth 3,
+    32 filters) or transformer (wrapper/left_finger: ViT-S/14 and a depth-3
+    UNet decoder on 387 channels), command_dim 2, seeded weights."""
+    import torch
+
+    from neural_jacobian_field_torch.jacobian2d import (
+        TransformerJacobianFieldCfg, UnetJacobianFieldCfg, get_model)
+
+    cfg = UnetJacobianFieldCfg() if name == "unet" else TransformerJacobianFieldCfg()
+    model = get_model(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    return model.to(device=dev, dtype=dtype or torch.float32)
+
+
+def batch_2d(dev, seed):
+    """A seeded batch: images in [0, 1], commands and target flows N(0, 1)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = B_2D
+    return {"input_frame_curr": torch.rand((b, HW_2D, HW_2D, 3), generator=g, device=dev),
+            "input_command": torch.randn((b, 2), generator=g, device=dev),
+            "trgt_flow_curr": torch.randn((b, HW_2D, HW_2D, 2), generator=g, device=dev)}
+
+
+def snapshot_2d(state) -> dict:
+    return dict(model=to_cpu(state.model.state_dict()), opt=to_cpu(state.optimizer.state_dict()),
+                step=state.step)
+
+
+def restore_2d(state, snap) -> None:
+    state.model.load_state_dict(snap["model"])
+    state.optimizer.load_state_dict(snap["opt"])
+    state.step = snap["step"]
+
+
+def run_steps_2d(state, step, batches):
+    """The batches' steps through `step`; (names, host copies) of each
+    step's loss, then of `state_record` (parameters, Adam's state)."""
+    import torch
+
+    names, out = [], []
+    for i, b in enumerate(batches):
+        names.append(f"step {i} train/loss")
+        out.append(step(state, b)["train/loss"].cpu())
+    torch.cuda.synchronize()
+    rec_names, rec = state_record(state)
+    return names + rec_names, out + rec
+
+
+class UNetDecisions:
+    """The UNet's nonlinear decisions, recorded from one run (ReLU masks,
+    2x2 pool choices, in call order) or replayed in another: replayed, a
+    ReLU multiplies by the recorded mask and a pool reads the recorded
+    window element, so that a float64 run computes the gradient of the
+    float32 run's piecewise-linear function."""
+
+    def __init__(self, replay=None):
+        self.replay, self.taken = replay, []
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        from neural_jacobian_field_torch.jacobian2d import unet
+        from neural_jacobian_field_torch.ops.deterministic import max_pool_2x2
+
+        self.saved = (torch.relu, unet.max_pool_2x2)
+        relu = torch.relu
+        it = iter(self.replay or ())
+
+        def relu_(x):
+            if self.replay is not None:
+                return x * next(it).to(x.dtype)
+            self.taken.append(x > 0)
+            return relu(x)
+
+        def pool_(x):
+            if self.replay is not None:
+                idx = next(it)
+                b, ho, wo, c = idx.shape
+                flat = x.permute(0, 3, 1, 2).reshape(b, c, -1)
+                y = flat.gather(2, idx.permute(0, 3, 1, 2).reshape(b, c, -1))
+                return y.reshape(b, c, ho, wo).permute(0, 2, 3, 1)
+            _, idx = F.max_pool2d(x.detach().permute(0, 3, 1, 2), 2, stride=2,
+                                  return_indices=True)
+            self.taken.append(idx.permute(0, 2, 3, 1))
+            return max_pool_2x2(x)
+
+        torch.relu, unet.max_pool_2x2 = relu_, pool_
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from neural_jacobian_field_torch.jacobian2d import unet
+
+        torch.relu, unet.max_pool_2x2 = self.saved
+        return False
+
+
+def twod_model_checks(dev, timings, name):
+    """One 2D model at full width (lines "2d <name>")."""
+    import torch
+
+    from neural_jacobian_field_torch.jacobian2d import predict_2d
+    from neural_jacobian_field_torch.jacobian2d.train import (
+        Train2DCfg, create_train_state_2d, make_train_step_2d)
+
+    label, cfg = f"2d {name}", Train2DCfg(**OPTIM_2D)
+    model = model_2d(dev, name)
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = [batch_2d(dev, SEED + 20 + i) for i in range(STEPS_2D)]
+    img, cmd = batches[0]["input_frame_curr"], batches[0]["input_command"]
+    state = create_train_state_2d(model, cfg)
+    with model.programs.eager():
+        want = predict_2d(model, img, cmd)
+    t0 = time.perf_counter()
+    got = predict_2d(model, img, cmd)  # captures
+    capture_s = time.perf_counter() - t0
+    again = predict_2d(model, img, cmd)
+    same = all(bool(torch.equal(a, b)) and bool(torch.equal(a, c))
+               for a, b, c in zip(want, got, again))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    print(f"{label}: {n_params / 1e6:.2f}M parameters; jacobian {tuple(got.jacobian.shape)} and "
+          f"flow {tuple(got.flow.shape)} at {B_2D}x{HW_2D}x{HW_2D}, float32: captured (in "
+          f"{capture_s:.2f} s) == eager bit for bit and two replays identical: {same}; "
+          f"finite {finite}")
+    check(same and finite and got.jacobian.shape == (B_2D, HW_2D, HW_2D, 4),
+          f"{label}: the captured Jacobian map or flow differs from eager, or is not finite")
+
+    # three train steps captured against five eager runs from one state
+    step = make_train_step_2d(model, cfg)
+    snap = snapshot_2d(state)
+    eager = []
+    with model.programs.eager():
+        for _ in range(5):
+            names, rec = run_steps_2d(state, step, batches)
+            eager.append(rec)
+            restore_2d(state, snap)
+        ops = ops_with_atomics(lambda: step(state, batches[0]))
+        restore_2d(state, snap)
+    model2 = model_2d(dev, name)
+    state2 = create_train_state_2d(model2, cfg)
+    restore_2d(state2, snap)
+    step2 = make_train_step_2d(model2, cfg)
+    _, captured = run_steps_2d(state2, step2, batches)
+    compare_captured(f"{label} train", names, eager, captured, ops, exact=True)
+    del model, state, step, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # replayed step time, steps/s, peak memory
+    peak_window(dev)
+    ms = median_step_ms(lambda: step2(state2, batches[0]), n=10)
+    alloc, reserved = peaks_gib(dev)
+    timings[f"2d_{name}_step_ms"] = ms
+    timings[f"2d_{name}_steps_per_s"] = 1e3 / ms
+    timings[f"2d_{name}_peak_mem_gib"] = alloc
+    print(f"{label} captured train step (batch {B_2D}, {HW_2D}x{HW_2D}, float32, TF32 off): "
+          f"{ms:.2f} ms (median of 10 replays), {1e3 / ms:.1f} steps/s, "
+          f"{B_2D * 1e3 / ms:.1f} images/s; peak {alloc:.2f} GiB allocated, {reserved:.2f} "
+          f"reserved; {card_line()}")
+
+    # the loss falls over 20 captured steps on one batch; dino stays
+    dino0 = {k: v.detach().clone() for k, v in model2.state_dict().items()
+             if k.startswith("dino.")}
+    losses = [float(step2(state2, batches[0])["train/loss"]) for _ in range(LOSS_STEPS)]
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    print(f"{label} loss over {LOSS_STEPS} captured steps on one batch: {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; mean of the first 3 {first:.5f}, of the last 3 {last:.5f} "
+          f"(bound: finite, last < first)")
+    check(all(math.isfinite(v) for v in losses) and last < first, f"{label}: the loss did not fall")
+    if dino0:
+        frozen = all(torch.equal(v, model2.state_dict()[k]) for k, v in dino0.items())
+        print(f"{label}: {len(dino0)} dino tensors bit for bit unchanged after "
+              f"{state2.step} steps: {frozen}; {len(state2.frozen)} frozen parameters, none "
+              f"held by Adam")
+        check(frozen and len(state2.frozen) == len(dino0), f"{label}: a dino parameter moved")
+    del state2, step2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step's gradients in float32 (TF32 off) against float64. The ViT
+    # takes no gradient: its float32 features are held to float64's, then
+    # both decoders start from the float32 ones; the float64 run takes the
+    # float32 run's ReLU masks and pool choices (UNetDecisions), as a
+    # pre-activation within float32's rounding of zero flips its ReLU, which
+    # moves a bias gradient summed over 762k pixels by ~1e-3 a flip
+    from neural_jacobian_field_torch.jacobian2d.models import _flow_from_jacobian
+
+    m64 = model_2d(dev, name, torch.float64)
+    m64.load_state_dict(model2.state_dict())
+    b = batches[1]
+    feats = None
+    if name == "transformer":
+        with torch.no_grad():
+            feats = model2.get_features(b["input_frame_curr"])
+            f64 = m64.get_features(b["input_frame_curr"].double())
+        feat_err = rel_err(feats, f64)
+        print(f"{label} ViT-S/14 features, float32 against float64: {feat_err:.3e} of scale "
+              f"(bound {GRAD_TOL_2D:.0e})")
+        check(feat_err <= GRAD_TOL_2D, f"{label}: float32 ViT features off float64's")
+
+    def grads(m, decisions):
+        m.zero_grad(set_to_none=True)
+        dt = next(m.parameters()).dtype
+        img, cmd = b["input_frame_curr"].to(dt), b["input_command"].to(dt)
+        with decisions:
+            if feats is None:
+                flow = m(img, cmd).flow
+            else:
+                jac = m.decoder(torch.cat([img, feats.to(dt)], dim=-1))
+                flow = _flow_from_jacobian(jac, cmd, m.cfg.spatial_dim)
+        torch.mean((flow - b["trgt_flow_curr"].to(dt)) ** 2).backward()
+        return {n: p.grad.double() for n, p in m.named_parameters() if p.grad is not None}
+
+    record = UNetDecisions()
+    g32 = grads(model2, record)
+    g64 = grads(m64, UNetDecisions(replay=record.taken))
+    names = sorted(g64)
+    a, b = (torch.cat([g[n].flatten() for n in names]) for g in (g32, g64))
+    rel_l2 = float((a - b).norm() / b.norm())
+    worst = max((rel_err(g32[n], g64[n]), n) for n in names)
+    print(f"{label} gradients, float32 (TF32 off) against float64 on the card: {len(names)} "
+          f"tensors, relative l2 {rel_l2:.3e} (bound {GRAD_TOL_2D:.0e}); the worst tensor "
+          f"{worst[0]:.3e} of its scale at {worst[1]} (a tensor whose sums over the "
+          f"{B_2D}x{HW_2D}x{HW_2D} pixels cancel carries float32's accumulation error)")
+    check(set(g32) == set(g64) and rel_l2 <= GRAD_TOL_2D,
+          f"{label}: float32 gradients off float64's beyond {GRAD_TOL_2D}")
+    del model2, m64, g32, g64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def twod_cli(dev, timings, work):
+    """train2d in process for pusher_only and left_finger (lines "2d cli"),
+    60 steps each on synthetic trajectories written at 252x252 first (JAX's
+    CLI would write 64x64 ones); the .npz loaded back bit for bit. Returns
+    the pusher's params path."""
+    import torch
+
+    from neural_jacobian_field_torch import train2d
+    from neural_jacobian_field_torch.jacobian2d import get_model, make_synthetic_trajectories
+
+    out = {}
+    for config, scene in (("pusher_only", "pusher"), ("left_finger", "planar_hand")):
+        root = work / f"2d_{config}"
+        t0 = time.perf_counter()
+        make_synthetic_trajectories(root, num_trajs=8, num_steps=8, height=HW_2D, width=HW_2D,
+                                    scene=scene)
+        write_s = time.perf_counter() - t0
+        lines = []
+        t0 = time.perf_counter()
+        state, path = train2d.main([f"dataset={config}", f"wrapper={config}",
+                                    f"dataset.root={root}", f"training.max_steps={CLI_STEPS_2D}",
+                                    f"checkpoint.out={work / f'2d_{config}.npz'}"],
+                                   log=lines.append)
+        run_s = time.perf_counter() - t0
+        logged = [ln for ln in lines if ln.startswith("step ")]
+        loss = float(logged[-1].split("=")[1].split()[0]) if logged else float("nan")
+        loaded = train2d.load_params_2d(get_model(state.model.cfg), path).to(dev)
+        same = all(torch.equal(p, state.model.state_dict()[k])
+                   for k, p in loaded.state_dict().items())
+        timings[f"2d_cli_{config}_s"] = run_s
+        print(f"2d cli {config}: 8 trajectories of 8 frames at {HW_2D}x{HW_2D} written in "
+              f"{write_s:.1f} s; {state.step} steps in {run_s:.1f} s; logged: {logged}; "
+              f"{path.name} loaded back bit for bit: {same}")
+        check(state.step == CLI_STEPS_2D and math.isfinite(loss) and same,
+              f"2d cli {config}: steps, loss or the .npz round trip")
+        out[config] = path
+        del state, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out["pusher_only"]
+
+
+def twod_control(dev, params):
+    """Tutorial 3's closed loop, 20 steps, on the CLI's trained pusher in the
+    252x252 square world (lines "2d control")."""
+    import numpy as np
+
+    from neural_jacobian_field_torch.jacobian2d import UnetJacobianField, UnetJacobianFieldCfg
+    from neural_jacobian_field_torch.train2d import load_params_2d
+    from neural_jacobian_field_torch.tutorials.tutorial_3_control_demo import (
+        SyntheticSquareEnv, closed_loop)
+
+    model = load_params_2d(UnetJacobianField(UnetJacobianFieldCfg()), params).to(dev).eval()
+    target = SyntheticSquareEnv(hw=HW_2D, half=4)
+    target.q = np.array([0.5, -0.5])
+    lines = []
+    t0 = time.perf_counter()
+    dists = closed_loop(model, SyntheticSquareEnv(hw=HW_2D, half=4), target,
+                        CONTROL_ITERS_2D, log=lines.append)
+    s = time.perf_counter() - t0
+    print(f"2d control: {len(dists)} steps in {s:.2f} s ({s / len(dists) * 1e3:.1f} ms a "
+          f"step); pixel error per step {[round(d, 1) for d in dists]}")
+    check(all(math.isfinite(d) for d in dists), "2d control: a pixel error is not finite")
+
+
+def twod_dinov2(dev, work):
+    """The dinov2 ingest on a fabricated ViT-S/14 torch.hub state dict, on the
+    card; its output loaded strict into a ViT-S/14 (lines "2d dinov2")."""
+    import io
+    import numpy as np
+    import torch
+
+    from neural_jacobian_field_torch import ingest
+    from neural_jacobian_field_torch.jacobian2d import ViTCfg, ViTS14
+
+    cfg, rng = ViTCfg(), np.random.default_rng(SEED)
+    d, hid, p = cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.patch_size
+
+    def r(*shape):
+        return torch.from_numpy(rng.normal(scale=0.05, size=shape).astype(np.float32))
+
+    sd = {"patch_embed.proj.weight": r(d, 3, p, p), "patch_embed.proj.bias": r(d),
+          "cls_token": r(1, 1, d), "pos_embed": r(1, cfg.pos_grid ** 2 + 1, d),
+          "mask_token": r(1, d), "norm.weight": 1 + r(d), "norm.bias": r(d)}
+    for i in range(cfg.depth):
+        for nm, shape in (("norm1", (d,)), ("attn.qkv", (3 * d, d)), ("attn.proj", (d, d)),
+                          ("norm2", (d,)), ("mlp.fc1", (hid, d)), ("mlp.fc2", (d, hid))):
+            sd[f"blocks.{i}.{nm}.weight"] = r(*shape)
+            sd[f"blocks.{i}.{nm}.bias"] = r(shape[0])
+        sd[f"blocks.{i}.ls1.gamma"], sd[f"blocks.{i}.ls2.gamma"] = r(d), r(d)
+    path, out = work / "dinov2_vits14.pth", work / "dinov2_vits14.torch.pt"
+    torch.save(sd, path)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = ingest.main([str(path), "--eval", "--out", str(out)])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    vit = ViTS14()
+    missing = vit.load_state_dict(torch.load(out, weights_only=True), strict=True)
+    print(f"2d dinov2: ingest exit {code}; report {report}; loaded strict into ViTS14: "
+          f"{not missing.missing_keys and not missing.unexpected_keys}")
+    check(code == 0 and report["overwritten"] == report["total_leaves"] == 174
+          and report["unused"] == 0 and report["eval"]["finite"],
+          "2d dinov2: the ingest report is not a whole ViT-S/14")
+
+
+def twod_phase(dev, timings, work):
+    """Phase 13: the 2D Jacobian-field family at full width (lines "2d")."""
+    for name in ("unet", "transformer"):
+        twod_model_checks(dev, timings, name)
+    params = twod_cli(dev, timings, work)
+    twod_control(dev, params)
+    twod_dinov2(dev, work)
+
+
 def trace(fn):
     """torch.profiler around one fn() (ended by a synchronize): the profile,
     the traced wall time (the first host event to the last device event),
@@ -3670,6 +4219,11 @@ def main() -> int:
                              "or, with 'serve [MODE]', one render and "
                              "one 100-step solve, eager and captured; and print where the "
                              "device time goes")
+    parser.add_argument("--determinism", action="store_true",
+                        help="only: the stage-1 steps' ops that warn under "
+                             "torch.use_deterministic_algorithms, their ops with atomic sums, "
+                             "whether their eager runs repeat bit for bit, and the 6-step "
+                             "cycle's rays/s (determinism_report)")
     args = parser.parse_args()
     profile = args.profile
     if profile is not None:
@@ -3733,6 +4287,11 @@ def main() -> int:
         if profile is not None:
             (profile_serve if serve else profile_train)(dev, what[0])
             return 0
+        if args.determinism:
+            failed = determinism_report(dev)
+            print(f"determinism: paths whose eager steps differ or sum with atomics: "
+                  f"{failed or 'none'}")
+            return 1 if failed else 0
 
         phase_line(1, "card and build", t_start)
         t0 = time.perf_counter()
@@ -3788,6 +4347,9 @@ def main() -> int:
             t0 = time.perf_counter()
             tools_phase(dev, timings, paths, Path(work))
             phase_line(11, "tools", t0)
+            t0 = time.perf_counter()
+            twod_phase(dev, timings, Path(work))
+            phase_line(13, "2d family", t0)
         timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
         print("launches by path: " + json.dumps(paths))

@@ -34,6 +34,19 @@
 //    the train shapes), and the 4 corners' reads of a row hit L2. Partial
 //    rows of texels cut by piece boundaries are added in piece order by a
 //    last pass. The stages are described below, at the kernels.
+//
+// The same scatter, generalised, is the fixed-order backward of the port's
+// other gathers (njf_row_scatter, ops/kernels/onehot_gather.row_scatter):
+// Q entries per point (Q = 1: a row gather, whose gradient rows arrive
+// already weighted; Q = 4: the bilinear corners of an upsampling), rows of
+// any width, the weights optional (unit: the row is added as it is). It
+// replaces torch.gather's backward (scatter_add_, whose CUDA sums are atomic
+// and change their order from run to run) in the pyramid's packed-row
+// gathers, the concat layout's and RAFT's bilinear lookups and the
+// interlevel loss's per-ray gathers, and the backward of the encoder's
+// bilinear upsampling (upsample_bilinear2d_backward, atomic too): so a
+// train step repeats bit for bit, as the JAX step does on the CPU or the
+// TPU. Bound and design as K1-bwd's: the bytes of g, idx, w and out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,8 +128,8 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------- K1-bwd
 //
 // Three stages on the current stream, planned by onehot_gather.bwd_plan:
-//  (a) bucket: per image, a stable counting sort of the 4n corner entries
-//      (entry id p * 4 + q, int32) by texel, into CSR order: integer
+//  (a) bucket: per image, a stable counting sort of the Q n entries
+//      (entry id p * Q + q, int32; Q = 4 corners for K1) by texel, into CSR order: integer
 //      histograms per tile of entries (bucket_count), the exclusive scan over
 //      (texel, tile) (bucket_scan), and stable in-tile ranks by
 //      __match_any_sync and a running count per texel (bucket_place). A
@@ -329,9 +342,10 @@ __device__ __forceinline__ void store_row8(float* row, int ch, int c, const floa
 }
 
 // (b) warp gw = ((b * chunks) + piece) * slabs + slab walks CSR entries
-// [piece * len, min(4n, (piece + 1) * len)) of image b on channels
-// [256 slab, 256 slab + 256). part[b][piece][slot][c].
-template <typename T, bool kVec>
+// [piece * len, min(Q n, (piece + 1) * len)) of image b on channels
+// [256 slab, 256 slab + 256). part[b][piece][slot][c]. Entry e adds row
+// e / Q of g, times its weight w4[e] (kW) or as it is.
+template <typename T, bool kVec, int Q, bool kW>
 __global__ void __launch_bounds__(128)
     segment_sum_kernel(const T* __restrict__ g, const float* __restrict__ w4,
                        const int* __restrict__ rowptr, const int* __restrict__ ent,
@@ -343,11 +357,11 @@ __global__ void __launch_bounds__(128)
   const int b = static_cast<int>(gw / (static_cast<long long>(chunks) * slabs));
   const int r = static_cast<int>(gw - static_cast<long long>(b) * chunks * slabs);
   const int piece = r / slabs, slab = r - piece * slabs;
-  const int e_total = 4 * n;
+  const int e_total = Q * n;
   const int i0 = piece * len, i1 = min(e_total, i0 + len);
   const int* rp = rowptr + static_cast<size_t>(b) * (k + 1);
   const int* eb = ent + static_cast<size_t>(b) * e_total;
-  const float* wb = w4 + static_cast<size_t>(b) * e_total;
+  const float* wb = kW ? w4 + static_cast<size_t>(b) * e_total : nullptr;
   const T* gb = g + static_cast<size_t>(b) * n * c;
   const int ch = slab * kSlabCh + 8 * lane;
   // the texel of entry i0: the last kk with rp[kk] <= i0 (it is not empty)
@@ -378,13 +392,13 @@ __global__ void __launch_bounds__(128)
     const int cnt = min(32, i1 - base);
     const int my_e = next_e;
     if (base + 32 < i1) next_e = base + 32 + lane < i1 ? eb[base + 32 + lane] : 0;
-    const float my_w = lane < cnt ? round_w(wb[my_e], T()) : 0.f;
+    const float my_w = kW && lane < cnt ? round_w(wb[my_e], T()) : 0.f;
     for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
       Row8<T> rows[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int e = __shfl_sync(0xffffffffu, my_e, j0 + u);
-        if (j0 + u < cnt) rows[u].template load<kVec>(gb + static_cast<size_t>(e >> 2) * c, ch, c);
+        if (j0 + u < cnt) rows[u].template load<kVec>(gb + static_cast<size_t>(e / Q) * c, ch, c);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -399,7 +413,7 @@ __global__ void __launch_bounds__(128)
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float prod = __fmul_rn(wv, rows[u].get(i));
+          const float prod = kW ? __fmul_rn(wv, rows[u].get(i)) : rows[u].get(i);
           acc[i] = fresh ? prod : __fadd_rn(acc[i], prod);
         }
         fresh = false;
@@ -480,14 +494,14 @@ int gather_fwd(const void* flat, const void* idx, const void* w4, void* out, int
 }
 
 
-template <typename T>
+template <typename T, int Q, bool kW>
 int scatter_bwd(const void* g, const void* idx, const void* w4, void* iscratch, void* part,
                 void* out, int b, int k, int c, int n, int tile, int tiles, int len,
                 bool smem_hist, cudaStream_t s) {
-  const int e_total = 4 * n;
+  const int e_total = Q * n;
   int* cnt = static_cast<int*>(iscratch);  // [b][tiles][k]
   int* rowptr = cnt + static_cast<size_t>(b) * tiles * k;  // [b][k + 1]
-  int* ent = rowptr + static_cast<size_t>(b) * (k + 1);     // [b][4n]
+  int* ent = rowptr + static_cast<size_t>(b) * (k + 1);     // [b][Q n]
   const auto* ix = static_cast<const long long*>(idx);
   const dim3 tgrid(tiles, b);
   if (smem_hist) {
@@ -521,11 +535,11 @@ int scatter_bwd(const void* g, const void* idx, const void* w4, void* iscratch, 
   auto* pp = static_cast<float*>(part);
   auto* o = static_cast<float*>(out);
   if (c % 8 == 0)
-    segment_sum_kernel<T, true><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n, k, c,
-                                                        len, chunks, slabs);
+    segment_sum_kernel<T, true, Q, kW><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n,
+                                                               k, c, len, chunks, slabs);
   else
-    segment_sum_kernel<T, false><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n, k, c,
-                                                         len, chunks, slabs);
+    segment_sum_kernel<T, false, Q, kW><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n,
+                                                                k, c, len, chunks, slabs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned mblocks = static_cast<unsigned>((static_cast<long long>(b) * k + 7) / 8);
@@ -567,8 +581,47 @@ extern "C" int njf_onehot_scatter_bwd(const void* g, const void* idx, const void
       (smem_hist && k > 12288))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return is_f32 ? scatter_bwd<float>(g, idx, w4, iscratch, part, out, b, k, c, n, tile, tiles,
-                                     len, smem_hist != 0, s)
-                : scatter_bwd<__nv_bfloat16>(g, idx, w4, iscratch, part, out, b, k, c, n, tile,
-                                             tiles, len, smem_hist != 0, s);
+  return is_f32 ? scatter_bwd<float, 4, true>(g, idx, w4, iscratch, part, out, b, k, c, n, tile,
+                                              tiles, len, smem_hist != 0, s)
+                : scatter_bwd<__nv_bfloat16, 4, true>(g, idx, w4, iscratch, part, out, b, k, c,
+                                                      n, tile, tiles, len, smem_hist != 0, s);
+}
+
+// The generalised scatter: g [b, n, c] (bf16 when is_f32 == 0, else
+// float32), idx [b, n, q] int64 ids in [0, k), w [b, n, q] float32 when
+// has_w != 0 (else null: unit weights) -> out [b, k, c] float32,
+// out[b, kk] = the sum over entries (p, j) with idx[b, p, j] == kk, in
+// entry order within each piece and the pieces in order, of w[b, p, j] *
+// g[b, p] (the weight rounded to g's type). q is 1 or 4; the plan and the
+// scratch as njf_onehot_scatter_bwd's with q n entries per image in place
+// of 4n. q n <= 2^30.
+extern "C" int njf_row_scatter(const void* g, const void* idx, const void* w, void* iscratch,
+                               void* part, void* out, int b, int k, int c, int n, int q,
+                               int tile, int tiles, int len, int smem_hist, int is_f32,
+                               int has_w, void* stream) {
+  if (b <= 0 || k <= 0 || c <= 0 || n <= 0 || (q != 1 && q != 4) ||
+      static_cast<long long>(q) * n > (1LL << 30) || tile <= 0 || tiles <= 0 ||
+      static_cast<long long>(tile) * tiles < static_cast<long long>(q) * n ||
+      static_cast<long long>(tile) * tiles > (1LL << 31) - 1 || len <= 0 ||
+      (smem_hist && k > 12288) || (has_w && w == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool sh = smem_hist != 0;
+#define NJF_ROW_SCATTER(T, Q, W) \
+  return scatter_bwd<T, Q, W>(g, idx, w, iscratch, part, out, b, k, c, n, tile, tiles, len, sh, s)
+  if (is_f32) {
+    if (q == 1) {
+      if (has_w) NJF_ROW_SCATTER(float, 1, true);
+      NJF_ROW_SCATTER(float, 1, false);
+    }
+    if (has_w) NJF_ROW_SCATTER(float, 4, true);
+    NJF_ROW_SCATTER(float, 4, false);
+  }
+  if (q == 1) {
+    if (has_w) NJF_ROW_SCATTER(__nv_bfloat16, 1, true);
+    NJF_ROW_SCATTER(__nv_bfloat16, 1, false);
+  }
+  if (has_w) NJF_ROW_SCATTER(__nv_bfloat16, 4, true);
+  NJF_ROW_SCATTER(__nv_bfloat16, 4, false);
+#undef NJF_ROW_SCATTER
 }

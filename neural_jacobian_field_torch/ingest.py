@@ -12,7 +12,9 @@ Kinds (detected from the state_dict's keys with --kind auto):
   reference  a reference-repo Lightning checkpoint ("model."-prefixed keys;
              utils/port_torch.py), into the exact-mode model with BatchNorm
              and the concat encoder layout
-  dinov2     recognised, not ported yet: the ViT comes with the 2D family
+  dinov2     a torch.hub dinov2_vits14 state dict, into the 2D family's
+             ViT-S/14 (jacobian2d/vit.py); --eval: patch-token statistics
+             on a deterministic 56x56 image
 
 It writes `torch.save` of the port's state dict to --out (default
 <checkpoint>.torch.pt) and prints one JSON report line: kind, out,
@@ -82,6 +84,27 @@ def ingest_raft(sd: dict, run_eval: bool, num_iters: int, device):
         report["eval"] = {"finite": bool(np.isfinite(flow).all()),
                           "median_flow_px": [round(float(m), 3) for m in med],
                           "expected_if_pretrained": [3.0, 0.0]}
+    return state, report
+
+
+def ingest_dinov2(sd: dict, run_eval: bool, device):
+    from .jacobian2d.vit import ViTS14, load_torch_dinov2_state_dict
+
+    vit = ViTS14().init_weights(torch.Generator().manual_seed(0)).to(device)
+    before = {k: v.detach().cpu().clone() for k, v in vit.state_dict().items()}
+    unused: list = []
+    load_torch_dinov2_state_dict(vit, sd, unused_out=unused)
+    state = vit.state_dict()
+    report = {"consumed": len(sd) - len(unused), "unused": len(unused),
+              "overwritten": _changed(before, state), "total_leaves": len(state)}
+    if unused:
+        report["unused_keys"] = unused[:10]
+    if run_eval:
+        img, _ = fixture_pair(h=14 * 4, w=14 * 4)
+        with torch.no_grad():
+            feats = vit(img.to(device)).cpu().numpy()
+        report["eval"] = {"finite": bool(np.isfinite(feats).all()), "tokens": list(feats.shape),
+                          "feat_std": round(float(feats.std()), 4)}
     return state, report
 
 
@@ -155,13 +178,11 @@ def main(argv: Optional[list] = None) -> int:
 
     sd = load_torch_state_dict(args.checkpoint)
     kind = detect_kind(sd) if args.kind == "auto" else args.kind
-    if kind == "dinov2":
-        print("ingest: the dinov2 kind is not ported yet; the ViT comes with the 2D family "
-              "(jacobian2d)", file=sys.stderr)
-        return 2
     device = resolve_device(args.device, "ingestion")
     if kind == "raft":
         state, report = ingest_raft(sd, args.eval, args.raft_iters, device)
+    elif kind == "dinov2":
+        state, report = ingest_dinov2(sd, args.eval, device)
     else:
         state, report = ingest_reference(sd, args.eval, args.action_dim, args.decoder, device)
     out = args.out or (args.checkpoint + ".torch.pt")

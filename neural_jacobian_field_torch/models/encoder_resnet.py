@@ -26,7 +26,10 @@ running statistics in eval mode and with the batch's in training mode,
 updating the running buffers in place. The group norm (32 groups, affine)
 and the instance norm (a group per channel, no scale or bias) have Flax's
 GroupNorm semantics (`GroupNorm`): no running statistics, the same in
-training and eval mode. K10 stays with BatchNorm, as in JAX.
+training and eval mode. K10 stays with BatchNorm, as in JAX. The stem's
+max-pool and the upsampling of the coarser levels to the fine one take
+their gradients in a fixed order (`ops/deterministic.py`), so a train step
+repeats bit for bit.
 """
 
 from dataclasses import dataclass
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.deterministic import max_pool_3x3s2, upsample_bilinear
 from ..ops.kernels import conv_suite as k9
 from ..ops.pixel_gather import FeaturePyramid
 from . import initializers as init
@@ -275,8 +279,7 @@ class EncoderResnet(nn.Module):
         x = torch.relu(self.bn1(self.conv1(x), train))
         latents = [x]
         if cfg.use_first_pool and cfg.num_layers > 1:
-            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1)
-            x = x.permute(0, 2, 3, 1).contiguous()
+            x = max_pool_3x3s2(x)
         stage = 0
         for stage_idx, name in self.block_names:
             if stage_idx != stage:
@@ -290,10 +293,9 @@ class EncoderResnet(nn.Module):
 
         def up_to_fine(lat):
             # bilinear, half-pixel centres (align_corners=False): for
-            # upsampling, jax.image.resize "linear"
-            y = F.interpolate(lat.permute(0, 3, 1, 2), size=tuple(target_hw),
-                              mode="bilinear", align_corners=False)
-            return y.permute(0, 2, 3, 1).contiguous()
+            # upsampling, jax.image.resize "linear"; its backward in a fixed
+            # order
+            return upsample_bilinear(lat, tuple(target_hw))
 
         if cfg.feature_layout == "pyramid" and cfg.num_layers == 4:
             return FeaturePyramid(fine=torch.cat([latents[0], up_to_fine(latents[1])], dim=-1),

@@ -8,6 +8,8 @@ Layouts: linear weights are torch's [out, in]; conv kernels are HWIO
   - kaiming_normal_out: N(0, 2 / fan_out) (encoder convs);
   - torch_linear: U(+-sqrt(1 / fan_in)) (colour head);
   - near_zero_normal: N(0, 1e-4^2) (every linear of the Jacobian head);
+  - truncated_normal: the variance-scaling truncated normal (lecun_normal,
+    Flax's Dense / Conv default, and xavier_normal: the 2D family);
   - zeros (block fc_1, biases).
 """
 
@@ -28,6 +30,17 @@ def _fans(t: torch.Tensor, layout: str):
 @torch.no_grad()
 def normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
     t.copy_(torch.randn(t.shape, generator=generator, dtype=torch.float32) * std)
+    return t
+
+
+@torch.no_grad()
+def truncated_normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
+    """jax.nn.initializers' "truncated_normal" variance scaling: N(0, 1)
+    truncated to [-2, 2], times std / 0.87962566 (the truncated unit
+    normal's standard deviation), so the draw's variance is std^2."""
+    u = torch.empty(t.shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(u, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    t.copy_(u * (std / 0.87962566103423978))
     return t
 
 

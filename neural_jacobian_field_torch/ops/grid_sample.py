@@ -6,12 +6,16 @@ The JAX formula as plain tensor ops, in its order: scale to pixel units,
 clamp (border mode), floor, four gathers of the flattened map, lerp. So the
 values and the gradients match JAX's (the floor's zero gradient, the
 clamp's zero gradient outside and half gradient on the border included),
-which F.grid_sample's do not. The feature map's gradient is the gathers'
-backward, a scatter_add_: on CUDA an atomic sum, so it differs from run to
-run in its last bits, as F.grid_sample's backward would.
+which F.grid_sample's do not. The four corners are one row gather
+(`ops/deterministic.gather_rows`), so the feature map's gradient is summed
+per texel in a fixed order (torch.gather's own backward, scatter_add_, sums
+with atomics on CUDA and differs from run to run, as F.grid_sample's
+backward would).
 """
 
 import torch
+
+from .deterministic import gather_rows
 
 
 def grid_sample_bilinear(features: torch.Tensor, coords: torch.Tensor,
@@ -44,15 +48,20 @@ def grid_sample_bilinear(features: torch.Tensor, coords: torch.Tensor,
         # a NaN coordinate reads texel 0, as XLA converts NaN to 0
         return torch.nan_to_num(torch.clamp(v, 0, n - 1), nan=0.0).long()
 
-    def take(yi, xi):
-        idx = index(yi, h) * w + index(xi, w)
-        out = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+    corners = ((y0, x0), (y0, x1), (y1, x0), (y1, x1))
+    n = coords.shape[1]
+    rows = gather_rows(flat, torch.cat([index(yi, h) * w + index(xi, w) for yi, xi in corners],
+                                       dim=1))
+
+    def take(i):
+        out = rows[:, i * n:(i + 1) * n]
         if padding_mode == "zeros":
+            yi, xi = corners[i]
             valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
             out = out * valid[..., None].to(out.dtype)
         return out
 
-    f00, f01, f10, f11 = take(y0, x0), take(y0, x1), take(y1, x0), take(y1, x1)
+    f00, f01, f10, f11 = take(0), take(1), take(2), take(3)
     top = f00 * (1.0 - wx) + f01 * wx
     bot = f10 * (1.0 - wx) + f11 * wx
     return top * (1.0 - wy) + bot * wy

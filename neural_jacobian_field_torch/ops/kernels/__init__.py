@@ -5,8 +5,9 @@ PyTorch version (same module, `*_plain`) for a CPU tensor, and counts its
 launches in a plain integer attribute `launches` (the K9 and K7 wrappers
 also those of their legacy kernel in `legacy_launches`). The differentiable entry
 points (`conv_s1`, `conv_s1_stats`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
-`fused_resnet_fc_train_tz`, and `ops/pixel_gather.gather_bilinear_onehot`)
-are autograd.Functions over these wrappers.
+`fused_resnet_fc_train_tz`, `ops/pixel_gather.gather_bilinear_onehot`, and
+`ops/deterministic.gather_rows` / `upsample_bilinear` over K1-bwd-rows) are
+autograd.Functions over these wrappers.
 """
 
 from .conv_suite import (
@@ -17,7 +18,8 @@ from .field_mlp import (
     fused_resnet_fc_train, fused_resnet_fc_train_tz, fused_resnet_fc_tz,
     fused_resnet_fc_tz_bwd, fused_resnet_fc_tz_bwd_plain, fused_resnet_fc_tz_plain)
 from .onehot_gather import (
-    onehot_gather_fwd, onehot_gather_fwd_plain, onehot_scatter_bwd, onehot_scatter_bwd_plain)
+    onehot_gather_fwd, onehot_gather_fwd_plain, onehot_scatter_bwd, onehot_scatter_bwd_plain,
+    row_scatter, row_scatter_plain)
 from .pack2x2 import (
     pack_2x2_flat, pack_2x2_flat_bwd, pack_2x2_flat_bwd_plain, pack_2x2_flat_plain,
     pack_2x2_flat_train)
@@ -54,6 +56,12 @@ KERNELS = {
                _TPU + "onehot_gather.py:87"),
     "K1-bwd": (onehot_scatter_bwd, onehot_scatter_bwd_plain, _CSRC + "onehot_gather.cu",
                _TPU + "onehot_gather.py:119"),
+    # K1-bwd's kernel generalised (Q entries per point, any width, unit
+    # weights): the fixed-order backward of the other gathers and of the
+    # encoder's upsampling (ops/deterministic.py), where JAX runs XLA's
+    # scatter-add
+    "K1-bwd-rows": (row_scatter, row_scatter_plain, _CSRC + "onehot_gather.cu",
+                    _TPU + "onehot_gather.py:119"),
 }
 
 

@@ -17,6 +17,14 @@ stages and the scratch): no floating-point atomics, so it repeats bit for
 bit, and no limit on K but int32 entry ids. The differentiable entry point is
 `ops/pixel_gather.gather_bilinear_onehot`.
 
+`row_scatter` is the same scatter generalised (njf_row_scatter): Q entries
+per point (1 for a row gather, 4 for bilinear corners), rows of any width,
+weights optional. It is the fixed-order backward of the port's other
+gathers and of the encoder's bilinear upsampling
+(`ops/pixel_gather.gather_rows`, `upsample_bilinear`), which would otherwise
+sum with atomics (scatter_add_, upsample_bilinear2d_backward) and differ
+from run to run on the card.
+
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes the plain version.
 """
@@ -59,6 +67,25 @@ def onehot_scatter_bwd_plain(g: torch.Tensor, idx: torch.Tensor, w4: torch.Tenso
     for q in range(4):
         out.scatter_add_(1, idx[..., q:q + 1].expand(-1, -1, c), rw[..., q:q + 1] * gf)
     return out
+
+
+def row_scatter_plain(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Tensor:
+    """g [B, N, C] point rows; idx [B, N, Q] row ids in [0, k); w [B, N, Q]
+    weights or None (unit) -> [B, K, C]: out[b, idx[b, p, q]] += w[b, p, q]
+    * g[b, p], in float32 (float64 for a float64 g), the weights rounded to
+    g's dtype as the kernel rounds them. Each row's terms are summed in
+    entry order (p, then q): on the CPU index_add_ adds them one after
+    another, so the result repeats bit for bit."""
+    b, n, c = g.shape
+    q = idx.shape[-1]
+    acc = torch.float64 if g.dtype == torch.float64 else torch.float32
+    src = g.to(acc)[:, :, None, :].expand(b, n, q, c)
+    if w is not None:
+        src = w.to(g.dtype).to(acc)[..., None] * src
+    rows = (idx + k * torch.arange(b, device=idx.device)[:, None, None]).reshape(-1)
+    out = torch.zeros((b * k, c), dtype=acc, device=g.device)
+    out.index_add_(0, rows, src.reshape(-1, c))
+    return out.view(b, k, c)
 
 
 def _check_points(name, idx, w4, b, n):
@@ -108,26 +135,27 @@ class BwdPlan(NamedTuple):
     """K1-bwd's stages for g [b, n, c] onto k texels (csrc/onehot_gather.cu):
     the bucket sort's tiles of corner entries, the segment pass's pieces of
     the sorted list, and the scratch, in elements."""
-    entries: int     # corner entries per image, 4n
+    entries: int     # entries per image, q n (4n corners for K1-bwd)
     tile: int        # entries per bucket tile (a multiple of 32)
     tiles: int       # bucket tiles per image
     smem_hist: bool  # the bucket's counters in shared memory
     piece: int       # entries per piece of the segment pass
     pieces: int      # pieces per image
-    int_elems: int   # int32: counters [b, tiles, k], row pointers [b, k + 1], ids [b, 4n]
+    int_elems: int   # int32: counters [b, tiles, k], row pointers [b, k + 1], ids [b, qn]
     part_elems: int  # float32: two partial rows per piece, [b, pieces, 2, c]
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS) -> BwdPlan:
+def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS, q: int = 4) -> BwdPlan:
     """Tiles of 4096 entries (fewer, longer ones where K x tiles would pass
     COUNTERS). Pieces: the largest power of two in [64, 2048] that gives an
     image at least 24 warps per SM, more than the card holds at once, so the
     warps in flight work on about one image and its g stays in L2 (the
     pieces are walked image by image)."""
-    entries = 4 * n
-    if min(b, n, k, c) <= 0 or entries > MAX_ENTRIES:
-        raise ValueError(f"K1-bwd: b {b}, n {n}, k {k}, c {c} (4n <= {MAX_ENTRIES})")
+    entries = q * n
+    if min(b, n, k, c) <= 0 or q not in (1, 4) or entries > MAX_ENTRIES:
+        raise ValueError(f"K1-bwd: b {b}, n {n}, k {k}, c {c}, q {q} (q in 1, 4; qn <= "
+                         f"{MAX_ENTRIES})")
     tiles = max(1, min(-(-entries // 4096), COUNTERS // k))
     tile = -(-entries // tiles)
     tile = -(-tile // 32) * 32
@@ -173,5 +201,48 @@ def onehot_scatter_bwd(g: torch.Tensor, idx: torch.Tensor, w4: torch.Tensor,
                     lambda: onehot_scatter_bwd_plain(g, idx, w4, k))
 
 
+def _row_scatter_cuda(g, idx, w, k):
+    if g.dim() != 3 or idx.dim() != 3 or tuple(idx.shape[:2]) != tuple(g.shape[:2]):
+        raise ValueError(f"row_scatter: expected g [B, N, C] and idx [B, N, Q], got "
+                         f"{tuple(g.shape)}, {tuple(idx.shape)}")
+    if w is not None and tuple(w.shape) != tuple(idx.shape):
+        raise ValueError(f"row_scatter: w must be shaped as idx, got {tuple(w.shape)}")
+    if k <= 0:
+        raise ValueError(f"row_scatter: the map needs rows, got k = {k}")
+    g = g.contiguous()
+    b, n, c = g.shape
+    q = idx.shape[-1]
+    is_f32 = _dtype_flag("row_scatter g", g)
+    check_cuda_tensor(g, "row_scatter g", g.dtype, 3)
+    idx = idx.to(torch.int64).contiguous()
+    check_cuda_tensor(idx, "row_scatter idx", torch.int64, 3)
+    if w is not None:
+        w = w.to(torch.float32).contiguous()
+        check_cuda_tensor(w, "row_scatter w", torch.float32, 3)
+    dev = g.device
+    if n == 0 or c == 0:
+        return torch.zeros((b, k, c), dtype=torch.float32, device=dev)
+    plan = bwd_plan(b, n, k, c, _sms(dev.index), q)
+    out = torch.empty((b, k, c), dtype=torch.float32, device=dev)
+    iscratch = torch.empty(plan.int_elems, dtype=torch.int32, device=dev)
+    part = torch.empty(plan.part_elems, dtype=torch.float32, device=dev)
+    lib = load_kernels()
+    with _on_device(g):
+        row_scatter.launches += 1
+        lib.call("njf_row_scatter", g.data_ptr(), idx.data_ptr(),
+                 0 if w is None else w.data_ptr(), iscratch.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), b, k, c, n, q, plan.tile, plan.tiles, plan.piece,
+                 int(plan.smem_hist), is_f32, int(w is not None), stream_of(g))
+    return out
+
+
+def row_scatter(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Tensor:
+    """The generalised K1-bwd wrapper (same signature as row_scatter_plain;
+    bf16 or float32 g on the card)."""
+    return dispatch("row_scatter", g, lambda: _row_scatter_cuda(g, idx, w, k),
+                    lambda: row_scatter_plain(g, idx, w, k))
+
+
 onehot_gather_fwd.launches = 0
 onehot_scatter_bwd.launches = 0
+row_scatter.launches = 0

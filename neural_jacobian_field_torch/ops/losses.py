@@ -3,11 +3,16 @@ interlevel and distortion losses and the DS-NeRF depth loss, over
 normalized spacing bins (sdist in [0, 1]) and per-sample weights.
 
 The functions are ported, not the TPU workarounds: the interlevel outer
-measure uses torch.searchsorted and gather where the JAX package uses a
-one-hot compare-reduce; distortion is the O(S) cumsum form, as there.
+measure uses torch.searchsorted and a row gather where the JAX package uses
+a one-hot compare-reduce; distortion is the O(S) cumsum form, as there. The
+gather's backward sums in a fixed order (`ops/deterministic.gather_rows`,
+the generalised K1-bwd scatter: each ray an image of S + 1 one-wide rows),
+so that a step repeats bit for bit, as the one-hot reduce does.
 """
 
 import torch
+
+from .deterministic import gather_rows
 
 
 def outer_measure(t0: torch.Tensor, t1: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
@@ -22,9 +27,12 @@ def outer_measure(t0: torch.Tensor, t1: torch.Tensor, y1: torch.Tensor) -> torch
     idx_hi = torch.searchsorted(t1[..., 1:].contiguous(), t0[..., 1:].contiguous(),
                                 right=True)
     idx_hi = torch.clamp(idx_hi, 0, last)
-    cy1_lo = torch.gather(cy1[..., :-1], -1, idx_lo)
-    cy1_hi = torch.gather(cy1[..., 1:], -1, idx_hi)
-    return cy1_hi - cy1_lo
+    # both gathers as one: cy1[lo] and cy1[hi + 1], per ray
+    lead, s0 = idx_lo.shape[:-1], idx_lo.shape[-1]
+    rays = cy1.reshape(-1, cy1.shape[-1], 1)
+    idx = torch.cat([idx_lo, idx_hi + 1], dim=-1).reshape(rays.shape[0], 2 * s0)
+    got = gather_rows(rays, idx)[..., 0].reshape(*lead, 2 * s0)
+    return got[..., s0:] - got[..., :s0]
 
 
 def lossfun_outer(t, w, t_env, w_env, eps: float = 1.1920929e-07):

@@ -10,14 +10,17 @@ by K1 (`gather_bilinear_onehot`: K1-fwd forward, K1-bwd backward).
 (reference-numerics) feature path.
 Sample coordinates are not differentiable leaves in this model; nothing here
 takes their gradient (the features are: the packing's gradient is K6-bwd,
-the row gather's is torch.gather's scatter-add, as the JAX custom_vjp
-scatter-adds, the coarse level's is K1-bwd).
+the row gather's a scatter-add, as the JAX custom_vjp scatter-adds, in a
+fixed order (`ops/deterministic.gather_rows`: the generalised K1-bwd
+scatter), the coarse level's is K1-bwd).
 """
 
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+from .deterministic import gather_rows
 
 
 def bilinear_corners(x: torch.Tensor, y: torch.Tensor, width: int, height: int):
@@ -55,7 +58,7 @@ def gather_packed_rows(packed: torch.Tensor, idx: torch.Tensor,
     weights -> [B, N, C] bilinear samples, computed in packed's dtype (the
     corner sum in the same order as the JAX package)."""
     c = packed.shape[-1] // 4
-    rows = torch.gather(packed, 1, idx[..., None].expand(-1, -1, packed.shape[-1]))
+    rows = gather_rows(packed, idx)
     w4 = w4.to(packed.dtype)
     out = rows[..., 0:c] * w4[..., 0:1]
     for cnr in range(1, 4):

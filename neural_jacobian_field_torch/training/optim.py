@@ -93,11 +93,15 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
         count = self.prepare()
-        inc = count + 1
         for group in self.param_groups:
             params = group["params"]
             if not params:
                 continue
+            # the bias corrections in float32, as optax's under float32;
+            # float64 parameters take them in float64, as optax's under
+            # jax_enable_x64 (its schedule stays float32 there too)
+            at = count.to(torch.float64) if params[0].dtype == torch.float64 else count
+            inc = at + 1
             grads = [p.grad for p in params]
             if any(g is None for g in grads):
                 raise ValueError("every parameter Adam holds needs a gradient (zeros where "
@@ -124,7 +128,7 @@ class Adam(torch.optim.Optimizer):
             # scale_by_learning_rate, then apply_updates
             torch._foreach_mul_(u, -1 * self.learning_rate(group, count))
             torch._foreach_add_(params, u)
-        count.copy_(inc)
+        count.add_(1)
 
     @torch.no_grad()
     def load_state_dict(self, state_dict: dict) -> None:

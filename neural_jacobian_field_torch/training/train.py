@@ -42,6 +42,12 @@ before a capture leave them as they were); the gradients live in the
 program's memory pool, which the train programs of a model share; the
 metrics come back as copies. On the CPU, and inside `model.programs.eager()`,
 the same Python runs eagerly: `train_step` is that body.
+
+A step repeats bit for bit on the card, as the JAX step does on the CPU or
+the TPU: its forward and backward run under cuDNN's deterministic
+algorithms (`ops/deterministic.deterministic_cudnn`, for the step alone),
+and the gathers, the stem's max-pool and the encoder's upsampling take
+fixed-order backwards (no atomic sums).
 """
 
 from dataclasses import dataclass, field, fields
@@ -51,6 +57,7 @@ import torch
 
 from ..models.decoders import action_param_pattern
 from ..models.model import Model, StepCtx, step_anneal, step_schedules
+from ..ops.deterministic import deterministic_cudnn
 from .losses import LossCfg, action_loss, perception_loss
 from .optim import Adam
 from .prepare import RawBatch, prepare_training_batch, sample_pixels
@@ -244,10 +251,11 @@ def _device_step(model: Model, opt: Adam, cfg: TrainCfg, batch: RawBatch, update
     ctx = StepCtx(anneal=step_anneal(opt.prepare(), model.cfg.rendering), updated=updated,
                   draws=tuple(draws), render_flow=cfg.mode == "action")
     opt.zero_grad(set_to_none=True)
-    out = model(mi, train=True, ctx=ctx)
-    loss_fn = perception_loss if cfg.mode == "perception" else action_loss
-    loss, metrics = loss_fn(out, mt, cfg.loss)
-    loss.backward()
+    with deterministic_cudnn():  # the convolutions' backward without atomics
+        out = model(mi, train=True, ctx=ctx)
+        loss_fn = perception_loss if cfg.mode == "perception" else action_loss
+        loss, metrics = loss_fn(out, mt, cfg.loss)
+        loss.backward()
     _apply_gradients(opt, cfg)
     return metrics
 

@@ -15,6 +15,15 @@ bridge is a leaf-by-leaf rename:
 Inputs are the Flax trees as nested dicts of arrays (numpy, or anything
 np.asarray takes); nothing here imports JAX.
 
+The 2D family (jacobian2d/) holds PyTorch's own layers, so its bridge,
+`from_jax_params_2d`, transposes: Conv HWIO -> OIHW, Dense [in, out] -> [out,
+in], LayerNorm scale -> weight, the bare `ls1` / `ls2` / `cls_token` /
+`pos_embed` kept; and a ConvTranspose (`upconv`) HWIO kernel, which Flax
+slides unflipped over the dilated input, -> ConvTranspose2d's [in, out, kh,
+kw] flipped in both spatial axes. `params_2d_flat` is its inverse: a model's
+parameters as the flat "/"-joined Flax param tree JAX's train2d writes to
+its .npz.
+
 `load_optax_adam_state` carries an optax Adam state (`ScaleByAdamState`:
 mu, nu, count) over to the port's Adam (training/optim.py, which keeps
 torch.optim.Adam's state layout), so a train state taken in the middle
@@ -116,3 +125,69 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Modu
     missing = sorted(set(params) - seen)
     if missing:
         raise KeyError(f"no Adam state for {missing[:5]}{'...' if len(missing) > 5 else ''}")
+
+
+# parameters the 2D family's modules declare themselves, kept by name
+BARE_PARAMS_2D = ("ls1", "ls2", "cls_token", "pos_embed")
+
+
+def _leaves_2d(params):
+    """(path tuple, array) of a nested Flax param tree or of a flat mapping
+    with "/"-joined keys (an .npz)."""
+    if all(not (isinstance(v, dict) or hasattr(v, "items")) for v in params.values()) and \
+            any("/" in k for k in params):
+        return [(tuple(k.split("/")), v) for k, v in params.items()]
+    return list(_flatten(params))
+
+
+def from_jax_params_2d(params) -> Dict[str, torch.Tensor]:
+    """A 2D-family Flax param tree (nested, or flat with "/"-joined keys)
+    -> the state dict of the port's module of the same structure (load it
+    with strict=True); the arrays keep their dtype."""
+    state = {}
+    for path, leaf in _leaves_2d(params):
+        *mods, name = path
+        base = ".".join(mods)
+        arr = np.asarray(leaf)
+        if name == "kernel" and arr.ndim == 4 and mods[-1] == "upconv":
+            state[f"{base}.weight"] = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif name == "kernel" and arr.ndim == 4:
+            state[f"{base}.weight"] = arr.transpose(3, 2, 0, 1)
+        elif name == "kernel":
+            state[f"{base}.weight"] = arr.T
+        elif name == "scale":
+            state[f"{base}.weight"] = arr
+        elif name == "bias":
+            state[f"{base}.bias"] = arr
+        elif name in BARE_PARAMS_2D:
+            state[".".join(path)] = arr
+        else:
+            raise KeyError(f"unmapped 2D param leaf {'/'.join(path)}")
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in state.items()}
+
+
+def params_2d_flat(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of from_jax_params_2d: a 2D-family model's parameters as
+    the flat Flax param tree ("/"-joined names, Flax layouts, float32 host
+    arrays), the .npz that JAX's train2d writes and its tutorials read."""
+    out = {}
+    for name, p in model.named_parameters():
+        *mods, leaf = name.split(".")
+        arr = p.detach().float().cpu().numpy()
+        base = "/".join(mods)
+        mod = model.get_submodule(".".join(mods)) if mods else model
+        if leaf in BARE_PARAMS_2D:
+            out[name.replace(".", "/")] = arr
+        elif isinstance(mod, torch.nn.ConvTranspose2d) and leaf == "weight":
+            out[f"{base}/kernel"] = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif isinstance(mod, torch.nn.Conv2d) and leaf == "weight":
+            out[f"{base}/kernel"] = arr.transpose(2, 3, 1, 0)
+        elif isinstance(mod, torch.nn.Linear) and leaf == "weight":
+            out[f"{base}/kernel"] = arr.T
+        elif isinstance(mod, torch.nn.LayerNorm) and leaf == "weight":
+            out[f"{base}/scale"] = arr
+        elif leaf == "bias":
+            out[f"{base}/bias"] = arr
+        else:
+            raise KeyError(f"unmapped 2D parameter {name}")
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}

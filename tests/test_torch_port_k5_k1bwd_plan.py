@@ -234,10 +234,13 @@ def test_bucket_covers_every_entry_once_in_order(n, hc, wc, hot):
 def k1_emulate(g, idx, w4, k, plan) -> torch.Tensor:
     """The kernels' gF [b, k, c] float32, vectorised: the CSR order (a
     stable sort), each texel's runs inside a piece summed in list order, a
-    texel's runs added in piece order."""
+    texel's runs added in piece order. idx [b, n, q]: q = 4 corners (K1-bwd)
+    or q = 1 (the generalised scatter, row_scatter); w4 None: unit
+    weights."""
     b, n, c = g.shape
-    e, length = 4 * n, plan.piece
-    rw = w4.to(g.dtype).float().reshape(b, e)
+    q = idx.shape[-1]
+    e, length = q * n, plan.piece
+    rw = (torch.ones((b, e)) if w4 is None else w4.to(g.dtype).float().reshape(b, e))
     keys = idx.reshape(b, e)
     order = torch.sort(keys, dim=1, stable=True).indices
     tex = torch.gather(keys, 1, order)
@@ -246,8 +249,8 @@ def k1_emulate(g, idx, w4, k, plan) -> torch.Tensor:
              | torch.cat([torch.ones((b, 1), dtype=torch.bool), tex[:, 1:] != tex[:, :-1]],
                          1).reshape(-1))
     run_id = torch.cumsum(start, 0) - 1
-    prod = (rw.gather(1, order)[..., None]
-            * g.float()[torch.arange(b)[:, None], order // 4]).reshape(b * e, c)
+    rows = g.float()[torch.arange(b)[:, None], order // q]
+    prod = (rows if w4 is None else rw.gather(1, order)[..., None] * rows).reshape(b * e, c)
     runs = torch.zeros((int(run_id[-1]) + 1, c))
     for j in range(length):
         sel = pos % length == j
@@ -338,6 +341,62 @@ def test_k1_emulation_matches_plain_and_pallas(hc, wc):
         assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("b,n,k,c,dtype,hot", [
+    (2, 700, 9, 6, torch.float32, 0),
+    (1, 900, 5, 5, torch.bfloat16, 400),   # a row over several pieces
+    (2, 3000, 257, 1, torch.float32, 0),   # the interlevel loss's one-wide rows
+])
+def test_row_scatter_emulation_q1_is_the_ordered_sum(b, n, k, c, dtype, hot):
+    """Q = 1 with unit weights (a row gather's backward): the emulation bit
+    for bit a float32 loop over each row's entries in point order, piece by
+    piece, the pieces added in order; and against the plain version (each
+    row's entries in point order, one after another) within 1e-6 of scale,
+    bit for bit where a row's entries lie in one piece."""
+    rng = np.random.default_rng(11)
+    idx = torch.from_numpy(rng.integers(0, k, size=(b, n, 1)))
+    idx[:, :hot] = k // 2
+    g = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dtype)
+    plan = k1.bwd_plan(b, n, k, c, q=1)
+    assert plan.entries == n and (hot == 0 or hot > plan.piece)
+    gf, ids = g.float().numpy(), idx.numpy()
+    want = np.zeros((b, k, c), np.float32)
+    for bi in range(b):
+        keys = ids[bi].reshape(-1)
+        rowptr, ent = bucket(keys, k, plan)
+        for kk in range(k):
+            total, piece_sum, cur = None, None, None
+            for pos in range(rowptr[kk], rowptr[kk + 1]):
+                prod = gf[bi, int(ent[pos])]
+                if pos // plan.piece != cur:
+                    if piece_sum is not None:
+                        total = piece_sum if total is None else total + piece_sum
+                    piece_sum, cur = prod, pos // plan.piece
+                else:
+                    piece_sum = piece_sum + prod
+            if piece_sum is not None:
+                want[bi, kk] = piece_sum if total is None else total + piece_sum
+    got = k1_emulate(g, idx, None, k, plan)
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = k1.row_scatter_plain(g, idx, None, k)
+    assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("b,n,k,c", [(7, 65536, 76800, 512), (1792, 512, 257, 1),
+                                     (7, 76800, 4800, 128)])
+def test_bwd_plan_sizes_q1(b, n, k, c):
+    """The plan of the generalised scatter at the train step's shapes (the
+    fine level's packed rows, the interlevel loss per ray, the concat
+    layout's 4x upsampling as Q = 1 rows): n entries, tiles and pieces
+    covering them, counters within the cap."""
+    plan = k1.bwd_plan(b, n, k, c, q=1)
+    assert plan.entries == n and plan.tile % 32 == 0
+    assert (plan.tiles - 1) * plan.tile < n <= plan.tiles * plan.tile
+    assert k * plan.tiles <= max(k1.COUNTERS, k)
+    assert (plan.pieces - 1) * plan.piece < n <= plan.pieces * plan.piece
+    assert plan.int_elems == b * plan.tiles * k + b * (k + 1) + b * n
+    assert plan.part_elems == b * plan.pieces * 2 * c
+
+
 # ---------------------------------------------------------- the wrappers
 
 
@@ -392,6 +451,33 @@ def test_k1_bwd_wrapper_launches_by_the_plan(fake_card, dtype):
     assert part.dtype == torch.float32 and part.numel() == plan.part_elems
     assert args[6:] == (b, hc * wc, c, n, plan.tile, plan.tiles, plan.piece, 1,
                         int(dtype == torch.float32), 0)
+
+
+@pytest.mark.parametrize("q,weighted,dtype", [(1, False, torch.bfloat16), (4, True, torch.float32),
+                                               (1, True, torch.float32)])
+def test_row_scatter_wrapper_launches_by_the_plan(fake_card, q, weighted, dtype):
+    """One call of njf_row_scatter with q, the weight switch (a null pointer
+    for unit weights) and the plan of q n entries, scratch of the plan's
+    sizes, counted once."""
+    lib, allocs = fake_card
+    b, n, k, c = 2, 700, 300, 24
+    rng = np.random.default_rng(4)
+    idx = torch.from_numpy(rng.integers(0, k, size=(b, n, q)))
+    w = torch.from_numpy(rng.uniform(size=(b, n, q)).astype(np.float32)) if weighted else None
+    g = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dtype)
+    n0 = k1.row_scatter.launches
+    out = k1._row_scatter_cuda(g, idx, w, k)
+    assert k1.row_scatter.launches == n0 + 1
+    ((name, args),) = lib.calls
+    plan = k1.bwd_plan(b, n, k, c, 132, q)
+    assert name == "njf_row_scatter" and plan.entries == q * n
+    assert args[0] == g.data_ptr() and args[5] == out.data_ptr()
+    assert (args[2] != 0) == weighted
+    assert out.shape == (b, k, c) and out.dtype == torch.float32
+    iscratch, part = allocs[args[3]], allocs[args[4]]
+    assert iscratch.numel() == plan.int_elems and part.numel() == plan.part_elems
+    assert args[6:] == (b, k, c, n, q, plan.tile, plan.tiles, plan.piece, 1,
+                        int(dtype == torch.float32), int(weighted), 0)
 
 
 def test_k5_wrapper_passes_rows_without_copies(fake_card):

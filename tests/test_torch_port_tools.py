@@ -487,10 +487,14 @@ def test_ingest_reference_counts_match_jax(tmp_path, capsys):
 
 
 def test_ingest_dinov2_waits_for_the_2d_slice(tmp_path, capsys):
+    """The dinov2 kind came with the 2D family (tests/test_torch_port_jacobian2d.py
+    ingests a whole ViT-S/14): a state dict with the kind's keys but not
+    the ViT's tensors is refused, and nothing is written."""
     from neural_jacobian_field_torch import ingest
 
     path = tmp_path / "dinov2.pth"
     torch.save({"patch_embed.proj.weight": torch.zeros(2, 3), "cls_token": torch.zeros(1)},
                path)
-    assert ingest.main([str(path), "--device", "cpu"]) != 0
-    assert "2D" in capsys.readouterr().err
+    with pytest.raises(KeyError):
+        ingest.main([str(path), "--device", "cpu"])
+    assert not (tmp_path / "dinov2.pth.torch.pt").exists()
