@@ -12,6 +12,9 @@
     python3 chip_smoke.py --determinism     # only: whether the stage-1 steps
                                             # repeat bit for bit, the ops that
                                             # sum with atomics, the cycle's rays/s
+    python3 chip_smoke.py --determinism --torch-deterministic
+                                            # the same under PyTorch's own
+                                            # deterministic algorithms
 
 Drives the port's main paths (neural_jacobian_field_torch, never JAX) at the
 flagship configuration with seeded random weights, in both pixel-feature
@@ -40,9 +43,12 @@ K7 trunks that project the latent themselves):
      45x80 map (a 720x1280 image's layer3, on a line of its own);
      K1-bwd-rows, K1-bwd's scatter generalised (the fixed-order backward of
      the gathers and the upsampling), at the exact mode's fine-level
-     gather (7 x 65,536 rows of 512 bf16 onto 240x320) and, on a line of
-     its own, the pyramid's 2x upsampling (Q = 4 weighted corners), each
-     twice for identical bits; K10, K5,
+     gather (7 x 65,536 rows of 512 bf16 onto 240x320, bf16 out) and, on
+     lines of their own, the pyramid's 2x upsampling (Q = 4 weighted
+     corners, one table) and the interlevel loss (float32, 1,792 rays of
+     257 one-wide rows), each twice for identical bits; PyTorch's
+     max_pool2d backward at the stem's and the 2D UNet's shapes on tied
+     inputs, twice for identical bits; K10, K5,
      K1-bwd, K7-tz-bwd and K7-bwd twice, for identical bits (K7-tz-fwd and
      K7-fwd too). The
      K7 backward rows print each pass's device time (the gradient chain,
@@ -1147,16 +1153,29 @@ def backward_kernel_checks(dev):
 
 # ------------------------------------------------------------------ phase 3+
 
+def rounded_err(got, ref) -> float:
+    """For an output rounded to bf16 from float32 sums: max over elements of
+    |got - ref| less bf16's rounding of the value (at most 2^-8 of it),
+    over max |ref|; ref the float32 sums."""
+    ref = ref.float()
+    excess = ((got.float() - ref).abs() - ref.abs() * 2.0 ** -8).clamp_min(0.0)
+    return float(excess.max() / ref.abs().max().clamp_min(1e-30))
+
+
 def row_scatter_checks(dev):
     """K1-bwd-rows, the generalised scatter (the fixed-order backward of
-    the port's gathers and upsampling): the row is the exact mode's fine
-    level, a train step's per-sample gather of 7 x 65,536 packed rows (4 x
-    128 bf16) from a 240x320 map (Q = 1, unit weights, where
-    torch.gather's backward would scatter_add_ in bf16: the library call);
-    a line of its own holds the pyramid's 2x upsampling of layer1 (Q = 4
-    corners with their weights, 7 x 240x320 pixels of 64 channels onto
-    120x160). Each against its plain version (index_add_ in float32) and
-    twice for identical bits."""
+    the port's gathers and upsampling), on three lines, each against its
+    plain version (index_add_ in float32) and twice for identical bits: the
+    exact mode's fine level, a train step's per-sample gather of 7 x 65,536
+    packed rows (4 x 128 bf16) from a 240x320 map (Q = 1, unit weights, the
+    output bf16 as the gather's gradient is; the library call torch.gather's
+    backward, scatter_add_ in bf16; the kernel table's row); the pyramid's
+    2x upsampling of layer1 (Q = 4 corners with their weights, one table for
+    the 7 images of 240x320 pixels of 64 bf16 channels onto 120x160); the
+    interlevel loss's outer measure (float32, each of the 7 x 256 rays an
+    image of 257 one-wide rows, 512 sorted ids a ray). Then PyTorch's
+    max_pool2d backward, which the step keeps, twice at the stem's shape and
+    at the 2D UNet's, on tied inputs, for identical bits."""
     import torch
 
     from neural_jacobian_field_torch.ops import kernels as K
@@ -1168,18 +1187,19 @@ def row_scatter_checks(dev):
     # rows spread over the map
     idx = (torch.rand((b, n, 1), generator=g, device=dev) * (hf - 1) * (wf - 1)).long()
     got = K.row_scatter(gy, idx, None, hf * wf)
-    want = K.row_scatter_plain(gy, idx, None, hf * wf)
+    want = K.row_scatter_plain(gy.float(), idx, None, hf * wf)
     again = K.row_scatter(gy, idx, None, hf * wf)
-    err, same = rel_err(got, want), bool(torch.equal(got, again))
-    print(f"K1-bwd-rows {b}x{n}x{c} onto {hf}x{wf} rows (Q 1, unit weights): max_abs_err "
-          f"{float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} (tol 1e-4 of scale: "
-          f"float32 sums reordered); two calls bit-identical={same}")
-    check(err <= 1e-4 and same, "K1-bwd-rows disagrees with its plain version or does not "
-          "repeat")
+    err, same = rounded_err(got, want), bool(torch.equal(got, again))
+    print(f"K1-bwd-rows {b}x{n}x{c} onto {hf}x{wf} rows (Q 1, unit weights, bf16 out): "
+          f"max_abs_err {float((got.float() - want).abs().max()):.3e} beyond bf16 rounding "
+          f"{err:.3e} of scale (tol 1e-4 of scale: float32 sums reordered, then rounded to "
+          f"bf16); two calls bit-identical={same}")
+    check(got.dtype == torch.bfloat16 and err <= 1e-4 and same,
+          "K1-bwd-rows disagrees with its plain version or does not repeat")
     scatter = torch.zeros((b, hf * wf, c), dtype=torch.bfloat16, device=dev)
     ix = idx.expand(-1, -1, c)
     row = Row()
-    row.add(float((got - want).abs().max()),
+    row.add(float((got.float() - want).abs().max()),
             cuda_time_ms(lambda: K.row_scatter(gy, idx, None, hf * wf)),
             cuda_time_ms(lambda: K.row_scatter_plain(gy, idx, None, hf * wf)),
             nbytes(gy, idx, got),
@@ -1192,29 +1212,83 @@ def row_scatter_checks(dev):
     print_times("", row.ms, row.plain_ms, row.library_ms, extra=f" (device {d_ms:.4f}, bound "
                 f"{rec['bound_ms']:.4f}, bound/device {rec['bound_ms'] / d_ms:.1%})")
     del gy, idx, got, want, again, scatter, ix
-    # the 2x upsampling's backward (Q = 4, weighted)
+    # the 2x upsampling's backward (Q = 4, weighted, one table)
     hi, wi, c = H // 4, W // 4, 64
     gy = torch.randn((b, hf * wf, c), generator=g, device=dev).to(torch.bfloat16)
-    ids, w = _upsample_corners(hi, wi, hf, wf, torch.bfloat16, dev)
-    ids, w = ids.expand(b, -1, 4).contiguous(), w.expand(b, -1, 4).contiguous()
+    ids, w = (t[None] for t in _upsample_corners(hi, wi, hf, wf, torch.bfloat16, dev))
     got = K.row_scatter(gy, ids, w, hi * wi)
-    want = K.row_scatter_plain(gy, ids, w, hi * wi)
+    want = K.row_scatter_plain(gy.float(), ids, w.to(torch.bfloat16), hi * wi)
     again = K.row_scatter(gy, ids, w, hi * wi)
-    err, same = rel_err(got, want), bool(torch.equal(got, again))
-    print(f"K1-bwd-rows {b}x{hf}x{wf}x{c} onto {hi}x{wi} (Q 4, bilinear weights): max_abs_err "
-          f"{float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} (tol 1e-4 of scale); "
-          f"two calls bit-identical={same}")
-    check(err <= 1e-4 and same, "K1-bwd-rows (Q 4) disagrees with its plain version or does "
-          "not repeat")
+    err, same = rounded_err(got, want), bool(torch.equal(got, again))
+    print(f"K1-bwd-rows {b}x{hf}x{wf}x{c} onto {hi}x{wi} (Q 4, bilinear weights, one table, "
+          f"bf16 out): max_abs_err {float((got.float() - want).abs().max()):.3e} beyond bf16 "
+          f"rounding {err:.3e} of scale (tol 1e-4 of scale); two calls bit-identical={same}")
+    check(got.dtype == torch.bfloat16 and err <= 1e-4 and same,
+          "K1-bwd-rows (Q 4) disagrees with its plain version or does not repeat")
     nchw = gy.reshape(b, hf, wf, c).permute(0, 3, 1, 2)
     lib_ms = cuda_time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
         nchw, [hf, wf], [b, c, hi, wi], False))
-    d_ms = device_ms(lambda: K.row_scatter(gy, ids, w, hi * wi))
+    d_ms, stages = device_ms(lambda: K.row_scatter(gy, ids, w, hi * wi), groups=K1_BWD_STAGES)
+    print("  stages (device ms per call): " + ", ".join(
+        f"{label} {ms:.4f}" for label, ms in stages.items()))
     bound = nbytes(gy, ids, w, got) / PEAK_BYTES_PER_S * 1e3
     print_times("", cuda_time_ms(lambda: K.row_scatter(gy, ids, w, hi * wi)),
                 cuda_time_ms(lambda: K.row_scatter_plain(gy, ids, w, hi * wi)), lib_ms,
                 extra=f" (device {d_ms:.4f}, bound {bound:.4f}, bound/device {bound / d_ms:.1%})")
+    del gy, ids, w, got, want, again, nchw
+    # the interlevel loss's outer measure: cy1[lo] and cy1[hi + 1] per ray
+    rays, s0, k = TRAIN_B * TRAIN_RAYS, 256, 257
+    gy = torch.randn((rays, 2 * s0, 1), generator=g, device=dev)
+    lo = torch.randint(0, k - 1, (rays, s0), generator=g, device=dev).sort(dim=1).values
+    hi_ = torch.randint(1, k, (rays, s0), generator=g, device=dev).sort(dim=1).values
+    idx = torch.cat([lo, hi_], dim=1)[..., None]
+    got = K.row_scatter(gy, idx, None, k)
+    want = K.row_scatter_plain(gy, idx, None, k)
+    again = K.row_scatter(gy, idx, None, k)
+    err, same = rel_err(got, want), bool(torch.equal(got, again))
+    print(f"K1-bwd-rows {rays}x{2 * s0}x1 onto {k} rows a ray (Q 1, float32, the interlevel "
+          f"loss): max_abs_err {float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} "
+          f"(tol 1e-4 of scale: float32 sums reordered); two calls bit-identical={same}")
+    check(got.dtype == torch.float32 and err <= 1e-4 and same,
+          "K1-bwd-rows (interlevel, float32) disagrees with its plain version or does not "
+          "repeat")
+    flat = torch.zeros((rays, k, 1), device=dev)
+    d_ms, stages = device_ms(lambda: K.row_scatter(gy, idx, None, k), groups=K1_BWD_STAGES)
+    print("  stages (device ms per call): " + ", ".join(
+        f"{label} {ms:.4f}" for label, ms in stages.items()))
+    bound = nbytes(gy, idx, got) / PEAK_BYTES_PER_S * 1e3
+    print_times("", cuda_time_ms(lambda: K.row_scatter(gy, idx, None, k)),
+                cuda_time_ms(lambda: K.row_scatter_plain(gy, idx, None, k)),
+                cuda_time_ms(lambda: flat.zero_().scatter_add_(1, idx, gy)),
+                extra=f" (device {d_ms:.4f}, bound {bound:.4f}, bound/device {bound / d_ms:.1%})")
+    del gy, idx, got, want, again, flat
+    max_pool_backward_checks(dev, g)
     return {"K1-bwd-rows": rec}
+
+
+def max_pool_backward_checks(dev, g):
+    """PyTorch's max_pool2d backward, kept on the train steps: on tied
+    inputs (three levels, so most windows hold ties) at the stem's shape
+    (3x3 / 2, pad 1, [7, 240, 320, 64] bf16, channels last as the encoder
+    passes it) and at the 2D UNet's first pool (2x2 / 2, [12, 252, 252, 32]
+    float32), two backward calls bit-identical."""
+    import torch
+    import torch.nn.functional as F
+
+    for label, shape, dtype, kw in (
+            ("stem 3x3/2", (TRAIN_B, H // 2, W // 2, 64), torch.bfloat16,
+             dict(kernel_size=3, stride=2, padding=1)),
+            ("2d unet 2x2/2", (12, 252, 252, 32), torch.float32,
+             dict(kernel_size=2, stride=2))):
+        v = torch.randint(0, 3, shape, generator=g, device=dev).to(dtype)
+        x = v.permute(0, 3, 1, 2).requires_grad_(True)
+        y = F.max_pool2d(x, **kw)
+        gy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+        first, second = (torch.autograd.grad(y, x, gy, retain_graph=True)[0] for _ in range(2))
+        same = bool(torch.equal(first, second))
+        print(f"max_pool2d backward, {label} {list(shape)} {str(dtype)[6:]} on tied inputs: two "
+              f"calls bit-identical={same}")
+        check(same, f"max_pool2d's backward ({label}) differs between two calls")
 
 
 def serving_weights(model, g):
@@ -1891,10 +1965,10 @@ def run_steps(state, batch, plan):
 # aten ops that CUDA implements with atomic adds, so that their sums come in
 # another order from run to run (cuDNN's convolution_backward unless cuDNN
 # is held to its deterministic algorithms; index_put only when it
-# accumulates)
+# accumulates). max_pool2d's backward gathers (max_pool_backward_checks).
 ATOMIC_OPS = ("scatter_add", "index_add", "index_put", "_index_put_impl", "put",
-              "max_pool2d_with_indices_backward", "upsample_bilinear2d_backward",
-              "grid_sampler_2d_backward", "embedding_dense_backward", "convolution_backward")
+              "upsample_bilinear2d_backward", "grid_sampler_2d_backward",
+              "embedding_dense_backward", "convolution_backward")
 
 
 def ops_with_atomics(fn) -> list:
@@ -1933,18 +2007,20 @@ def warned_ops(fn) -> list:
 
     import torch
 
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             fn()
     finally:
-        torch.use_deterministic_algorithms(False)
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
     return sorted({re.split(r"[,.]", str(w.message), maxsplit=1)[0][:120] for w in caught
                    if "determinis" in str(w.message)})
 
 
-def determinism_report(dev, runs=3):
+def determinism_report(dev, runs=3, torch_deterministic=False):
     """`--determinism`: for phase 5's stage-1 steps (epipolar, exact,
     pallas_fused) and phase 10's transformer model, the three steps of the
     captured-vs-eager check run eagerly: the ops that warn under
@@ -1952,8 +2028,19 @@ def determinism_report(dev, runs=3):
     atomic sums that a step runs (ops_with_atomics), the tensors in which
     `runs` eager runs differ; then the 5-frozen + 1-update cycle's rays/s,
     as six replays and as one 6-step program (captured_step_times).
-    Returns the paths whose eager runs differ or that run an atomic sum."""
+    Returns the paths whose eager runs differ or that run an atomic sum.
+    torch_deterministic: everything under
+    torch.use_deterministic_algorithms(True) (PyTorch's own deterministic
+    forms of those ops, a process-wide flag; its default of filling new
+    memory kept), where a path fails only if its eager runs differ or its
+    programs cannot be captured (the atomic ops are named, not counted)."""
     import torch
+
+    if torch_deterministic:
+        torch.use_deterministic_algorithms(True)
+        print("determinism: under torch.use_deterministic_algorithms(True), "
+              f"fill_uninitialized_memory="
+              f"{torch.utils.deterministic.fill_uninitialized_memory}")
 
     from neural_jacobian_field_torch.training import step_randomness
 
@@ -1979,10 +2066,15 @@ def determinism_report(dev, runs=3):
               f"{warned or 'none'}; ops with atomic sums on a step: {ops or 'none'}; "
               f"{runs} eager runs of 3 steps differ in {len(differ)} of {len(names)} tensors "
               f"{differ[:4]}")
-        if differ or ops:
+        if differ or (ops and not torch_deterministic):
             failed.append(label)
-        captured_step_times(dev, state, batch, g, f"determinism {label}",
-                            label.replace(" ", "_") + "_", timings)
+        try:
+            captured_step_times(dev, state, batch, g, f"determinism {label}",
+                                label.replace(" ", "_") + "_", timings)
+        except Exception as e:  # a capture the flag's ops refuse
+            print(f"determinism {label}: capture failed: {type(e).__name__}: "
+                  f"{str(e).splitlines()[0][:200]}")
+            failed.append(label)
         del model, state, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -3726,9 +3818,9 @@ class UNetDecisions:
         import torch.nn.functional as F
 
         from neural_jacobian_field_torch.jacobian2d import unet
-        from neural_jacobian_field_torch.ops.deterministic import max_pool_2x2
 
         self.saved = (torch.relu, unet.max_pool_2x2)
+        max_pool_2x2 = unet.max_pool_2x2
         relu = torch.relu
         it = iter(self.replay or ())
 
@@ -4224,6 +4316,9 @@ def main() -> int:
                              "torch.use_deterministic_algorithms, their ops with atomic sums, "
                              "whether their eager runs repeat bit for bit, and the 6-step "
                              "cycle's rays/s (determinism_report)")
+    parser.add_argument("--torch-deterministic", action="store_true",
+                        help="with --determinism: run it all under "
+                             "torch.use_deterministic_algorithms(True)")
     args = parser.parse_args()
     profile = args.profile
     if profile is not None:
@@ -4288,7 +4383,7 @@ def main() -> int:
             (profile_serve if serve else profile_train)(dev, what[0])
             return 0
         if args.determinism:
-            failed = determinism_report(dev)
+            failed = determinism_report(dev, torch_deterministic=args.torch_deterministic)
             print(f"determinism: paths whose eager steps differ or sum with atomics: "
                   f"{failed or 'none'}")
             return 1 if failed else 0

@@ -46,7 +46,10 @@
 // interlevel loss's per-ray gathers, and the backward of the encoder's
 // bilinear upsampling (upsample_bilinear2d_backward, atomic too): so a
 // train step repeats bit for bit, as the JAX step does on the CPU or the
-// TPU. Bound and design as K1-bwd's: the bytes of g, idx, w and out.
+// TPU. Its output is in g's type (a bf16 gather's gradient is bf16: the
+// float32 sums are rounded once, as they are written). A table that every
+// image shares (the upsampling's corners) is passed once and sorted once.
+// Bound and design as K1-bwd's: the bytes of g, idx, w and out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -341,16 +344,40 @@ __device__ __forceinline__ void store_row8(float* row, int ch, int c, const floa
   }
 }
 
+// the same row rounded to bf16 (to nearest even, as a tensor's cast rounds)
+template <bool kVec>
+__device__ __forceinline__ void store_row8(__nv_bfloat16* row, int ch, int c,
+                                           const float (&a)[8]) {
+  if (kVec) {
+    if (ch < c) {
+      uint4 q;
+      __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&q);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16(a[i]);
+      *reinterpret_cast<uint4*>(row + ch) = q;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (ch + i < c) row[ch + i] = __float2bfloat16(a[i]);
+  }
+}
+
+__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
+__device__ __forceinline__ void set_zero(__nv_bfloat16& v) { v = __float2bfloat16(0.f); }
+
 // (b) warp gw = ((b * chunks) + piece) * slabs + slab walks CSR entries
 // [piece * len, min(Q n, (piece + 1) * len)) of image b on channels
-// [256 slab, 256 slab + 256). part[b][piece][slot][c]. Entry e adds row
-// e / Q of g, times its weight w4[e] (kW) or as it is.
-template <typename T, bool kVec, int Q, bool kW>
+// [256 slab, 256 slab + 256). part[b][piece][slot][c] (float32); rows
+// inside one piece go to out in OutT. Entry e adds row e / Q of g, times
+// its weight w4[e] (kW) or as it is. shared: one table (ids, weights, and
+// so one CSR list) for every image, that of image 0.
+template <typename T, typename OutT, bool kVec, int Q, bool kW>
 __global__ void __launch_bounds__(128)
     segment_sum_kernel(const T* __restrict__ g, const float* __restrict__ w4,
                        const int* __restrict__ rowptr, const int* __restrict__ ent,
-                       float* __restrict__ part, float* __restrict__ out, int b_count, int n,
-                       int k, int c, int len, int chunks, int slabs) {
+                       float* __restrict__ part, OutT* __restrict__ out, int b_count, int n,
+                       int k, int c, int len, int chunks, int slabs, int shared) {
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * 4 + (threadIdx.x >> 5);
   if (gw >= static_cast<long long>(b_count) * chunks * slabs) return;
@@ -359,9 +386,10 @@ __global__ void __launch_bounds__(128)
   const int piece = r / slabs, slab = r - piece * slabs;
   const int e_total = Q * n;
   const int i0 = piece * len, i1 = min(e_total, i0 + len);
-  const int* rp = rowptr + static_cast<size_t>(b) * (k + 1);
-  const int* eb = ent + static_cast<size_t>(b) * e_total;
-  const float* wb = kW ? w4 + static_cast<size_t>(b) * e_total : nullptr;
+  const int bt = shared ? 0 : b;  // the table's image
+  const int* rp = rowptr + static_cast<size_t>(bt) * (k + 1);
+  const int* eb = ent + static_cast<size_t>(bt) * e_total;
+  const float* wb = kW ? w4 + static_cast<size_t>(bt) * e_total : nullptr;
   const T* gb = g + static_cast<size_t>(b) * n * c;
   const int ch = slab * kSlabCh + 8 * lane;
   // the texel of entry i0: the last kk with rp[kk] <= i0 (it is not empty)
@@ -377,14 +405,13 @@ __global__ void __launch_bounds__(128)
   float acc[8] = {};
   bool fresh = true;  // acc holds no term of texel kk yet
   auto flush = [&]() {
-    float* dst;
     if (rp[kk] < i0)
-      dst = part + (static_cast<size_t>(b) * chunks + piece) * 2 * c;
+      store_row8<kVec>(part + (static_cast<size_t>(b) * chunks + piece) * 2 * c, ch, c, acc);
     else if (rp[kk + 1] > i1)
-      dst = part + ((static_cast<size_t>(b) * chunks + piece) * 2 + 1) * c;
+      store_row8<kVec>(part + ((static_cast<size_t>(b) * chunks + piece) * 2 + 1) * c, ch, c,
+                       acc);
     else
-      dst = out + (static_cast<size_t>(b) * k + kk) * c;
-    store_row8<kVec>(dst, ch, c, acc);
+      store_row8<kVec>(out + (static_cast<size_t>(b) * k + kk) * c, ch, c, acc);
   };
   // the entry ids of the next 32 positions load while this step's rows do
   int next_e = i0 + lane < i1 ? eb[i0 + lane] : 0;
@@ -425,20 +452,22 @@ __global__ void __launch_bounds__(128)
 
 // (c) one warp per (image, texel): zeros for an untouched texel, the sum of
 // its partials in piece order for a texel cut by piece boundaries, nothing
-// (the segment pass wrote it) for a texel inside one piece.
-template <bool kVec>
+// (the segment pass wrote it) for a texel inside one piece; out in OutT.
+template <typename OutT, bool kVec>
 __global__ void __launch_bounds__(256)
     merge_parts_kernel(const int* __restrict__ rowptr, const float* __restrict__ part,
-                       float* __restrict__ out, int b_count, int k, int c, int len, int chunks) {
+                       OutT* __restrict__ out, int b_count, int k, int c, int len, int chunks,
+                       int shared) {
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   if (gw >= static_cast<long long>(b_count) * k) return;
   const int b = static_cast<int>(gw / k), kk = static_cast<int>(gw - static_cast<long long>(b) * k);
-  const int s = rowptr[static_cast<size_t>(b) * (k + 1) + kk];
-  const int e = rowptr[static_cast<size_t>(b) * (k + 1) + kk + 1];
-  float* dst = out + static_cast<size_t>(gw) * c;
+  const size_t bt = shared ? 0 : b;  // the table's image
+  const int s = rowptr[bt * (k + 1) + kk];
+  const int e = rowptr[bt * (k + 1) + kk + 1];
+  OutT* dst = out + static_cast<size_t>(gw) * c;
   if (s == e) {
-    for (int i = lane; i < c; i += 32) dst[i] = 0.f;
+    for (int i = lane; i < c; i += 32) set_zero(dst[i]);
     return;
   }
   const int first = s / len, last = (e - 1) / len;
@@ -494,26 +523,29 @@ int gather_fwd(const void* flat, const void* idx, const void* w4, void* out, int
 }
 
 
-template <typename T, int Q, bool kW>
+// shared: idx (and w4) hold one table for all b images: it is sorted once
+// (the bucket stages on one image), and every image's sums walk its list.
+template <typename T, typename OutT, int Q, bool kW>
 int scatter_bwd(const void* g, const void* idx, const void* w4, void* iscratch, void* part,
                 void* out, int b, int k, int c, int n, int tile, int tiles, int len,
-                bool smem_hist, cudaStream_t s) {
+                bool smem_hist, bool shared, cudaStream_t s) {
   const int e_total = Q * n;
-  int* cnt = static_cast<int*>(iscratch);  // [b][tiles][k]
-  int* rowptr = cnt + static_cast<size_t>(b) * tiles * k;  // [b][k + 1]
-  int* ent = rowptr + static_cast<size_t>(b) * (k + 1);     // [b][Q n]
+  const int bs = shared ? 1 : b;  // tables to sort
+  int* cnt = static_cast<int*>(iscratch);  // [bs][tiles][k]
+  int* rowptr = cnt + static_cast<size_t>(bs) * tiles * k;  // [bs][k + 1]
+  int* ent = rowptr + static_cast<size_t>(bs) * (k + 1);     // [bs][Q n]
   const auto* ix = static_cast<const long long*>(idx);
-  const dim3 tgrid(tiles, b);
+  const dim3 tgrid(tiles, bs);
   if (smem_hist) {
     bucket_count_kernel<true><<<tgrid, 256, k * sizeof(int), s>>>(ix, cnt, e_total, k, tile, tiles);
   } else {
-    cudaMemsetAsync(cnt, 0, static_cast<size_t>(b) * tiles * k * sizeof(int), s);
+    cudaMemsetAsync(cnt, 0, static_cast<size_t>(bs) * tiles * k * sizeof(int), s);
     bucket_count_kernel<false><<<tgrid, 256, 0, s>>>(ix, cnt, e_total, k, tile, tiles);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bucket_scan_kernel<<<b, 1024, 0, s>>>(cnt, rowptr, k, tiles, e_total);
-  const dim3 pgrid((tiles + kPlaceWarps - 1) / kPlaceWarps, b);
+  bucket_scan_kernel<<<bs, 1024, 0, s>>>(cnt, rowptr, k, tiles, e_total);
+  const dim3 pgrid((tiles + kPlaceWarps - 1) / kPlaceWarps, bs);
   if (smem_hist) {
     const size_t smem = static_cast<size_t>(kPlaceWarps) * k * sizeof(int);
     err = cudaFuncSetAttribute(bucket_place_kernel<true>,
@@ -533,20 +565,23 @@ int scatter_bwd(const void* g, const void* idx, const void* w4, void* iscratch, 
   const auto* gg = static_cast<const T*>(g);
   const auto* w = static_cast<const float*>(w4);
   auto* pp = static_cast<float*>(part);
-  auto* o = static_cast<float*>(out);
+  auto* o = static_cast<OutT*>(out);
+  const int sh = shared ? 1 : 0;
   if (c % 8 == 0)
-    segment_sum_kernel<T, true, Q, kW><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n,
-                                                               k, c, len, chunks, slabs);
+    segment_sum_kernel<T, OutT, true, Q, kW><<<sblocks, 128, 0, s>>>(
+        gg, w, rowptr, ent, pp, o, b, n, k, c, len, chunks, slabs, sh);
   else
-    segment_sum_kernel<T, false, Q, kW><<<sblocks, 128, 0, s>>>(gg, w, rowptr, ent, pp, o, b, n,
-                                                                k, c, len, chunks, slabs);
+    segment_sum_kernel<T, OutT, false, Q, kW><<<sblocks, 128, 0, s>>>(
+        gg, w, rowptr, ent, pp, o, b, n, k, c, len, chunks, slabs, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned mblocks = static_cast<unsigned>((static_cast<long long>(b) * k + 7) / 8);
   if (c % 8 == 0)
-    merge_parts_kernel<true><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks);
+    merge_parts_kernel<OutT, true><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks,
+                                                           sh);
   else
-    merge_parts_kernel<false><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks);
+    merge_parts_kernel<OutT, false><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks,
+                                                            sh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -581,24 +616,28 @@ extern "C" int njf_onehot_scatter_bwd(const void* g, const void* idx, const void
       (smem_hist && k > 12288))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return is_f32 ? scatter_bwd<float, 4, true>(g, idx, w4, iscratch, part, out, b, k, c, n, tile,
-                                              tiles, len, smem_hist != 0, s)
-                : scatter_bwd<__nv_bfloat16, 4, true>(g, idx, w4, iscratch, part, out, b, k, c,
-                                                      n, tile, tiles, len, smem_hist != 0, s);
+  return is_f32 ? scatter_bwd<float, float, 4, true>(g, idx, w4, iscratch, part, out, b, k, c,
+                                                     n, tile, tiles, len, smem_hist != 0, false,
+                                                     s)
+                : scatter_bwd<__nv_bfloat16, float, 4, true>(g, idx, w4, iscratch, part, out, b,
+                                                             k, c, n, tile, tiles, len,
+                                                             smem_hist != 0, false, s);
 }
 
 // The generalised scatter: g [b, n, c] (bf16 when is_f32 == 0, else
 // float32), idx [b, n, q] int64 ids in [0, k), w [b, n, q] float32 when
-// has_w != 0 (else null: unit weights) -> out [b, k, c] float32,
+// has_w != 0 (else null: unit weights) -> out [b, k, c] in g's type,
 // out[b, kk] = the sum over entries (p, j) with idx[b, p, j] == kk, in
 // entry order within each piece and the pieces in order, of w[b, p, j] *
-// g[b, p] (the weight rounded to g's type). q is 1 or 4; the plan and the
-// scratch as njf_onehot_scatter_bwd's with q n entries per image in place
-// of 4n. q n <= 2^30.
+// g[b, p] (the weight rounded to g's type; the sums in float32, rounded
+// once at the end). shared != 0: idx and w are [1, n, q], one table for
+// every image (sorted once). q is 1 or 4; the plan and the scratch as
+// njf_onehot_scatter_bwd's with q n entries per table in place of 4n, and
+// one table's counters, row pointers and ids when shared. q n <= 2^30.
 extern "C" int njf_row_scatter(const void* g, const void* idx, const void* w, void* iscratch,
                                void* part, void* out, int b, int k, int c, int n, int q,
                                int tile, int tiles, int len, int smem_hist, int is_f32,
-                               int has_w, void* stream) {
+                               int has_w, int shared, void* stream) {
   if (b <= 0 || k <= 0 || c <= 0 || n <= 0 || (q != 1 && q != 4) ||
       static_cast<long long>(q) * n > (1LL << 30) || tile <= 0 || tiles <= 0 ||
       static_cast<long long>(tile) * tiles < static_cast<long long>(q) * n ||
@@ -606,9 +645,10 @@ extern "C" int njf_row_scatter(const void* g, const void* idx, const void* w, vo
       (smem_hist && k > 12288) || (has_w && w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const bool sh = smem_hist != 0;
+  const bool sh = smem_hist != 0, one = shared != 0;
 #define NJF_ROW_SCATTER(T, Q, W) \
-  return scatter_bwd<T, Q, W>(g, idx, w, iscratch, part, out, b, k, c, n, tile, tiles, len, sh, s)
+  return scatter_bwd<T, T, Q, W>(g, idx, w, iscratch, part, out, b, k, c, n, tile, tiles, len, \
+                                 sh, one, s)
   if (is_f32) {
     if (q == 1) {
       if (has_w) NJF_ROW_SCATTER(float, 1, true);

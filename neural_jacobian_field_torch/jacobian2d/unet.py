@@ -13,18 +13,23 @@ Flax's ConvTranspose (transpose_kernel=False, padding "SAME") slides its
 kernel unflipped over the stride-dilated input: y[2i + d] = x[i] K[1 - d].
 PyTorch's ConvTranspose2d is the adjoint of a conv: y[2i + d] = x[i] W[d].
 So W is K flipped in both spatial axes (the bridge does it); with stride 2
-and a 2x2 kernel neither pads. The pool's backward is elementwise
-(`ops/deterministic.max_pool_2x2`: the windows do not overlap), so a train
-step repeats bit for bit.
+and a 2x2 kernel neither pads. The pool's windows do not overlap, and its
+CUDA backward gathers: a train step repeats bit for bit.
 """
 
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..models import initializers as init
-from ..ops.deterministic import max_pool_2x2
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] (NHWC) -> flax's nn.max_pool(x, (2, 2), strides=(2,
+    2)): each window's first maximum gets its gradient."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, stride=2).permute(0, 2, 3, 1).contiguous()
 
 
 def _nchw(x):

@@ -26,10 +26,10 @@ running statistics in eval mode and with the batch's in training mode,
 updating the running buffers in place. The group norm (32 groups, affine)
 and the instance norm (a group per channel, no scale or bias) have Flax's
 GroupNorm semantics (`GroupNorm`): no running statistics, the same in
-training and eval mode. K10 stays with BatchNorm, as in JAX. The stem's
-max-pool and the upsampling of the coarser levels to the fine one take
-their gradients in a fixed order (`ops/deterministic.py`), so a train step
-repeats bit for bit.
+training and eval mode. K10 stays with BatchNorm, as in JAX. The
+upsampling of the coarser levels to the fine one takes its gradient in a
+fixed order (`ops/deterministic.py`), and the stem's max-pool's CUDA
+backward is a gather already, so a train step repeats bit for bit.
 """
 
 from dataclasses import dataclass
@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.deterministic import max_pool_3x3s2, upsample_bilinear
+from ..ops.deterministic import upsample_bilinear
 from ..ops.kernels import conv_suite as k9
 from ..ops.pixel_gather import FeaturePyramid
 from . import initializers as init
@@ -238,6 +238,15 @@ class BasicBlock(nn.Module):
         if self.needs_proj:
             residual = self.downsample_norm(self.downsample_conv(x), train)
         return torch.relu(y + residual)
+
+
+def max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] (NHWC) -> flax's nn.max_pool(x, (3, 3), strides=(2,
+    2), padding=((1, 1), (1, 1))): each window's first maximum in row-major
+    order gets its gradient, JAX's choice on ties. The CUDA backward gathers
+    from the at most four windows that hold each pixel, in a fixed order."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 class EncoderResnet(nn.Module):

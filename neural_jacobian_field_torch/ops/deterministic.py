@@ -1,29 +1,23 @@
 """Fixed-order backwards: what makes a train step repeat bit for bit on the
 card, as the JAX step repeats on the CPU or the TPU.
 
-PyTorch's CUDA backward of a gather (scatter_add_), of an overlapping
-max-pool and of a bilinear upsampling add their terms with atomics, and
-cuDNN may pick a convolution backward that does too: the sums come in
-another order from run to run, and a step's gradients differ in their last
-bits. Here:
+PyTorch's CUDA backward of a gather (scatter_add_) and of a bilinear
+upsampling add their terms with atomics, and cuDNN may pick a convolution
+backward that does too: the sums come in another order from run to run,
+and a step's gradients differ in their last bits. Here:
   - `gather_rows`: torch.gather of whole rows, its backward the generalised
     K1-bwd scatter (`kernels.onehot_gather.row_scatter`, Q = 1, unit
     weights; looked up there at each call, as chip_smoke's plain_kernels
     swaps it), which sorts the entries by row and sums them in order;
   - `upsample_bilinear`: F.interpolate's bilinear (half-pixel centres), its
     backward the same scatter with the four corners of each output pixel
-    and their weights (Q = 4);
-  - `max_pool_3x3s2`: the ResNet stem's overlapping 3x3 / 2 max-pool (pad
-    1), its backward a gather: each input pixel takes, in a fixed order, the
-    gradient of each of the at most four windows that chose it (the first
-    maximum in a window's row-major order, JAX's choice on ties, and
-    PyTorch's);
-  - `max_pool_2x2`: the 2D family's UNet pool (2x2 / 2, windows that do not
-    overlap), its backward elementwise: each input pixel takes its window's
-    gradient where it is the window's first maximum;
+    and their weights (Q = 4), one table for every image;
   - `deterministic_cudnn`: cuDNN limited to deterministic algorithms for the
     span of a train step, the caller's other cuDNN settings kept.
-The forwards are PyTorch's own ops, bit for bit as before.
+The forwards are PyTorch's own ops, bit for bit as before. The max-pools
+need nothing: PyTorch's CUDA max_pool2d backward already gathers, for each
+input pixel, from the windows that chose it, in a fixed order (chip_smoke
+holds two calls at the stem's shape, ties included, bit-identical).
 """
 
 import contextlib
@@ -60,14 +54,13 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        gf = k1.row_scatter(g.to(ctx.dtype), idx[..., None], None, ctx.k)
-        return gf.to(ctx.dtype), None
+        return k1.row_scatter(g.to(ctx.dtype), idx[..., None], None, ctx.k), None
 
 
 def gather_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """flat [B, K, C], idx [B, M] row ids in [0, K) -> [B, M, C], rows of
     flat; flat's gradient summed per row in a fixed order (in float32, or
-    float64 for float64, then cast to flat's dtype)."""
+    float64 for float64, then rounded to flat's dtype)."""
     return _GatherRows.apply(flat, idx)
 
 
@@ -99,6 +92,22 @@ def _upsample_corners(hi: int, wi: int, ho: int, wo: int, dtype, device):
     return ids, w
 
 
+_CORNERS = {}
+
+
+def _corners(hi: int, wi: int, ho: int, wo: int, dtype, device):
+    """_upsample_corners as one table for every image, [1, Ho * Wo, 4] ids
+    and weights, kept per shape; not kept when made while a CUDA graph is
+    captured (its values would be written only when the graph replays)."""
+    key = (hi, wi, ho, wo, dtype, device)
+    table = _CORNERS.get(key)
+    if table is None:
+        table = tuple(t[None] for t in _upsample_corners(hi, wi, ho, wo, dtype, device))
+        if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            _CORNERS[key] = table
+    return table
+
+
 class _UpsampleBilinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, size):
@@ -111,11 +120,9 @@ class _UpsampleBilinear(torch.autograd.Function):
     def backward(ctx, g):
         b, hi, wi, c = ctx.shape
         _, ho, wo, _ = g.shape
-        ids, w = _upsample_corners(hi, wi, ho, wo, ctx.dtype, g.device)
-        n = ho * wo
-        gx = k1.row_scatter(g.to(ctx.dtype).reshape(b, n, c), ids.expand(b, n, 4),
-                            w.expand(b, n, 4), hi * wi)
-        return gx.reshape(b, hi, wi, c).to(ctx.dtype), None
+        ids, w = _corners(hi, wi, ho, wo, ctx.dtype, g.device)
+        gx = k1.row_scatter(g.to(ctx.dtype).reshape(b, ho * wo, c), ids, w, hi * wi)
+        return gx.reshape(b, hi, wi, c), None
 
 
 def upsample_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -124,79 +131,3 @@ def upsample_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     jax.image.resize "linear"); x's gradient summed per texel in a fixed
     order."""
     return _UpsampleBilinear.apply(x, tuple(size))
-
-
-class _MaxPool3x3s2(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        y, idx = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1, return_indices=True)
-        # int32 positions: half the bytes the backward reads four times
-        ctx.save_for_backward(idx.permute(0, 2, 3, 1).to(torch.int32))
-        ctx.hw = x.shape[1:3]
-        return y.permute(0, 2, 3, 1).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        h, w = ctx.hw
-        dev = g.device
-        # window (oy, ox) covers input rows 2oy - 1 .. 2oy + 1: input row y
-        # lies in windows y // 2 and y // 2 + 1 at most (the last one padded
-        # with an index no pixel has)
-        gp = F.pad(g, (0, 0, 0, 1, 0, 1))
-        ip = F.pad(idx, (0, 0, 0, 1, 0, 1), value=-1)
-        rows, cols = torch.arange(h, device=dev) // 2, torch.arange(w, device=dev) // 2
-        pos = (torch.arange(h, device=dev)[:, None] * w + torch.arange(w, device=dev)[None, :])
-        pos = pos.to(torch.int32)[None, :, :, None]
-        acc = torch.float64 if g.dtype == torch.float64 else torch.float32
-        total = None
-        for ry in (rows, rows + 1):
-            for rx in (cols, cols + 1):
-                gw = gp.index_select(1, ry).index_select(2, rx).to(acc)
-                iw = ip.index_select(1, ry).index_select(2, rx)
-                term = torch.where(iw == pos, gw, torch.zeros((), dtype=acc, device=dev))
-                total = term if total is None else total + term
-        return total.to(g.dtype)
-
-
-def max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, C] (NHWC) -> the 3x3, stride 2, pad 1 max-pool (flax's
-    nn.max_pool(x, (3, 3), strides=(2, 2), padding=((1, 1), (1, 1)))), its
-    backward a fixed-order gather; the plain op where no gradient is taken."""
-    if not (torch.is_grad_enabled() and x.requires_grad):
-        y = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1)
-        return y.permute(0, 2, 3, 1).contiguous()
-    return _MaxPool3x3s2.apply(x)
-
-
-class _MaxPool2x2(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        y, idx = F.max_pool2d(x.permute(0, 3, 1, 2), 2, stride=2, return_indices=True)
-        ctx.save_for_backward(idx.permute(0, 2, 3, 1))
-        ctx.hw = x.shape[1:3]
-        return y.permute(0, 2, 3, 1).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        h, w = ctx.hw
-        ho, wo = g.shape[1:3]
-        dev = g.device
-        # each input pixel lies in one window at most (the last row or column
-        # of an odd size in none)
-        up = [t.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) for t in (g, idx)]
-        pad = (0, 0, 0, w - 2 * wo, 0, h - 2 * ho)
-        gu, iu = F.pad(up[0], pad), F.pad(up[1], pad, value=-1)
-        pos = torch.arange(h, device=dev)[:, None] * w + torch.arange(w, device=dev)[None, :]
-        return torch.where(iu == pos[None, :, :, None], gu, torch.zeros((), dtype=g.dtype,
-                                                                        device=dev))
-
-
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, C] (NHWC) -> the 2x2, stride 2 max-pool (flax's
-    nn.max_pool(x, (2, 2), strides=(2, 2))), its backward elementwise; the
-    plain op where no gradient is taken."""
-    if not (torch.is_grad_enabled() and x.requires_grad):
-        return F.max_pool2d(x.permute(0, 3, 1, 2), 2, stride=2).permute(0, 2, 3, 1).contiguous()
-    return _MaxPool2x2.apply(x)

@@ -19,7 +19,8 @@ bit, and no limit on K but int32 entry ids. The differentiable entry point is
 
 `row_scatter` is the same scatter generalised (njf_row_scatter): Q entries
 per point (1 for a row gather, 4 for bilinear corners), rows of any width,
-weights optional. It is the fixed-order backward of the port's other
+weights optional, one table of ids for every image or one each, the output
+in g's dtype. It is the fixed-order backward of the port's other
 gathers and of the encoder's bilinear upsampling
 (`ops/pixel_gather.gather_rows`, `upsample_bilinear`), which would otherwise
 sum with atomics (scatter_add_, upsample_bilinear2d_backward) and differ
@@ -70,12 +71,13 @@ def onehot_scatter_bwd_plain(g: torch.Tensor, idx: torch.Tensor, w4: torch.Tenso
 
 
 def row_scatter_plain(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Tensor:
-    """g [B, N, C] point rows; idx [B, N, Q] row ids in [0, k); w [B, N, Q]
-    weights or None (unit) -> [B, K, C]: out[b, idx[b, p, q]] += w[b, p, q]
-    * g[b, p], in float32 (float64 for a float64 g), the weights rounded to
-    g's dtype as the kernel rounds them. Each row's terms are summed in
-    entry order (p, then q): on the CPU index_add_ adds them one after
-    another, so the result repeats bit for bit."""
+    """g [B, N, C] point rows; idx [B, N, Q] row ids in [0, k), or [1, N, Q]:
+    one table for every image; w shaped as idx, weights, or None (unit) ->
+    [B, K, C] in g's dtype: out[b, idx[b, p, q]] += w[b, p, q] * g[b, p],
+    summed in float32 (float64 for a float64 g) and rounded once, the
+    weights rounded to g's dtype as the kernel rounds them. Each row's terms
+    are summed in entry order (p, then q): on the CPU index_add_ adds them
+    one after another, so the result repeats bit for bit."""
     b, n, c = g.shape
     q = idx.shape[-1]
     acc = torch.float64 if g.dtype == torch.float64 else torch.float32
@@ -85,7 +87,7 @@ def row_scatter_plain(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Te
     rows = (idx + k * torch.arange(b, device=idx.device)[:, None, None]).reshape(-1)
     out = torch.zeros((b * k, c), dtype=acc, device=g.device)
     out.index_add_(0, rows, src.reshape(-1, c))
-    return out.view(b, k, c)
+    return out.view(b, k, c).to(g.dtype)
 
 
 def _check_points(name, idx, w4, b, n):
@@ -146,8 +148,10 @@ class BwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS, q: int = 4) -> BwdPlan:
-    """Tiles of 4096 entries (fewer, longer ones where K x tiles would pass
+def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS, q: int = 4,
+             shared: bool = False) -> BwdPlan:
+    """shared: one table of ids for every image (sorted once: one image's
+    counters, row pointers and ids). Tiles of 4096 entries (fewer, longer ones where K x tiles would pass
     COUNTERS). Pieces: the largest power of two in [64, 2048] that gives an
     image at least 24 warps per SM, more than the card holds at once, so the
     warps in flight work on about one image and its g stays in L2 (the
@@ -164,8 +168,9 @@ def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS, q: int = 4) -> BwdP
     while piece > 64 and -(-entries // piece) < 24 * sms:
         piece //= 2
     pieces = -(-entries // piece)
+    tables = 1 if shared else b
     return BwdPlan(entries, tile, tiles, k <= SMEM_TEXELS, piece, pieces,
-                   b * tiles * k + b * (k + 1) + b * entries, b * pieces * 2 * c)
+                   tables * (tiles * k + k + 1 + entries), b * pieces * 2 * c)
 
 
 def _onehot_scatter_bwd_cuda(g, idx, w4, k):
@@ -202,9 +207,10 @@ def onehot_scatter_bwd(g: torch.Tensor, idx: torch.Tensor, w4: torch.Tensor,
 
 
 def _row_scatter_cuda(g, idx, w, k):
-    if g.dim() != 3 or idx.dim() != 3 or tuple(idx.shape[:2]) != tuple(g.shape[:2]):
-        raise ValueError(f"row_scatter: expected g [B, N, C] and idx [B, N, Q], got "
-                         f"{tuple(g.shape)}, {tuple(idx.shape)}")
+    if (g.dim() != 3 or idx.dim() != 3 or idx.shape[1] != g.shape[1]
+            or idx.shape[0] not in (1, g.shape[0])):
+        raise ValueError(f"row_scatter: expected g [B, N, C] and idx [B, N, Q] or [1, N, Q], "
+                         f"got {tuple(g.shape)}, {tuple(idx.shape)}")
     if w is not None and tuple(w.shape) != tuple(idx.shape):
         raise ValueError(f"row_scatter: w must be shaped as idx, got {tuple(w.shape)}")
     if k <= 0:
@@ -212,6 +218,7 @@ def _row_scatter_cuda(g, idx, w, k):
     g = g.contiguous()
     b, n, c = g.shape
     q = idx.shape[-1]
+    shared = idx.shape[0] == 1 and b > 1
     is_f32 = _dtype_flag("row_scatter g", g)
     check_cuda_tensor(g, "row_scatter g", g.dtype, 3)
     idx = idx.to(torch.int64).contiguous()
@@ -221,9 +228,9 @@ def _row_scatter_cuda(g, idx, w, k):
         check_cuda_tensor(w, "row_scatter w", torch.float32, 3)
     dev = g.device
     if n == 0 or c == 0:
-        return torch.zeros((b, k, c), dtype=torch.float32, device=dev)
-    plan = bwd_plan(b, n, k, c, _sms(dev.index), q)
-    out = torch.empty((b, k, c), dtype=torch.float32, device=dev)
+        return torch.zeros((b, k, c), dtype=g.dtype, device=dev)
+    plan = bwd_plan(b, n, k, c, _sms(dev.index), q, shared)
+    out = torch.empty((b, k, c), dtype=g.dtype, device=dev)
     iscratch = torch.empty(plan.int_elems, dtype=torch.int32, device=dev)
     part = torch.empty(plan.part_elems, dtype=torch.float32, device=dev)
     lib = load_kernels()
@@ -232,13 +239,13 @@ def _row_scatter_cuda(g, idx, w, k):
         lib.call("njf_row_scatter", g.data_ptr(), idx.data_ptr(),
                  0 if w is None else w.data_ptr(), iscratch.data_ptr(), part.data_ptr(),
                  out.data_ptr(), b, k, c, n, q, plan.tile, plan.tiles, plan.piece,
-                 int(plan.smem_hist), is_f32, int(w is not None), stream_of(g))
+                 int(plan.smem_hist), is_f32, int(w is not None), int(shared), stream_of(g))
     return out
 
 
 def row_scatter(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Tensor:
     """The generalised K1-bwd wrapper (same signature as row_scatter_plain;
-    bf16 or float32 g on the card)."""
+    bf16 or float32 g on the card, the output in g's dtype)."""
     return dispatch("row_scatter", g, lambda: _row_scatter_cuda(g, idx, w, k),
                     lambda: row_scatter_plain(g, idx, w, k))
 

@@ -46,8 +46,8 @@ the same Python runs eagerly: `train_step` is that body.
 A step repeats bit for bit on the card, as the JAX step does on the CPU or
 the TPU: its forward and backward run under cuDNN's deterministic
 algorithms (`ops/deterministic.deterministic_cudnn`, for the step alone),
-and the gathers, the stem's max-pool and the encoder's upsampling take
-fixed-order backwards (no atomic sums).
+the gathers and the encoder's upsampling take fixed-order backwards, and
+the stem's max-pool keeps PyTorch's, which gathers (no atomic sums).
 """
 
 from dataclasses import dataclass, field, fields

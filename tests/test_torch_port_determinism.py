@@ -7,9 +7,10 @@ metric and every state leaf comes out bit-identical. The port's step is held
 to the same on the CPU (on the card, chip_smoke.py's phases 5, 8 and 10 hold
 its eager runs and its captured replays to it). The backwards that replace
 PyTorch's atomic ones are held against autograd through the ops they
-replace, in float64, within 1e-12 of the gradient's scale; the max-pool's
-choice on ties against JAX's (the first maximum of a window in row-major
-order gets the gradient).
+replace, in float64, within 1e-12 of the gradient's scale. The stem's
+max-pool keeps PyTorch's backward (on CUDA a gather, no atomics): its
+values and gradients against Flax's, ties included (the first maximum of a
+window in row-major order gets the gradient).
 """
 
 import copy
@@ -23,8 +24,9 @@ import torch.nn.functional as F
 
 from _torch_port_common import (
     INTRINSICS, IMAGE_HW, jax_model_cfg, look_at_offset, torch_model_cfg)
+from neural_jacobian_field_torch.models.encoder_resnet import max_pool_3x3s2
 from neural_jacobian_field_torch.ops.deterministic import (
-    deterministic_cudnn, gather_rows, max_pool_3x3s2, upsample_bilinear)
+    deterministic_cudnn, gather_rows, upsample_bilinear)
 from neural_jacobian_field_torch.ops.grid_sample import grid_sample_bilinear
 from neural_jacobian_field_torch.ops.kernels import onehot_gather as k1
 from neural_jacobian_field_torch.ops.losses import outer_measure
@@ -195,22 +197,27 @@ def test_upsample_backward_is_interpolates(hi, wi, ho, wo):
 
 @pytest.mark.parametrize("h,w,tied", [(8, 10, False), (7, 9, False), (12, 16, True)])
 def test_max_pool_backward_is_max_pools(h, w, tied):
-    """max_pool_3x3s2: F.max_pool2d's values bit for bit, its gradient
-    against F.max_pool2d's autograd within 1e-12 of scale (float64), odd
-    sizes and tied inputs included; without a gradient the plain op."""
+    """The stem's max_pool_3x3s2 against flax's nn.max_pool (3x3, stride 2,
+    pad 1): values bit for bit, the gradient of integer cotangents bit for
+    bit (its sums exact), odd sizes and tied inputs included; without a
+    gradient the same values."""
+    from flax import linen as nn
+
     rng = np.random.default_rng(h + w)
-    v = rng.normal(size=(2, h, w, 4))
+    v = rng.normal(size=(2, h, w, 4)).astype(np.float32)
     if tied:
         v = np.round(v)  # a few levels: most windows hold ties
+    gy = rng.integers(-4, 5, size=(2, (h + 1) // 2, (w + 1) // 2, 4)).astype(np.float32)
+    y_jax, vjp = jax.vjp(
+        lambda t: nn.max_pool(t, (3, 3), strides=(2, 2), padding=((1, 1), (1, 1))),
+        jnp.asarray(v))
     x = torch.from_numpy(v).requires_grad_(True)
     got = max_pool_3x3s2(x)
-    want = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
-    assert torch.equal(got, want)
-    g = torch.from_numpy(rng.normal(size=got.shape))
-    (a,), (b,) = (torch.autograd.grad(y, x, g) for y in (got, want))
-    assert _rel(a, b) <= TOL
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(y_jax))
+    (a,) = torch.autograd.grad(got, x, torch.from_numpy(gy))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(vjp(jnp.asarray(gy))[0]))
     with torch.no_grad():
-        assert torch.equal(max_pool_3x3s2(x), want)
+        assert torch.equal(max_pool_3x3s2(x), got)
 
 
 def test_max_pool_ties_take_jaxs_choice():
@@ -259,7 +266,8 @@ def test_row_scatter_plain_against_scatter_add(q, weighted):
     """The generalised scatter's plain version against scatter_add_ in
     float64 (within 1e-12 of scale), and bit-identical across two runs in
     float32, where the order of its sums shows; bf16 g takes its weights
-    rounded to bf16, as the kernel does."""
+    rounded to bf16, as the kernel does, and its float32 sums come back
+    rounded to bf16."""
     rng = np.random.default_rng(7 + q)
     b, n, k, c = 2, 500, 13, 6
     idx = torch.from_numpy(rng.integers(0, k, size=(b, n, q)))
@@ -277,7 +285,23 @@ def test_row_scatter_plain_against_scatter_add(q, weighted):
     if weighted:
         gb = g.to(torch.bfloat16)
         rounded = k1.row_scatter_plain(gb.float(), idx, w.float().to(torch.bfloat16), k)
-        assert torch.equal(k1.row_scatter_plain(gb, idx, w.float(), k), rounded)
+        got_b = k1.row_scatter_plain(gb, idx, w.float(), k)
+        assert got_b.dtype == torch.bfloat16 and torch.equal(got_b, rounded.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("q,weighted", [(4, True), (1, False)])
+def test_row_scatter_plain_shared_table(q, weighted):
+    """One table of ids (and weights) for every image, [1, N, Q], sums as
+    the same table repeated per image, bit for bit."""
+    rng = np.random.default_rng(3 + q)
+    b, n, k, c = 3, 400, 11, 5
+    idx = torch.from_numpy(rng.integers(0, k, size=(1, n, q)))
+    w = torch.from_numpy(rng.uniform(size=(1, n, q)).astype(np.float32)) if weighted else None
+    g = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32))
+    got = k1.row_scatter_plain(g, idx, w, k)
+    want = k1.row_scatter_plain(g, idx.expand(b, -1, -1),
+                                None if w is None else w.expand(b, -1, -1), k)
+    assert got.shape == (b, k, c) and torch.equal(got, want)
 
 
 def test_row_scatter_plain_sums_in_entry_order():

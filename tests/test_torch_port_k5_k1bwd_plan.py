@@ -351,7 +351,8 @@ def test_row_scatter_emulation_q1_is_the_ordered_sum(b, n, k, c, dtype, hot):
     for bit a float32 loop over each row's entries in point order, piece by
     piece, the pieces added in order; and against the plain version (each
     row's entries in point order, one after another) within 1e-6 of scale,
-    bit for bit where a row's entries lie in one piece."""
+    bit for bit where a row's entries lie in one piece. (The kernel rounds
+    the sums to g's dtype as it writes them.)"""
     rng = np.random.default_rng(11)
     idx = torch.from_numpy(rng.integers(0, k, size=(b, n, 1)))
     idx[:, :hot] = k // 2
@@ -377,7 +378,7 @@ def test_row_scatter_emulation_q1_is_the_ordered_sum(b, n, k, c, dtype, hot):
                 want[bi, kk] = piece_sum if total is None else total + piece_sum
     got = k1_emulate(g, idx, None, k, plan)
     np.testing.assert_array_equal(got.numpy(), want)
-    plain = k1.row_scatter_plain(g, idx, None, k)
+    plain = k1.row_scatter_plain(g.float(), idx, None, k)  # its float32 sums, not rounded
     assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-6
 
 
@@ -473,11 +474,33 @@ def test_row_scatter_wrapper_launches_by_the_plan(fake_card, q, weighted, dtype)
     assert name == "njf_row_scatter" and plan.entries == q * n
     assert args[0] == g.data_ptr() and args[5] == out.data_ptr()
     assert (args[2] != 0) == weighted
-    assert out.shape == (b, k, c) and out.dtype == torch.float32
+    assert out.shape == (b, k, c) and out.dtype == dtype
     iscratch, part = allocs[args[3]], allocs[args[4]]
     assert iscratch.numel() == plan.int_elems and part.numel() == plan.part_elems
     assert args[6:] == (b, k, c, n, q, plan.tile, plan.tiles, plan.piece, 1,
-                        int(dtype == torch.float32), int(weighted), 0)
+                        int(dtype == torch.float32), int(weighted), 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_scatter_wrapper_passes_a_shared_table_once(fake_card, dtype):
+    """idx and w [1, N, 4] for B images (the upsampling's corners): passed
+    as they are, no copy per image, the shared switch on, one table's
+    counters, row pointers and ids in the scratch; the output in g's
+    dtype."""
+    lib, allocs = fake_card
+    b, n, k, c = 3, 640, 160, 16
+    rng = np.random.default_rng(6)
+    idx = torch.from_numpy(rng.integers(0, k, size=(1, n, 4)))
+    w = torch.from_numpy(rng.uniform(size=(1, n, 4)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dtype)
+    out = k1._row_scatter_cuda(g, idx, w, k)
+    ((name, args),) = lib.calls
+    plan = k1.bwd_plan(b, n, k, c, 132, 4, True)
+    assert name == "njf_row_scatter" and args[1] == idx.data_ptr() and args[2] == w.data_ptr()
+    assert out.shape == (b, k, c) and out.dtype == dtype
+    assert allocs[args[3]].numel() == plan.int_elems == plan.tiles * k + k + 1 + 4 * n
+    assert args[6:] == (b, k, c, n, 4, plan.tile, plan.tiles, plan.piece, 1,
+                        int(dtype == torch.float32), 1, 1, 0)
 
 
 def test_k5_wrapper_passes_rows_without_copies(fake_card):
