@@ -42,11 +42,18 @@ K7 trunks that project the latent themselves):
      d_out 1, 16 and 24, K1-bwd) at the train step's, K1-bwd also onto a
      45x80 map (a 720x1280 image's layer3, on a line of its own);
      K1-bwd-rows, K1-bwd's scatter generalised (the fixed-order backward of
-     the gathers and the upsampling), at the exact mode's fine-level
-     gather (7 x 65,536 rows of 512 bf16 onto 240x320, bf16 out) and, on
-     lines of their own, the pyramid's 2x upsampling (Q = 4 weighted
-     corners, one table) and the interlevel loss (float32, 1,792 rays of
-     257 one-wide rows), each twice for identical bits; PyTorch's
+     the packed-row, knot and lookup gathers), at the exact mode's
+     fine-level gather (7 x 65,536 rows of 512 bf16 onto 240x320, bf16
+     out) and, on lines of their own, the pyramid's 2x upsampling (Q = 4
+     weighted corners, one table) and the interlevel loss (float32, 1,792
+     rays of 257 one-wide rows), each twice for identical bits, the last
+     two the routes that K1-bwd-upsample and K1-bwd-small took over; those
+     two bit for bit against their plain versions on the CPU and twice for
+     identical bits, with the library call and the K1-bwd-rows route timed
+     beside them: K1-bwd-upsample at the flagship's 2x upsampling (7 x
+     240x320 x 64 bf16) and the concat layout's three (64, 128, 256
+     float32 channels from 2x, 4x, 8x smaller maps onto 240x320), K1-bwd-
+     small at the interlevel loss and on its ids shuffled; PyTorch's
      max_pool2d backward at the stem's and the 2D UNet's shapes on tied
      inputs, twice for identical bits; K10, K5,
      K1-bwd, K7-tz-bwd and K7-bwd twice, for identical bits (K7-tz-fwd and
@@ -1060,6 +1067,8 @@ def backward_kernel_checks(dev):
     torch.cuda.empty_cache()
     rows.update(row_scatter_checks(dev))  # its own generator: g's draws stay the K7 rows'
     torch.cuda.empty_cache()
+    rows.update(fixed_order_checks(dev))  # likewise
+    torch.cuda.empty_cache()
 
     # K7-tz-bwd and K7-bwd: the proposal (d_out 1) and density (d_out 16)
     # trunks of a stage-1 step and the Jacobian trunk (d_out 24) of a
@@ -1179,7 +1188,7 @@ def row_scatter_checks(dev):
     import torch
 
     from neural_jacobian_field_torch.ops import kernels as K
-    from neural_jacobian_field_torch.ops.deterministic import _upsample_corners
+    from neural_jacobian_field_torch.ops.kernels.upsample_bwd import _upsample_corners
 
     g = torch.Generator(device=dev).manual_seed(SEED + 15)
     b, n, (hf, wf), c = TRAIN_B, TRAIN_RAYS * 256, (H // 2, W // 2), 512
@@ -1264,6 +1273,110 @@ def row_scatter_checks(dev):
     del gy, idx, got, want, again, flat
     max_pool_backward_checks(dev, g)
     return {"K1-bwd-rows": rec}
+
+
+def fixed_order_checks(dev):
+    """K1-bwd-upsample and K1-bwd-small, the fixed-order backwards that take
+    the upsampling and the interlevel loss from K1-bwd-rows, each against
+    its plain version run on the CPU (bit for bit: the kernels sum in the
+    plain version's order) and twice for identical bits, with the wrapper,
+    device and plain times, the library call's (upsample_bilinear2d_backward;
+    scatter_add_) and that of the K1-bwd-rows route it replaces, in this
+    run: the flagship's 2x upsampling of layer1 (7 x 240x320 x 64 bf16 onto
+    120x160; the kernel table's row) and, on lines of their own, the concat
+    layout's three onto the same 240x320 (64, 128 and 256 float32 channels
+    from 2x, 4x and 8x smaller maps); the interlevel loss's per-ray rows
+    (float32, 1,792 rays of 512 sorted ids onto 257 rows; the table's row),
+    then the same rays with their ids shuffled (unsorted, hot rows)."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.ops.kernels.upsample_bwd import _upsample_corners
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rows = {}
+    b, fine = TRAIN_B, (H // 2, W // 2)
+    for label, (hi, wi), c, dtype in (
+            ("flagship layer1 2x", (H // 4, W // 4), 64, torch.bfloat16),
+            ("concat layer1 2x", (H // 4, W // 4), 64, torch.float32),
+            ("concat layer2 4x", (H // 8, W // 8), 128, torch.float32),
+            ("concat layer3 8x", (H // 16, W // 16), 256, torch.float32)):
+        gy = torch.randn((b, *fine, c), generator=g, device=dev).to(dtype)
+        got = K.upsample_bilinear_bwd(gy, (hi, wi))
+        again = K.upsample_bilinear_bwd(gy, (hi, wi))
+        want = K.upsample_bilinear_bwd_plain(gy.cpu(), (hi, wi))
+        bits, same = bool(torch.equal(got.cpu(), want)), bool(torch.equal(got, again))
+        err = float((got.cpu().float() - want.float()).abs().max())
+        print(f"K1-bwd-upsample {label}: {b}x{fine[0]}x{fine[1]}x{c} {str(dtype)[6:]} onto "
+              f"{hi}x{wi}: bit for bit the plain version on the CPU={bits} (max_abs_err "
+              f"{err:.3e}; the kernel sums in its order); two calls bit-identical={same}")
+        check(got.dtype == dtype and bits and same,
+              f"K1-bwd-upsample {label} disagrees with its plain version or does not repeat")
+        del again, want
+        ids, w = (t[None] for t in _upsample_corners(hi, wi, *fine, dtype, dev))
+        flat = gy.reshape(b, -1, c)
+        nchw = gy.permute(0, 3, 1, 2)
+        row = Row()
+        row.add(err, cuda_time_ms(lambda: K.upsample_bilinear_bwd(gy, (hi, wi))),
+                cuda_time_ms(lambda: K.upsample_bilinear_bwd_plain(gy, (hi, wi)), reps=3),
+                nbytes(gy, got), library_ms=cuda_time_ms(
+                    lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                        nchw, list(fine), [b, c, hi, wi], False)))
+        d_ms = device_ms(lambda: K.upsample_bilinear_bwd(gy, (hi, wi)))
+        route_ms = cuda_time_ms(lambda: K.row_scatter(flat, ids, w, hi * wi))
+        route_d_ms = device_ms(lambda: K.row_scatter(flat, ids, w, hi * wi))
+        rec = row.record()
+        print_times("", row.ms, row.plain_ms, row.library_ms, extra=(
+            f" (device {d_ms:.4f}, bound {rec['bound_ms']:.4f}, bound/device "
+            f"{rec['bound_ms'] / d_ms:.1%}; the K1-bwd-rows route {route_ms:.4f}, device "
+            f"{route_d_ms:.4f})"))
+        if label.startswith("flagship"):
+            rows["K1-bwd-upsample"] = rec
+        del gy, got, ids, w, flat, nchw
+        torch.cuda.empty_cache()
+    # the interlevel loss's outer measure: cy1[lo] and cy1[hi + 1] per ray
+    rays, s0, k = TRAIN_B * TRAIN_RAYS, 256, 257
+    check(K.small_plan(2 * s0, k, 1) is not None, "the interlevel shape is not small_plan's")
+    gy = torch.randn((rays, 2 * s0, 1), generator=g, device=dev)
+    lo = torch.randint(0, k - 1, (rays, s0), generator=g, device=dev).sort(dim=1).values
+    hi_ = torch.randint(1, k, (rays, s0), generator=g, device=dev).sort(dim=1).values
+    idx = torch.cat([lo, hi_], dim=1)
+    got = K.small_scatter(gy, idx, k)
+    again = K.small_scatter(gy, idx, k)
+    want = K.small_scatter_plain(gy.cpu(), idx.cpu(), k)
+    bits, same = bool(torch.equal(got.cpu(), want)), bool(torch.equal(got, again))
+    err = float((got.cpu() - want).abs().max())
+    print(f"K1-bwd-small {rays}x{2 * s0}x1 onto {k} rows a ray (float32, the interlevel loss): "
+          f"bit for bit the plain version on the CPU={bits} (max_abs_err {err:.3e}); two calls "
+          f"bit-identical={same}")
+    check(got.dtype == torch.float32 and bits and same,
+          "K1-bwd-small disagrees with its plain version or does not repeat")
+    flat = torch.zeros((rays, k, 1), device=dev)
+    row = Row()
+    row.add(err, cuda_time_ms(lambda: K.small_scatter(gy, idx, k)),
+            cuda_time_ms(lambda: K.small_scatter_plain(gy, idx, k)), nbytes(gy, idx, got),
+            library_ms=cuda_time_ms(lambda: flat.zero_().scatter_add_(1, idx[..., None], gy)))
+    d_ms = device_ms(lambda: K.small_scatter(gy, idx, k))
+    route_ms = cuda_time_ms(lambda: K.row_scatter(gy, idx[..., None], None, k))
+    route_d_ms = device_ms(lambda: K.row_scatter(gy, idx[..., None], None, k))
+    enqueue = host_ms(lambda: K.small_scatter(gy, idx, k))
+    lib_enqueue = host_ms(lambda: flat.zero_().scatter_add_(1, idx[..., None], gy))
+    rec = rows["K1-bwd-small"] = row.record()
+    print_times("", row.ms, row.plain_ms, row.library_ms, extra=(
+        f" (device {d_ms:.4f}, bound {rec['bound_ms']:.4f}, bound/device "
+        f"{rec['bound_ms'] / d_ms:.1%}; host enqueue {enqueue:.4f} per call, the library "
+        f"call's {lib_enqueue:.4f}; the K1-bwd-rows route {route_ms:.4f}, device "
+        f"{route_d_ms:.4f})"))
+    # the same rays with each ray's ids shuffled: unsorted, hot rows in runs
+    perm = torch.argsort(torch.rand((rays, 2 * s0), generator=g, device=dev), dim=1)
+    idx = torch.gather(idx, 1, perm)
+    idx[:, : s0 // 2] = k // 2
+    got = K.small_scatter(gy, idx, k)
+    bits = bool(torch.equal(got.cpu(), K.small_scatter_plain(gy.cpu(), idx.cpu(), k)))
+    print(f"K1-bwd-small, the ids shuffled and a quarter on one row: bit for bit the plain "
+          f"version on the CPU={bits}")
+    check(bits, "K1-bwd-small on unsorted ids disagrees with its plain version")
+    return rows
 
 
 def max_pool_backward_checks(dev, g):
@@ -2022,7 +2135,8 @@ def warned_ops(fn) -> list:
 
 def determinism_report(dev, runs=3, torch_deterministic=False):
     """`--determinism`: for phase 5's stage-1 steps (epipolar, exact,
-    pallas_fused) and phase 10's transformer model, the three steps of the
+    pallas_fused) and phase 10's transformer model and JAX defaults
+    (float32), the three steps of the
     captured-vs-eager check run eagerly: the ops that warn under
     torch.use_deterministic_algorithms(True, warn_only=True), the ops with
     atomic sums that a step runs (ops_with_atomics), the tensors in which
@@ -2042,13 +2156,16 @@ def determinism_report(dev, runs=3, torch_deterministic=False):
               f"fill_uninitialized_memory="
               f"{torch.utils.deterministic.fill_uninitialized_memory}")
 
+    from neural_jacobian_field_torch.models.model import make_model_cfg
     from neural_jacobian_field_torch.training import step_randomness
 
     cases = [("train epipolar", "epipolar", "pallas", None),
              ("train exact", "exact", "pallas", None),
              ("train fused", "epipolar", "pallas_fused", None),
              ("transformer train", "epipolar", "pallas",
-              Variant("transformer", yaml_model_cfg(*TRANSFORMER_OVERRIDES)))]
+              Variant("transformer", yaml_model_cfg(*TRANSFORMER_OVERRIDES))),
+             ("defaults train", "exact", "pallas",
+              Variant("defaults", make_model_cfg(), dtype=None))]
     failed, timings = [], {}
     for label, mode, conv_impl, variant in cases:
         model, state, batch, g = train_setup(dev, mode, conv_impl, variant)
@@ -2267,21 +2384,22 @@ def stage1_counts(mode, conv="K9-fwd", trunks=True):
     both on an update step, of the NeRF density alone on a frozen one.
     K1-bwd-rows, the fixed-order backward of the packed-row gathers (the
     three knot levels once per step in epipolar mode; fine and mid per
-    density in exact mode), of layer1's upsampling to the fine level and,
-    on an update step, of the interlevel loss's gather."""
+    density in exact mode); K1-bwd-upsample, of layer1's upsampling to the
+    fine level; on an update step K1-bwd-small, of the interlevel loss's
+    per-ray gather."""
     want = {}
     for kind, n_bwd in (("update", 2), ("frozen", 1)):
         c = {"K5": 1}
         if conv:
             c.update({conv: 24, "K9-dgrad": 24, "K9-wgrad": 24})
-        loss = int(kind == "update")
+        c.update({"K1-bwd-upsample": 1, "K1-bwd-small": int(kind == "update")})
         if mode == "epipolar":
-            c.update({"K6-fwd": 3, "K6-bwd": 3, "K1-bwd-rows": 3 + 1 + loss})
+            c.update({"K6-fwd": 3, "K6-bwd": 3, "K1-bwd-rows": 3})
             if trunks:
                 c.update({"K7-tz-fwd": 2, "K7-tz-bwd": n_bwd})
         else:
             c.update({"K6-fwd": 2, "K6-bwd": 2, "K1-fwd": 2, "K1-bwd": n_bwd,
-                      "K1-bwd-rows": 2 * n_bwd + 1 + loss})
+                      "K1-bwd-rows": 2 * n_bwd})
             if trunks:
                 c.update({"K7-fwd": 2, "K7-bwd": n_bwd})
         want[kind] = all_zero_but(c)
@@ -2843,7 +2961,7 @@ def cli_freezing_gate(label, model, stage1):
 # the kernels each CLI stage's steps run at the flagship configuration:
 # stage 2 trains the Jacobian head alone, so no encoder or packing backward
 CLI_STAGE1_KERNELS = ("K9-fwd", "K9-dgrad", "K9-wgrad", "K6-fwd", "K6-bwd", "K5", "K7-tz-fwd",
-                      "K7-tz-bwd", "K1-bwd-rows")
+                      "K7-tz-bwd", "K1-bwd-rows", "K1-bwd-upsample", "K1-bwd-small")
 CLI_STAGE2_KERNELS = ("K9-fwd", "K6-fwd", "K5", "K7-tz-fwd", "K7-tz-bwd")
 
 
@@ -4238,14 +4356,16 @@ def profile_train(dev, mode, top=15):
         # the stride-1 conv kernels (K9-fwd / K10, K9-dgrad, K9-wgrad) and
         # their ordered-sum passes; the K7 trunk kernels (forward, the
         # backward's gradient chain, weight-gradient pass and ordered sums,
-        # or the legacy ones); K1-bwd's stages; K5
+        # or the legacy ones); K1-bwd's stages, K1-bwd-upsample and
+        # K1-bwd-small; K5
         for label, rx in (
                 ("conv", r"(conv3x3_(tma|legacy)_kernel|wgrad_(tma|legacy)_kernel|"
                          r"stats_sum_kernel|sum_splits_kernel)(<[^>]*>)?"),
                 ("K7", r"(field_mlp_(wg|fwd|bwd_chain|bwd|dw|dwz)_kernel|"
                        r"reduce_(bwd|partials|splits)_kernel)(<[^>]*>)?"),
                 ("K1-bwd", r"(bucket_(count|scan|place)_kernel|segment_sum_kernel|"
-                           r"merge_parts_kernel)(<[^>]*>)?"),
+                           r"merge_parts_kernel|upsample_bwd_kernel|small_scatter_kernel)"
+                           r"(<[^>]*>)?"),
                 ("K5", r"pdf_resample_kernel")):
             group = collections.defaultdict(lambda: [0.0, 0])
             for name, (us, n) in by_name.items():

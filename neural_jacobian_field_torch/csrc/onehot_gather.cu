@@ -38,18 +38,19 @@
 // The same scatter, generalised, is the fixed-order backward of the port's
 // other gathers (njf_row_scatter, ops/kernels/onehot_gather.row_scatter):
 // Q entries per point (Q = 1: a row gather, whose gradient rows arrive
-// already weighted; Q = 4: the bilinear corners of an upsampling), rows of
-// any width, the weights optional (unit: the row is added as it is). It
-// replaces torch.gather's backward (scatter_add_, whose CUDA sums are atomic
-// and change their order from run to run) in the pyramid's packed-row
-// gathers, the concat layout's and RAFT's bilinear lookups and the
-// interlevel loss's per-ray gathers, and the backward of the encoder's
-// bilinear upsampling (upsample_bilinear2d_backward, atomic too): so a
-// train step repeats bit for bit, as the JAX step does on the CPU or the
-// TPU. Its output is in g's type (a bf16 gather's gradient is bf16: the
-// float32 sums are rounded once, as they are written). A table that every
-// image shares (the upsampling's corners) is passed once and sorted once.
-// Bound and design as K1-bwd's: the bytes of g, idx, w and out.
+// already weighted; Q = 4: bilinear corners), rows of any width, the
+// weights optional (unit: the row is added as it is). It replaces
+// torch.gather's backward (scatter_add_, whose CUDA sums are atomic and
+// change their order from run to run) in the pyramid's packed-row gathers,
+// the epipolar knots and the concat layout's bilinear lookups: so a train
+// step repeats bit for bit, as the JAX step does on the CPU or the TPU.
+// Its output is in g's type (a bf16 gather's gradient is bf16: the float32
+// sums are rounded once, as they are written). A table that every image
+// shares is passed once and sorted once. Bound and design as K1-bwd's: the
+// bytes of g, idx, w and out. Two small uses have kernels of their own,
+// built for their shapes: the interlevel loss's per-ray rows
+// (csrc/small_scatter.cu, where onehot_gather.small_plan admits the shape)
+// and the encoder's bilinear upsampling (csrc/upsample_bwd.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -6,8 +6,9 @@ launches in a plain integer attribute `launches` (the K9 and K7 wrappers
 also those of their legacy kernel in `legacy_launches`). The differentiable entry
 points (`conv_s1`, `conv_s1_stats`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
 `fused_resnet_fc_train_tz`, `ops/pixel_gather.gather_bilinear_onehot`, and
-`ops/deterministic.gather_rows` / `upsample_bilinear` over K1-bwd-rows) are
-autograd.Functions over these wrappers.
+`ops/deterministic.gather_rows` over K1-bwd-small or K1-bwd-rows, and
+`upsample_bilinear` over K1-bwd-upsample) are autograd.Functions over these
+wrappers.
 """
 
 from .conv_suite import (
@@ -19,11 +20,12 @@ from .field_mlp import (
     fused_resnet_fc_tz_bwd, fused_resnet_fc_tz_bwd_plain, fused_resnet_fc_tz_plain)
 from .onehot_gather import (
     onehot_gather_fwd, onehot_gather_fwd_plain, onehot_scatter_bwd, onehot_scatter_bwd_plain,
-    row_scatter, row_scatter_plain)
+    row_scatter, row_scatter_plain, small_plan, small_scatter, small_scatter_plain)
 from .pack2x2 import (
     pack_2x2_flat, pack_2x2_flat_bwd, pack_2x2_flat_bwd_plain, pack_2x2_flat_plain,
     pack_2x2_flat_train)
 from .pdf_resample import fused_sample_pdf, fused_sample_pdf_plain
+from .upsample_bwd import upsample_bilinear_bwd, upsample_bilinear_bwd_plain
 
 _TPU = "neural_jacobian_field_tpu/ops/pallas/"
 _CSRC = "neural_jacobian_field_torch/csrc/"
@@ -57,11 +59,21 @@ KERNELS = {
     "K1-bwd": (onehot_scatter_bwd, onehot_scatter_bwd_plain, _CSRC + "onehot_gather.cu",
                _TPU + "onehot_gather.py:119"),
     # K1-bwd's kernel generalised (Q entries per point, any width, unit
-    # weights): the fixed-order backward of the other gathers and of the
-    # encoder's upsampling (ops/deterministic.py), where JAX runs XLA's
+    # weights): the fixed-order backward of the pyramid's, the knots' and
+    # the lookups' row gathers (ops/deterministic.py), where JAX runs XLA's
     # scatter-add
     "K1-bwd-rows": (row_scatter, row_scatter_plain, _CSRC + "onehot_gather.cu",
                     _TPU + "onehot_gather.py:119"),
+    # no Pallas site: the fixed-order backwards of what JAX leaves to XLA's
+    # autodiff, jax.image.resize "linear" (the encoder's upsampling) and the
+    # interlevel loss's one-hot take in outer_measure
+    "K1-bwd-upsample": (upsample_bilinear_bwd, upsample_bilinear_bwd_plain,
+                        _CSRC + "upsample_bwd.cu",
+                        "none (XLA autodiff of jax.image.resize, "
+                        "neural_jacobian_field_tpu/models/encoder_resnet.py:289)"),
+    "K1-bwd-small": (small_scatter, small_scatter_plain, _CSRC + "small_scatter.cu",
+                     "none (XLA autodiff of outer_measure's one-hot take, "
+                     "neural_jacobian_field_tpu/ops/losses.py:20)"),
 }
 
 

@@ -62,6 +62,8 @@ _SIGNATURES = {
                                _P),
     "njf_row_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P),
+    "njf_small_scatter": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "njf_upsample_bwd": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -17,14 +17,19 @@ stages and the scratch): no floating-point atomics, so it repeats bit for
 bit, and no limit on K but int32 entry ids. The differentiable entry point is
 `ops/pixel_gather.gather_bilinear_onehot`.
 
-`row_scatter` is the same scatter generalised (njf_row_scatter): Q entries
-per point (1 for a row gather, 4 for bilinear corners), rows of any width,
-weights optional, one table of ids for every image or one each, the output
-in g's dtype. It is the fixed-order backward of the port's other
-gathers and of the encoder's bilinear upsampling
-(`ops/pixel_gather.gather_rows`, `upsample_bilinear`), which would otherwise
-sum with atomics (scatter_add_, upsample_bilinear2d_backward) and differ
-from run to run on the card.
+`row_scatter` is the same scatter generalised (njf_row_scatter, K1-bwd-rows):
+Q entries per point (1 for a row gather, 4 for bilinear corners), rows of
+any width, weights optional, one table of ids for every image or one each,
+the output in g's dtype. It is the fixed-order backward of the port's row
+gathers (`ops/deterministic.gather_rows`: the pyramid's packed rows, the
+epipolar knots, the concat layout's lookups), which would otherwise sum
+with atomics (scatter_add_) and differ from run to run on the card.
+`small_scatter` (njf_small_scatter, K1-bwd-small, csrc/small_scatter.cu) is
+the same function with one entry a point and unit weights for images that
+fit a thread block, sorted and summed there in one launch: `small_plan`
+admits the shapes (the interlevel loss's per-ray rows), and gather_rows's
+backward takes it there and `row_scatter` elsewhere. The encoder's
+upsampling has its own backward (`upsample_bwd`, K1-bwd-upsample).
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes the plain version.
@@ -250,6 +255,65 @@ def row_scatter(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Tensor:
                     lambda: row_scatter_plain(g, idx, w, k))
 
 
+SMALL_ENTRIES = 4096     # entries per image: 16-bit list positions, a short walk
+SMALL_MAP = 12288        # k x c per image: a float32 map of 48 KB at most
+SMALL_SMEM = 48 * 1024   # the kernel's dynamic shared memory, without an opt-in
+
+
+@functools.lru_cache(maxsize=256)
+def small_plan(n: int, k: int, c: int) -> int | None:
+    """K1-bwd-small's dynamic shared memory in bytes (csrc/small_scatter.cu,
+    one block an image: ids and row ends int32, the sorted list uint16) for
+    images of n entries onto k rows of c channels, or None where the shape
+    is not its: more than SMALL_ENTRIES entries, a k x c map above
+    SMALL_MAP, or shared memory above SMALL_SMEM. A row gather's backward
+    takes K1-bwd-small where this admits its shape, and K1-bwd-rows's
+    counting sort elsewhere."""
+    if min(n, k, c) <= 0 or n > SMALL_ENTRIES or k * c > SMALL_MAP:
+        return None
+    smem = -(-(6 * n + 4 * k) // 16) * 16
+    return smem if smem <= SMALL_SMEM else None
+
+
+def small_scatter_plain(g: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """g [B, N, C], idx [B, N] row ids in [0, k) -> [B, K, C] in g's dtype:
+    row_scatter_plain with one entry a point and unit weights (each row's
+    entries summed in point order from 0, in float32, rounded once)."""
+    return row_scatter_plain(g, idx[..., None], None, k)
+
+
+def _small_scatter_cuda(g, idx, k):
+    if g.dim() != 3 or tuple(idx.shape) != tuple(g.shape[:2]):
+        raise ValueError(f"small_scatter: expected g [B, N, C] and idx [B, N], got "
+                         f"{tuple(g.shape)}, {tuple(idx.shape)}")
+    g = g.contiguous()
+    b, n, c = g.shape
+    is_f32 = _dtype_flag("small_scatter g", g)
+    check_cuda_tensor(g, "small_scatter g", g.dtype, 3)
+    if b == 0 or n == 0 or c == 0:
+        return torch.zeros((b, k, c), dtype=g.dtype, device=g.device)
+    smem = small_plan(n, k, c)
+    if smem is None:
+        raise ValueError(f"small_scatter: n {n}, k {k}, c {c} is not a shape of small_plan's")
+    idx = idx.to(torch.int64).contiguous()
+    check_cuda_tensor(idx, "small_scatter idx", torch.int64, 2)
+    out = torch.empty((b, k, c), dtype=g.dtype, device=g.device)
+    lib = load_kernels()
+    with _on_device(g):
+        small_scatter.launches += 1
+        lib.call("njf_small_scatter", g.data_ptr(), idx.data_ptr(), out.data_ptr(), b, k, c, n,
+                 smem, is_f32, stream_of(g))
+    return out
+
+
+def small_scatter(g: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """K1-bwd-small's wrapper (same signature as small_scatter_plain; bf16
+    or float32 g on the card, shapes that small_plan admits)."""
+    return dispatch("small_scatter", g, lambda: _small_scatter_cuda(g, idx, k),
+                    lambda: small_scatter_plain(g, idx, k))
+
+
 onehot_gather_fwd.launches = 0
 onehot_scatter_bwd.launches = 0
 row_scatter.launches = 0
+small_scatter.launches = 0

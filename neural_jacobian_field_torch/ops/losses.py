@@ -5,9 +5,10 @@ normalized spacing bins (sdist in [0, 1]) and per-sample weights.
 The functions are ported, not the TPU workarounds: the interlevel outer
 measure uses torch.searchsorted and a row gather where the JAX package uses
 a one-hot compare-reduce; distortion is the O(S) cumsum form, as there. The
-gather's backward sums in a fixed order (`ops/deterministic.gather_rows`,
-the generalised K1-bwd scatter: each ray an image of S + 1 one-wide rows),
-so that a step repeats bit for bit, as the one-hot reduce does.
+gather's backward sums in a fixed order (`ops/deterministic.gather_rows`:
+each ray an image of S + 1 one-wide rows, which K1-bwd-small sorts and sums
+in one thread block), so that a step repeats bit for bit, as the one-hot
+reduce does.
 """
 
 import torch

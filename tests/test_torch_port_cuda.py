@@ -585,6 +585,62 @@ def test_k1_bwd_is_its_emulation(dev, b, n, hc, wc, c, dtype, hot):
     assert torch.equal(got.cpu(), k1_emulate(gy.cpu(), idx.cpu(), w4.cpu(), hc * wc, plan))
 
 
+@pytest.mark.parametrize("b,hi,wi,ho,wo,c,dtype", [
+    (2, 30, 40, 60, 80, 64, torch.bfloat16),   # 2x, 32 bytes a thread (4 lanes a texel)
+    (2, 15, 20, 60, 80, 128, torch.float32),   # 4x, 16 bytes a thread
+    (1, 6, 8, 48, 64, 256, torch.float32),     # 8x, a tile of 2x2 texels
+    (3, 5, 4, 12, 11, 12, torch.bfloat16),     # a ratio that is not an integer, 12 channels
+    (2, 7, 9, 5, 4, 6, torch.float32),         # a downscale, 6 channels
+])
+def test_upsample_bwd_is_its_plain_version(dev, b, hi, wi, ho, wo, c, dtype):
+    """K1-bwd-upsample bit for bit its plain version on the CPU (the corner
+    table scattered in entry order), the vector and the scalar paths, NaN
+    where the plain version has it, two calls bit-identical; the
+    autograd.Function's gradient the kernel's."""
+    from neural_jacobian_field_torch.ops.deterministic import upsample_bilinear
+
+    g = torch.randn((b, ho, wo, c), generator=_gen(21), device=dev).to(dtype)
+    g[0, ho - 1, 0, 1] = float("nan")
+    got = K.upsample_bilinear_bwd(g, (hi, wi))
+    want = K.upsample_bilinear_bwd_plain(g.cpu(), (hi, wi))
+    assert got.dtype == dtype and got.shape == (b, hi, wi, c)
+    assert torch.equal(got.isnan().cpu(), want.isnan())
+    assert torch.equal(got.cpu().nan_to_num(), want.nan_to_num())
+    assert torch.equal(K.upsample_bilinear_bwd(g, (hi, wi)).nan_to_num(), got.nan_to_num())
+    x = torch.zeros((b, hi, wi, c), dtype=dtype, device=dev, requires_grad=True)
+    (gx,) = torch.autograd.grad(upsample_bilinear(x, (ho, wo)), x, g)
+    assert torch.equal(gx.nan_to_num(), got.nan_to_num())
+
+
+@pytest.mark.parametrize("b,n,k,c,dtype,hot,sort", [
+    (1792, 512, 257, 1, torch.float32, 0, True),    # the interlevel loss
+    (64, 700, 37, 1, torch.bfloat16, 300, False),   # unsorted, a hot row
+    (16, 300, 60, 40, torch.float32, 90, False),    # rows wider than a warp
+    (8, 4096, 3, 4096, torch.bfloat16, 0, False),   # the plan's longest image, a 48 KB map
+])
+def test_small_scatter_is_its_plain_version(dev, b, n, k, c, dtype, hot, sort):
+    """K1-bwd-small bit for bit its plain version on the CPU, two calls
+    bit-identical; gather_rows's backward launches it where small_plan
+    admits the shape."""
+    from neural_jacobian_field_torch.ops.deterministic import gather_rows
+
+    gen = _gen(22)
+    idx = torch.randint(0, k, (b, n), generator=gen, device=dev)
+    idx[:, :hot] = k // 2
+    if sort:
+        idx = idx.sort(dim=1).values
+    g = torch.randn((b, n, c), generator=gen, device=dev).to(dtype)
+    assert K.small_plan(n, k, c) is not None
+    got = K.small_scatter(g, idx, k)
+    assert got.dtype == dtype and got.shape == (b, k, c)
+    assert torch.equal(got.cpu(), K.small_scatter_plain(g.cpu(), idx.cpu(), k))
+    assert torch.equal(K.small_scatter(g, idx, k), got)
+    flat = torch.zeros((b, k, c), dtype=dtype, device=dev, requires_grad=True)
+    n0 = K.small_scatter.launches
+    (gf,) = torch.autograd.grad(gather_rows(flat, idx), flat, g)
+    assert K.small_scatter.launches == n0 + 1 and torch.equal(gf, got)
+
+
 def test_stage2_step_on_the_card_freezes_all_but_the_head(dev):
     """Two stage-2 steps of a small pallas_fused bf16 model with flow
     supervision: K10 runs 24 times per step and no encoder backward kernel
