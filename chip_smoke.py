@@ -44,9 +44,12 @@ K7 trunks that project the latent themselves):
      K1-bwd-rows, K1-bwd's scatter generalised (the fixed-order backward of
      the packed-row, knot and lookup gathers), at the exact mode's
      fine-level gather (7 x 65,536 rows of 512 bf16 onto 240x320, bf16
-     out) and, on lines of their own, the pyramid's 2x upsampling (Q = 4
-     weighted corners, one table) and the interlevel loss (float32, 1,792
-     rays of 257 one-wide rows), each twice for identical bits, the last
+     out) and, on lines of their own, the ids one eager flagship step and
+     one e2e step hand it (exact fine and mid, knots fine, mid and coarse,
+     the e2e lookups), each beside its previous design, timed in turns,
+     the pyramid's 2x upsampling (Q = 4 weighted corners, one table) and
+     the interlevel loss (float32, 1,792 rays of 257 one-wide rows), each
+     twice for identical bits, the last
      two the routes that K1-bwd-upsample and K1-bwd-small took over; those
      two bit for bit against their plain versions on the CPU and twice for
      identical bits, with the library call and the K1-bwd-rows route timed
@@ -264,6 +267,10 @@ K7_BWD_PASSES = {"chain": r"field_mlp_bwd_chain_kernel", "weight gradients": r"f
 K1_BWD_STAGES = {"count": r"bucket_count_kernel", "scan": r"bucket_scan_kernel",
                  "place": r"bucket_place_kernel", "piece sums": r"segment_sum_kernel",
                  "merge": r"merge_parts_kernel"}
+# K1-bwd-rows' kernels by name: each tile's entries sorted by texel block,
+# each block's by texel, then each (texel block, image, slab) summed
+K1_BWD_ROWS_STAGES = {"bucket": r"rows_bucket_kernel", "block sort": r"rows_sort_kernel",
+                      "block sums": r"rows_sum_kernel"}
 
 
 class PhaseError(RuntimeError):
@@ -1171,23 +1178,194 @@ def rounded_err(got, ref) -> float:
     return float(excess.max() / ref.abs().max().clamp_min(1e-30))
 
 
+def record_row_scatter(fn):
+    """Run fn() with gather_rows's backward recording what it hands
+    K1-bwd-rows: -> [(idx [B, n, 1] on the card, k, c, g's dtype)] in call
+    order."""
+    from neural_jacobian_field_torch.ops import deterministic
+
+    calls, k1 = [], deterministic.k1
+
+    class Recording:  # the kernels' module as gather_rows's backward sees it
+        def __getattr__(self, name):
+            return getattr(k1, name)
+
+        def row_scatter(self, g, idx, w, k):
+            calls.append((idx.detach().clone(), k, g.shape[-1], g.dtype))
+            return k1.row_scatter(g, idx, w, k)
+
+    deterministic.k1 = Recording()
+    try:
+        fn()
+    finally:
+        deterministic.k1 = k1
+    return calls
+
+
+def e2e_lookup_ids(dev):
+    """The ids of the e2e drive's bilinear lookups (the concat layout's map,
+    neural_jacobian_field_torch.verify_e2e's configuration and synthetic
+    scene, float32), recorded from one eager stage-1 update step of its
+    first batch: (idx, k, c, dtype) of the first K1-bwd-rows call. The
+    datasets draw their frame pairs from `random` and `np.random`, seeded
+    first, as the drive seeds them."""
+    import random
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from neural_jacobian_field_torch.config import (CONFIG_DIR, get_typed_root_config,
+                                                    load_config)
+    from neural_jacobian_field_torch.data import collate, get_dataset, make_synthetic_scene
+    from neural_jacobian_field_torch.parallel import to_device
+    from neural_jacobian_field_torch.training import TrainCfg, create_train_state, train_step
+    from neural_jacobian_field_torch.verify_e2e import OVERRIDES
+
+    random.seed(0)
+    np.random.seed(0)
+    with tempfile.TemporaryDirectory(prefix="njf_e2e_") as root:
+        make_synthetic_scene(root, num_cameras=3, num_trajs=3, frames_per_traj=4, height=48,
+                             width=64, action_dim=4)
+        cfg = get_typed_root_config(load_config(CONFIG_DIR, [f"dataset.root={root}",
+                                                             *OVERRIDES]))
+        ds = get_dataset(replace(cfg.dataset, mode="perception"), "train")
+        batch = to_device(collate([ds[i] for i in range(4)]), dev)
+    model = new_model(dev, cfg.model, 0, dtype=None)
+    state = create_train_state(model, TrainCfg(mode="perception", rays_per_batch=128,
+                                               warm_up_steps=100, lr=5e-4))
+    calls = record_row_scatter(lambda: train_step(
+        state, batch, torch.Generator(device=dev).manual_seed(0), True))
+    check(len(calls) > 0, "e2e: the step made no K1-bwd-rows call")
+    return calls[0]
+
+
+def recorded_row_ids(dev):
+    """The ids K1-bwd-rows takes in one eager flagship stage-1 update step on
+    the synthetic batch (train_batch, the step's own draws), recorded where
+    gather_rows's backward calls it: {label: (idx [7, n, 1] on the card, k,
+    c, dtype)} for the exact mode's fine and mid levels (the first call at
+    each, one density's samples) and the epipolar knots' fine, mid and
+    coarse levels; then the e2e drive's lookups (e2e_lookup_ids)."""
+    import torch
+
+    from neural_jacobian_field_torch.training import train_step
+
+    out = {}
+    fine, mid, coarse = (H // 2) * (W // 2), (H // 8) * (W // 8), (H // 16) * (W // 16)
+    for mode, labels in (("exact", {fine: "exact fine", mid: "exact mid"}),
+                         ("epipolar", {fine: "knots fine", mid: "knots mid",
+                                       coarse: "knots coarse"})):
+        model, state = new_train_state(dev, mode)
+        calls = record_row_scatter(lambda: train_step(
+            state, train_batch(dev), torch.Generator(device=dev).manual_seed(SEED + 3), True))
+        torch.cuda.synchronize()
+        for call in calls:
+            label = labels.get(call[1])
+            if label and label not in out:
+                out[label] = call
+        check(set(out) >= set(labels.values()), f"{mode}: K1-bwd-rows calls recorded at "
+              f"{sorted({c[1] for c in calls})} rows, not the levels {sorted(labels)}")
+        del model, state, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["e2e lookups"] = e2e_lookup_ids(dev)
+    return out
+
+
+def mean_split(a, b):
+    """The mean of two (device ms, {stage: ms}) readings of device_ms."""
+    return (a[0] + b[0]) / 2, {name: (a[1][name] + b[1][name]) / 2 for name in a[1]}
+
+
+def rows_line(label, gy, idx, w, k, lib_ms=None):
+    """One K1-bwd-rows line: the kernel against its plain version on the
+    card (1e-4 of scale: float32 sums reordered; for bf16 g beyond bf16's
+    rounding of the sums) and, on every row whose entries it does not cut
+    into pieces, bit for bit the plain version run on the CPU; two calls
+    bit-identical; the ids' shape (entries per row and per texel block, rows
+    cut, rows untouched); wrapper, device (per kernel), plain and library
+    ms, the bound, and the previous design's device ms (per kernel) in this
+    run, the two designs' device times each the mean of two readings taken
+    in turns. -> the table row's record."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+
+    b, n, c = gy.shape
+    q, shared = idx.shape[-1], idx.shape[0] == 1 and b > 1
+    got, again = K.row_scatter(gy, idx, w, k), K.row_scatter(gy, idx, w, k)
+    rw = None if w is None else w.to(gy.dtype).float()
+    want = K.row_scatter_plain(gy.float(), idx, rw, k)
+    bf16 = gy.dtype == torch.bfloat16
+    err, same = (rounded_err if bf16 else rel_err)(got, want), bool(torch.equal(got, again))
+    plan = K.onehot_gather.rows_plan(b, n, k, c, torch.cuda.get_device_properties(
+        gy.device).multi_processor_count, q, shared)
+    counts = torch.bincount((idx.expand(b, -1, -1).reshape(b, -1) + k * torch.arange(
+        b, device=idx.device)[:, None]).reshape(-1), minlength=b * k).view(b, k)
+    whole = (counts <= plan.piece).cpu()
+    cpu = K.row_scatter_plain(gy.cpu(), idx.cpu(), None if w is None else w.cpu(), k)
+    bits = bool(torch.equal(got.cpu()[whole], cpu[whole]))
+    tb = 1 << plan.log_tb
+    blocks = torch.nn.functional.pad(counts, (0, plan.blocks * tb - k)).view(
+        b, plan.blocks, tb).sum(-1).float()
+    print(f"K1-bwd-rows {label}: {b}x{n}x{c} {str(gy.dtype)[6:]} onto {k} rows (Q {q}"
+          f"{', weights' if w is not None else ''}{', one table' if shared else ''}): "
+          f"max_abs_err {float((got.float() - want).abs().max()):.3e}, "
+          f"{'beyond bf16 rounding ' if bf16 else ''}{err:.3e} of scale (tol 1e-4 of scale: "
+          f"float32 sums reordered{', then rounded' if bf16 else ''}); bit "
+          f"for bit the plain version on the CPU on the {int(whole.sum())} of {b * k} rows not "
+          f"cut={bits}; two calls bit-identical={same}; entries per row max "
+          f"{int(counts.max())}, {int((~whole).sum())} rows cut into pieces (> {plan.piece}), "
+          f"untouched {float((counts == 0).float().mean()):.1%}; per block of {tb} rows max "
+          f"{int(blocks.max())} mean {float(blocks.mean()):.1f}")
+    check(got.dtype == gy.dtype and err <= 1e-4 and same and bits,
+          f"K1-bwd-rows {label} disagrees with its plain version or does not repeat")
+    row = Row()
+    row.add(float((got.float() - want).abs().max()), cuda_time_ms(lambda: K.row_scatter(
+        gy, idx, w, k)), cuda_time_ms(lambda: K.row_scatter_plain(gy, idx, w, k)),
+        nbytes(gy, idx, got) + (0 if w is None else nbytes(w)), library_ms=lib_ms)
+    # the two designs in turns (this, previous, previous, this): a call of a
+    # few µs reads the card's state as much as the kernel's
+    new, prev = ((lambda: K.row_scatter(gy, idx, w, k)), K1_BWD_ROWS_STAGES), (
+        (lambda: K.onehot_gather.row_scatter_csr(gy, idx, w, k)), K1_BWD_STAGES)
+    runs = [device_ms(fn, groups=groups) for fn, groups in (new, prev, prev, new)]
+    d_ms, stages = mean_split(runs[0], runs[3])
+    p_ms, p_stages = mean_split(runs[1], runs[2])
+    rec = row.record()
+    print("  stages (device ms per call): " + ", ".join(
+        f"{name} {ms:.4f}" for name, ms in stages.items()) + f"; the previous design (K1-bwd's "
+        f"counting sort, njf_row_scatter_csr): device {p_ms:.4f} (" + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in p_stages.items()) + ")")
+    print_times("", row.ms, row.plain_ms, row.library_ms, extra=(
+        f" (device {d_ms:.4f}, bound {rec['bound_ms']:.4f}, bound/device "
+        f"{rec['bound_ms'] / d_ms:.1%}; device / previous design's {d_ms / p_ms:.1%})"))
+    del got, again, want, cpu
+    return rec
+
+
 def row_scatter_checks(dev):
-    """K1-bwd-rows, the generalised scatter (the fixed-order backward of
-    the port's gathers and upsampling), on three lines, each against its
-    plain version (index_add_ in float32) and twice for identical bits: the
-    exact mode's fine level, a train step's per-sample gather of 7 x 65,536
-    packed rows (4 x 128 bf16) from a 240x320 map (Q = 1, unit weights, the
-    output bf16 as the gather's gradient is; the library call torch.gather's
-    backward, scatter_add_ in bf16; the kernel table's row); the pyramid's
-    2x upsampling of layer1 (Q = 4 corners with their weights, one table for
-    the 7 images of 240x320 pixels of 64 bf16 channels onto 120x160); the
-    interlevel loss's outer measure (float32, each of the 7 x 256 rays an
-    image of 257 one-wide rows, 512 sorted ids a ray). Then PyTorch's
+    """K1-bwd-rows, the fixed-order backward of the port's row gathers, on
+    lines of its own (rows_line: against its plain version on the card and,
+    on the rows it does not cut, bit for bit on the CPU; twice for identical
+    bits; times beside its bound and the previous design's): the exact
+    mode's fine level, 7 x 65,536 packed rows (4 x 128 bf16) onto 240x320
+    with ids spread uniformly (the kernel table's row; the library call
+    torch.gather's backward, scatter_add_ in bf16); then the ids one eager
+    flagship update step gives it (recorded_row_ids), random g at each: the
+    exact mode's fine and mid levels, the epipolar knots' fine, mid and
+    coarse levels, and the e2e drive's bilinear lookups (float32, the
+    concat layout's map; e2e_lookup_ids); the 2x upsampling of layer1 as
+    Q = 4 corners with their weights on one table (7 images of 240x320 x
+    64 bf16 onto 120x160; the route K1-bwd-upsample replaced); the
+    interlevel loss's outer measure
+    (float32, each of the 7 x 256 rays an image of 257 one-wide rows, 512
+    sorted ids a ray; the route K1-bwd-small replaced). Then PyTorch's
     max_pool2d backward, which the step keeps, twice at the stem's shape and
     at the 2D UNet's, on tied inputs, for identical bits."""
     import torch
 
-    from neural_jacobian_field_torch.ops import kernels as K
     from neural_jacobian_field_torch.ops.kernels.upsample_bwd import _upsample_corners
 
     g = torch.Generator(device=dev).manual_seed(SEED + 15)
@@ -1195,82 +1373,38 @@ def row_scatter_checks(dev):
     gy = torch.randn((b, n, c), generator=g, device=dev).to(torch.bfloat16)
     # rows spread over the map
     idx = (torch.rand((b, n, 1), generator=g, device=dev) * (hf - 1) * (wf - 1)).long()
-    got = K.row_scatter(gy, idx, None, hf * wf)
-    want = K.row_scatter_plain(gy.float(), idx, None, hf * wf)
-    again = K.row_scatter(gy, idx, None, hf * wf)
-    err, same = rounded_err(got, want), bool(torch.equal(got, again))
-    print(f"K1-bwd-rows {b}x{n}x{c} onto {hf}x{wf} rows (Q 1, unit weights, bf16 out): "
-          f"max_abs_err {float((got.float() - want).abs().max()):.3e} beyond bf16 rounding "
-          f"{err:.3e} of scale (tol 1e-4 of scale: float32 sums reordered, then rounded to "
-          f"bf16); two calls bit-identical={same}")
-    check(got.dtype == torch.bfloat16 and err <= 1e-4 and same,
-          "K1-bwd-rows disagrees with its plain version or does not repeat")
     scatter = torch.zeros((b, hf * wf, c), dtype=torch.bfloat16, device=dev)
     ix = idx.expand(-1, -1, c)
-    row = Row()
-    row.add(float((got.float() - want).abs().max()),
-            cuda_time_ms(lambda: K.row_scatter(gy, idx, None, hf * wf)),
-            cuda_time_ms(lambda: K.row_scatter_plain(gy, idx, None, hf * wf)),
-            nbytes(gy, idx, got),
-            library_ms=cuda_time_ms(lambda: scatter.zero_().scatter_add_(1, ix, gy)))
-    d_ms, stages = device_ms(lambda: K.row_scatter(gy, idx, None, hf * wf),
-                             groups=K1_BWD_STAGES)
-    print("  K1-bwd-rows stages (device ms per call): " + ", ".join(
-        f"{label} {ms:.4f}" for label, ms in stages.items()))
-    rec = row.record()
-    print_times("", row.ms, row.plain_ms, row.library_ms, extra=f" (device {d_ms:.4f}, bound "
-                f"{rec['bound_ms']:.4f}, bound/device {rec['bound_ms'] / d_ms:.1%})")
-    del gy, idx, got, want, again, scatter, ix
+    rec = rows_line("exact fine, uniform ids", gy, idx, None, hf * wf, cuda_time_ms(
+        lambda: scatter.zero_().scatter_add_(1, ix, gy)))
+    del gy, idx, scatter, ix
+    for label, (idx, k, c, dtype) in recorded_row_ids(dev).items():
+        gy = torch.randn((*idx.shape[:2], c), generator=g, device=dev).to(dtype)
+        scatter = torch.zeros((idx.shape[0], k, c), dtype=dtype, device=dev)
+        ix = idx.expand(-1, -1, c)
+        rows_line(label + ", the step's ids", gy, idx, None, k, cuda_time_ms(
+            lambda: scatter.zero_().scatter_add_(1, ix, gy)))
+        del gy, idx, scatter, ix
+        torch.cuda.empty_cache()
     # the 2x upsampling's backward (Q = 4, weighted, one table)
     hi, wi, c = H // 4, W // 4, 64
     gy = torch.randn((b, hf * wf, c), generator=g, device=dev).to(torch.bfloat16)
     ids, w = (t[None] for t in _upsample_corners(hi, wi, hf, wf, torch.bfloat16, dev))
-    got = K.row_scatter(gy, ids, w, hi * wi)
-    want = K.row_scatter_plain(gy.float(), ids, w.to(torch.bfloat16), hi * wi)
-    again = K.row_scatter(gy, ids, w, hi * wi)
-    err, same = rounded_err(got, want), bool(torch.equal(got, again))
-    print(f"K1-bwd-rows {b}x{hf}x{wf}x{c} onto {hi}x{wi} (Q 4, bilinear weights, one table, "
-          f"bf16 out): max_abs_err {float((got.float() - want).abs().max()):.3e} beyond bf16 "
-          f"rounding {err:.3e} of scale (tol 1e-4 of scale); two calls bit-identical={same}")
-    check(got.dtype == torch.bfloat16 and err <= 1e-4 and same,
-          "K1-bwd-rows (Q 4) disagrees with its plain version or does not repeat")
     nchw = gy.reshape(b, hf, wf, c).permute(0, 3, 1, 2)
-    lib_ms = cuda_time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
-        nchw, [hf, wf], [b, c, hi, wi], False))
-    d_ms, stages = device_ms(lambda: K.row_scatter(gy, ids, w, hi * wi), groups=K1_BWD_STAGES)
-    print("  stages (device ms per call): " + ", ".join(
-        f"{label} {ms:.4f}" for label, ms in stages.items()))
-    bound = nbytes(gy, ids, w, got) / PEAK_BYTES_PER_S * 1e3
-    print_times("", cuda_time_ms(lambda: K.row_scatter(gy, ids, w, hi * wi)),
-                cuda_time_ms(lambda: K.row_scatter_plain(gy, ids, w, hi * wi)), lib_ms,
-                extra=f" (device {d_ms:.4f}, bound {bound:.4f}, bound/device {bound / d_ms:.1%})")
-    del gy, ids, w, got, want, again, nchw
+    rows_line("2x upsampling of layer1", gy, ids, w, hi * wi, cuda_time_ms(
+        lambda: torch.ops.aten.upsample_bilinear2d_backward(nchw, [hf, wf], [b, c, hi, wi],
+                                                            False)))
+    del gy, ids, w, nchw
     # the interlevel loss's outer measure: cy1[lo] and cy1[hi + 1] per ray
     rays, s0, k = TRAIN_B * TRAIN_RAYS, 256, 257
     gy = torch.randn((rays, 2 * s0, 1), generator=g, device=dev)
     lo = torch.randint(0, k - 1, (rays, s0), generator=g, device=dev).sort(dim=1).values
     hi_ = torch.randint(1, k, (rays, s0), generator=g, device=dev).sort(dim=1).values
     idx = torch.cat([lo, hi_], dim=1)[..., None]
-    got = K.row_scatter(gy, idx, None, k)
-    want = K.row_scatter_plain(gy, idx, None, k)
-    again = K.row_scatter(gy, idx, None, k)
-    err, same = rel_err(got, want), bool(torch.equal(got, again))
-    print(f"K1-bwd-rows {rays}x{2 * s0}x1 onto {k} rows a ray (Q 1, float32, the interlevel "
-          f"loss): max_abs_err {float((got - want).abs().max()):.3e} rel_to_scale {err:.3e} "
-          f"(tol 1e-4 of scale: float32 sums reordered); two calls bit-identical={same}")
-    check(got.dtype == torch.float32 and err <= 1e-4 and same,
-          "K1-bwd-rows (interlevel, float32) disagrees with its plain version or does not "
-          "repeat")
     flat = torch.zeros((rays, k, 1), device=dev)
-    d_ms, stages = device_ms(lambda: K.row_scatter(gy, idx, None, k), groups=K1_BWD_STAGES)
-    print("  stages (device ms per call): " + ", ".join(
-        f"{label} {ms:.4f}" for label, ms in stages.items()))
-    bound = nbytes(gy, idx, got) / PEAK_BYTES_PER_S * 1e3
-    print_times("", cuda_time_ms(lambda: K.row_scatter(gy, idx, None, k)),
-                cuda_time_ms(lambda: K.row_scatter_plain(gy, idx, None, k)),
-                cuda_time_ms(lambda: flat.zero_().scatter_add_(1, idx, gy)),
-                extra=f" (device {d_ms:.4f}, bound {bound:.4f}, bound/device {bound / d_ms:.1%})")
-    del gy, idx, got, want, again, flat
+    rows_line("interlevel loss", gy, idx, None, k, cuda_time_ms(
+        lambda: flat.zero_().scatter_add_(1, idx, gy)))
+    del gy, idx, flat
     max_pool_backward_checks(dev, g)
     return {"K1-bwd-rows": rec}
 
@@ -4357,7 +4491,8 @@ def profile_train(dev, mode, top=15):
         # their ordered-sum passes; the K7 trunk kernels (forward, the
         # backward's gradient chain, weight-gradient pass and ordered sums,
         # or the legacy ones); K1-bwd's stages, K1-bwd-upsample and
-        # K1-bwd-small; K5
+        # K1-bwd-small; K1-bwd-rows' bucket, block sort and block sums (the
+        # row gathers' backward, a group of its own); K5
         for label, rx in (
                 ("conv", r"(conv3x3_(tma|legacy)_kernel|wgrad_(tma|legacy)_kernel|"
                          r"stats_sum_kernel|sum_splits_kernel)(<[^>]*>)?"),
@@ -4366,6 +4501,7 @@ def profile_train(dev, mode, top=15):
                 ("K1-bwd", r"(bucket_(count|scan|place)_kernel|segment_sum_kernel|"
                            r"merge_parts_kernel|upsample_bwd_kernel|small_scatter_kernel)"
                            r"(<[^>]*>)?"),
+                ("K1-bwd-rows", r"rows_(bucket|sort|sum)_kernel(<[^>]*>)?"),
                 ("K5", r"pdf_resample_kernel")):
             group = collections.defaultdict(lambda: [0.0, 0])
             for name, (us, n) in by_name.items():

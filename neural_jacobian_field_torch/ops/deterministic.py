@@ -9,10 +9,14 @@ and a step's gradients differ in their last bits. Here:
     sums each row's entries in entry order: K1-bwd-small
     (`kernels.onehot_gather.small_scatter`: one block per image, sorted in
     shared memory; the interlevel loss's per-ray rows) where
-    `small_plan` admits the shape, else the generalised K1-bwd scatter
-    (`row_scatter`, Q = 1, unit weights: a counting sort for the pyramid's
-    packed rows, the knots and the lookups); both looked up in their
-    module at each call, as chip_smoke's plain_kernels swaps them;
+    `small_plan` admits the shape, else K1-bwd-rows (`row_scatter`, Q = 1,
+    unit weights, for the pyramid's packed rows, the knots and the lookups:
+    a sort of the entries by block of rows, then by row within each block,
+    and a thread block per (block of rows, image, 256 channels), or two in a
+    dense call on few blocks, that writes every row of its block once; a
+    row of more than 128 entries is summed in pieces added in order); both
+    looked up in their module at each
+    call, as chip_smoke's plain_kernels swaps them;
   - `upsample_bilinear`: F.interpolate's bilinear (half-pixel centres), its
     backward K1-bwd-upsample (`kernels.upsample_bwd.upsample_bilinear_bwd`),
     a gather over each input texel's output stencil in the order of the

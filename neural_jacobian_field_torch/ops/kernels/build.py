@@ -60,8 +60,10 @@ _SIGNATURES = {
     "njf_onehot_gather_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "njf_onehot_scatter_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P),
-    "njf_row_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _P),
+    "njf_row_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+    "njf_row_scatter_csr": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
     "njf_small_scatter": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "njf_upsample_bwd": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }

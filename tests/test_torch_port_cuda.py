@@ -585,6 +585,85 @@ def test_k1_bwd_is_its_emulation(dev, b, n, hc, wc, c, dtype, hot):
     assert torch.equal(got.cpu(), k1_emulate(gy.cpu(), idx.cpu(), w4.cpu(), hc * wc, plan))
 
 
+@pytest.mark.parametrize("b,n,k,c,dtype,hot,q,weighted,shared", [
+    (2, 16384, 76800, 512, torch.bfloat16, 0, 1, False, False),  # the fine knots' map and width
+    (2, 6000, 20000, 1024, torch.bfloat16, 2000, 1, False, False),  # 1,024 wide, 16 pieces
+    (3, 5000, 900, 40, torch.float32, 700, 1, False, False),      # float32, a hot row
+    (1, 8000, 300, 24, torch.bfloat16, 6000, 1, False, False),    # 32 pieces of 188
+    (2, 9000, 50, 16, torch.float32, -3, 1, False, False),        # 3 rows of 24 pieces a block
+    (2, 3000, 300, 13, torch.float32, 300, 4, True, True),        # corners, one table, 13 wide
+    (64, 512, 257, 1, torch.float32, 200, 1, False, False),       # one-wide rows, many images
+])
+def test_row_scatter_is_its_emulation(dev, b, n, k, c, dtype, hot, q, weighted, shared):
+    """K1-bwd-rows bit for bit rows_emulate (its order, on the CPU), in g's
+    dtype, counted once a call; two calls bit-identical; rows no entry
+    takes exactly zero."""
+    from test_torch_port_k5_k1bwd_plan import _rows_case, rows_emulate
+
+    g, idx, w = _rows_case(23, b, n, k, c, dtype, q, max(hot, 0), weighted, shared)
+    if hot < 0:  # -h: rows 1, 3, ... 2h - 1 take 3,000 entries each: the queue's 64 pieces
+        for i in range(-hot):  # take two rows', the third is summed after the queue
+            idx[:, 3000 * i:3000 * (i + 1)] = 2 * i + 1
+    gd, idxd = g.to(dev), idx.to(dev)
+    wd = None if w is None else w.to(dev)
+    n0 = K.row_scatter.launches
+    got = K.row_scatter(gd, idxd, wd, k)
+    torch.cuda.synchronize()
+    assert K.row_scatter.launches == n0 + 1 and got.dtype == dtype and got.shape == (b, k, c)
+    assert torch.equal(got.cpu(), rows_emulate(g, idx, w, k, K.onehot_gather.ROWS_PIECE))
+    assert torch.equal(K.row_scatter(gd, idxd, wd, k), got)
+    counts = torch.stack([torch.bincount(t.reshape(-1), minlength=k)
+                          for t in idx.expand(b, -1, -1)])
+    assert not got.cpu()[counts == 0].any()
+
+
+@pytest.mark.parametrize("b,n,k,c,dtype,hot", [
+    (2, 9000, 50, 16, torch.float32, -3),      # 3 rows of 24 pieces a block: past the queue
+    (1, 8000, 300, 24, torch.bfloat16, 6000),  # 32 pieces of 188
+])
+def test_row_scatter_one_thread_block_a_block_is_its_emulation(dev, monkeypatch, b, n, k, c,
+                                                               dtype, hot):
+    """With each texel block on one thread block of the sums (a large call's
+    plan; forced here, where the plan would deal the blocks), the queue sums
+    its pieces in shared memory and a block of more than 64 pieces sums the
+    rest texel by texel: bit for bit rows_emulate, as the dealt blocks are."""
+    from test_torch_port_k5_k1bwd_plan import _rows_case, rows_emulate
+
+    g, idx, w = _rows_case(23, b, n, k, c, dtype, 1, max(hot, 0))
+    for i in range(-hot):
+        idx[:, 3000 * i:3000 * (i + 1)] = 2 * i + 1
+    monkeypatch.setattr(K.onehot_gather, "ROWS_DEAL_CTAS_PER_SM", 0)
+    K.onehot_gather.rows_plan.cache_clear()
+    try:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert K.onehot_gather.rows_plan(b, n, k, c, sms).splits == 1
+        got = K.row_scatter(g.to(dev), idx.to(dev), None, k)
+        torch.cuda.synchronize()
+    finally:
+        K.onehot_gather.rows_plan.cache_clear()
+    assert torch.equal(got.cpu(), rows_emulate(g, idx, w, k, K.onehot_gather.ROWS_PIECE))
+
+
+@pytest.mark.parametrize("b,m,k,c,dtype", [
+    (7, 4096, 4800, 512, torch.bfloat16),   # the mid knots' shape
+    (2, 3000, 20000, 1024, torch.float32),
+])
+def test_gather_rows_gradient_is_row_scatter(dev, b, m, k, c, dtype):
+    """gather_rows's backward, where small_plan does not admit the shape,
+    launches K1-bwd-rows once, and flat's gradient is the kernel's output."""
+    from neural_jacobian_field_torch.ops.deterministic import gather_rows
+
+    g = _gen(24)
+    idx = torch.randint(0, k, (b, m), generator=g, device=dev)
+    gy = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    flat = torch.zeros((b, k, c), dtype=dtype, device=dev, requires_grad=True)
+    assert K.small_plan(m, k, c) is None
+    n0 = K.row_scatter.launches
+    (gf,) = torch.autograd.grad(gather_rows(flat, idx), flat, gy)
+    assert K.row_scatter.launches == n0 + 1
+    assert torch.equal(gf, K.row_scatter(gy, idx[..., None], None, k))
+
+
 @pytest.mark.parametrize("b,hi,wi,ho,wo,c,dtype", [
     (2, 30, 40, 60, 80, 64, torch.bfloat16),   # 2x, 32 bytes a thread (4 lanes a texel)
     (2, 15, 20, 60, 80, 128, torch.float32),   # 4x, 16 bytes a thread
