@@ -46,8 +46,7 @@ K7 trunks that project the latent themselves):
      fine-level gather (7 x 65,536 rows of 512 bf16 onto 240x320, bf16
      out) and, on lines of their own, the ids one eager flagship step and
      one e2e step hand it (exact fine and mid, knots fine, mid and coarse,
-     the e2e lookups), each beside its previous design, timed in turns,
-     the pyramid's 2x upsampling (Q = 4 weighted corners, one table) and
+     the e2e lookups), the pyramid's 2x upsampling (Q = 4 weighted corners, one table) and
      the interlevel loss (float32, 1,792 rays of 257 one-wide rows), each
      twice for identical bits, the last
      two the routes that K1-bwd-upsample and K1-bwd-small took over; those
@@ -208,7 +207,27 @@ K7 trunks that project the latent themselves):
      trained pusher (its pixel error per step); the dinov2 ingest of a
      fabricated ViT-S/14 hub state dict, loaded strict. The 2D family runs
      no hand-written kernel (its convolutions are cuDNN's, as they were
-     XLA's in JAX).
+     XLA's in JAX);
+  14. data parallel (lines "dp", parallel/mesh.py): (a) the flagship's
+     captured 6-step stage-1 program (5 frozen + 1 update, batch 7 x 256)
+     on a one-rank NCCL mesh, its collectives captured with it, bit for bit
+     phase 5's program on the same inputs, NCCL's kernel in a traced
+     replay, the two programs' rays/s in turns; (b) two gloo ranks sharing
+     the card (spawned, parallel/launch.py), a global batch of 8 (4 a rank)
+     at full width: one eager stage-1 update step (pallas) and one eager
+     stage-2 tracks step (pallas_fused; rank 0's images see 90% of their
+     tracks, rank 1's 10%), each against the one-process step on the same
+     8 images and draws: the loss, the parameters that moved (on the lr
+     scale) and the running statistics at most 10x as far from one process
+     as one process on the batch's halves swapped (a summation order's
+     worth), frozen parameters bit for bit, the two ranks' states bit for
+     bit, the gap a mean of the ranks' masked means would have shown, the
+     launches of each rank's step (paths dp_gloo_stage1, dp_gloo_tracks);
+     (c) the 480x640 render sharded over the two ranks against
+     render_camera (rgb within 2e-3, depth within 2e-2; bit for bit
+     reported); (d) the three real_world modules (tutorials/) on the card
+     at their defaults (example 3 on a checkpoint written with its model
+     config; its convergence printed, not gated).
 Each phase prints `phase <n> <name>: ok, <s> s` as it ends, so a failed
 run's log shows where it stopped. Every main path also checks that no K9
 wrapper went to its legacy kernel (C or Cout not a multiple of 8), and no
@@ -1274,11 +1293,6 @@ def recorded_row_ids(dev):
     return out
 
 
-def mean_split(a, b):
-    """The mean of two (device ms, {stage: ms}) readings of device_ms."""
-    return (a[0] + b[0]) / 2, {name: (a[1][name] + b[1][name]) / 2 for name in a[1]}
-
-
 def rows_line(label, gy, idx, w, k, lib_ms=None):
     """One K1-bwd-rows line: the kernel against its plain version on the
     card (1e-4 of scale: float32 sums reordered; for bf16 g beyond bf16's
@@ -1286,9 +1300,8 @@ def rows_line(label, gy, idx, w, k, lib_ms=None):
     into pieces, bit for bit the plain version run on the CPU; two calls
     bit-identical; the ids' shape (entries per row and per texel block, rows
     cut, rows untouched); wrapper, device (per kernel), plain and library
-    ms, the bound, and the previous design's device ms (per kernel) in this
-    run, the two designs' device times each the mean of two readings taken
-    in turns. -> the table row's record."""
+    ms, the bound, and the device ms per kernel. -> the table row's
+    record."""
     import torch
 
     from neural_jacobian_field_torch.ops import kernels as K
@@ -1326,21 +1339,13 @@ def rows_line(label, gy, idx, w, k, lib_ms=None):
     row.add(float((got.float() - want).abs().max()), cuda_time_ms(lambda: K.row_scatter(
         gy, idx, w, k)), cuda_time_ms(lambda: K.row_scatter_plain(gy, idx, w, k)),
         nbytes(gy, idx, got) + (0 if w is None else nbytes(w)), library_ms=lib_ms)
-    # the two designs in turns (this, previous, previous, this): a call of a
-    # few µs reads the card's state as much as the kernel's
-    new, prev = ((lambda: K.row_scatter(gy, idx, w, k)), K1_BWD_ROWS_STAGES), (
-        (lambda: K.onehot_gather.row_scatter_csr(gy, idx, w, k)), K1_BWD_STAGES)
-    runs = [device_ms(fn, groups=groups) for fn, groups in (new, prev, prev, new)]
-    d_ms, stages = mean_split(runs[0], runs[3])
-    p_ms, p_stages = mean_split(runs[1], runs[2])
+    d_ms, stages = device_ms(lambda: K.row_scatter(gy, idx, w, k), groups=K1_BWD_ROWS_STAGES)
     rec = row.record()
     print("  stages (device ms per call): " + ", ".join(
-        f"{name} {ms:.4f}" for name, ms in stages.items()) + f"; the previous design (K1-bwd's "
-        f"counting sort, njf_row_scatter_csr): device {p_ms:.4f} (" + ", ".join(
-            f"{name} {ms:.4f}" for name, ms in p_stages.items()) + ")")
+        f"{name} {ms:.4f}" for name, ms in stages.items()))
     print_times("", row.ms, row.plain_ms, row.library_ms, extra=(
         f" (device {d_ms:.4f}, bound {rec['bound_ms']:.4f}, bound/device "
-        f"{rec['bound_ms'] / d_ms:.1%}; device / previous design's {d_ms / p_ms:.1%})"))
+        f"{rec['bound_ms'] / d_ms:.1%})"))
     del got, again, want, cpu
     return rec
 
@@ -1349,7 +1354,7 @@ def row_scatter_checks(dev):
     """K1-bwd-rows, the fixed-order backward of the port's row gathers, on
     lines of its own (rows_line: against its plain version on the card and,
     on the rows it does not cut, bit for bit on the CPU; twice for identical
-    bits; times beside its bound and the previous design's): the exact
+    bits; times beside its bound): the exact
     mode's fine level, 7 x 65,536 packed rows (4 x 128 bf16) onto 240x320
     with ids spread uniformly (the kernel table's row; the library call
     torch.gather's backward, scatter_add_ in bf16); then the ids one eager
@@ -2007,17 +2012,17 @@ def inverse_dynamics_phase(dev, model, cam, robot, timings, mode, tag=None):
 
 # ------------------------------------------------------------------ phase 5
 
-def train_batch(dev):
-    """A batch-7 training batch of 480x640 images, random as bench.py's
-    _raw_batch makes them (uniform rgb, depth in [1, 4], near 0.5, far 10),
-    with the target camera of `cameras` (rotated 10 degrees about a point
-    2 m ahead) so that every ray's epipolar segment has length."""
+def train_batch(dev, b=TRAIN_B):
+    """A batch-7 (or b) training batch of 480x640 images, random as
+    bench.py's _raw_batch makes them (uniform rgb, depth in [1, 4], near
+    0.5, far 10), with the target camera of `cameras` (rotated 10 degrees
+    about a point 2 m ahead) so that every ray's epipolar segment has
+    length."""
     import torch
 
     from neural_jacobian_field_torch.training import RawBatch
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    b = TRAIN_B
     cam, _ = cameras(dev)
     return RawBatch(
         ctxt_rgb=torch.rand((b, H, W, 3), generator=g, device=dev),
@@ -2031,15 +2036,16 @@ def train_batch(dev):
         near=torch.full((b,), Z_NEAR, device=dev), far=torch.full((b,), Z_FAR, device=dev))
 
 
-def step_draws(dev, g, rays=None):
+def step_draws(dev, g, rays=None, b=TRAIN_B):
     """Explicit randomness for one step: the pixel set and each sampling
-    level's stratified jitter for `rays` rays per example (TRAIN_RAYS)."""
+    level's stratified jitter for `rays` rays per example (TRAIN_RAYS) of
+    b (TRAIN_B)."""
     import torch
 
     from neural_jacobian_field_torch.training.prepare import sample_pixels
 
     yx = sample_pixels(TRAIN_RAYS, H, W, g, dev)
-    draws = tuple(torch.rand((TRAIN_B, rays or TRAIN_RAYS, 257), generator=g, device=dev)
+    draws = tuple(torch.rand((b, rays or TRAIN_RAYS, 257), generator=g, device=dev)
                   for _ in range(2))
     return yx, draws
 
@@ -4354,6 +4360,410 @@ def twod_phase(dev, timings, work):
     twod_dinov2(dev, work)
 
 
+# ----------------------------------------------------------------- phase 14
+
+# the two gloo ranks' global batch (4 images a rank); in their tracks step
+# rank 0's images see DP_VISIBLE[0] of their tracks, rank 1's DP_VISIBLE[1]
+DP_B, DP_VISIBLE = 8, (0.9, 0.1)
+# NCCL's kernels by name (on one rank its average is the premultiplied
+# one-rank reduce)
+NCCL_KERNELS = r"nccl|oneRankReduce"
+
+
+def dp_inputs(dev, swap=False):
+    """The two-rank phase's inputs, alike in every process (seeded on the
+    card): a stage-1 batch of DP_B and its draws; a tracks batch of DP_B,
+    TRACKS an image at random pixels with standard-normal motion (4x that
+    on the second half's images, rank 1's, so that the two halves' mean
+    errors differ), its mask DP_VISIBLE, and its draws. `swap`: the same
+    global batch with its two halves swapped (the images and their draws)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    batch = train_batch(dev, DP_B)
+    yx, draws = step_draws(dev, g, b=DP_B)
+    mask = torch.zeros((DP_B, TRACKS), device=dev)
+    for i in range(DP_B):
+        mask[i, :int(TRACKS * DP_VISIBLE[i >= DP_B // 2])] = 1.0
+    tracks = dataclasses.replace(
+        batch, pixel_selector=torch.randint(0, H * W, (DP_B, TRACKS), generator=g, device=dev),
+        pixel_motion=torch.randn((DP_B, TRACKS, 2), generator=g, device=dev)
+        * (1.0 + 3.0 * (torch.arange(DP_B, device=dev) >= DP_B // 2))[:, None, None],
+        pixel_visible_mask=mask)
+    _, tdraws = step_draws(dev, g, rays=TRACKS, b=DP_B)
+    if swap:
+        perm = torch.cat([torch.arange(DP_B // 2, DP_B), torch.arange(DP_B // 2)]).to(dev)
+
+        def rows(b):
+            return dataclasses.replace(b, **{f.name: getattr(b, f.name)[perm]
+                                             for f in dataclasses.fields(b)
+                                             if getattr(b, f.name) is not None})
+
+        batch, tracks = rows(batch), rows(tracks)
+        draws, tdraws = tuple(d[perm] for d in draws), tuple(d[perm] for d in tdraws)
+    return batch, yx, draws, tracks, tdraws
+
+
+def dp_steps(dev, mesh=None, swap=False):
+    """One eager stage-1 update step (the flagship, epipolar, pallas) and one
+    eager stage-2 tracks step (the flagship under pallas_fused), each from
+    seeded weights on `dp_inputs`: the global batch in one process, or the
+    rank's rows with a mesh (`swap`: dp_inputs'). Per step: the metrics, the state dict on the
+    host (and, in one process, the state dict before the step), the step's
+    ms (its first call) and its launch counts."""
+    import torch
+
+    from neural_jacobian_field_torch.models.model import flagship_model_cfg
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.parallel import shard_batch
+    from neural_jacobian_field_torch.training import TrainCfg, create_train_state, train_step
+
+    batch, yx, draws, tracks, tdraws = dp_inputs(dev, swap)
+    out = {}
+    for name, conv, seed, cfg, b, y, d in (
+            ("stage1", "pallas", SEED, TrainCfg(lr=TRAIN_LR, warm_up_steps=TRAIN_WARMUP,
+                                                rays_per_batch=TRAIN_RAYS), batch, yx, draws),
+            ("tracks", "pallas_fused", SEED + 6,
+             TrainCfg(mode="action", lr=ACTION_LR, warm_up_steps=TRAIN_WARMUP,
+                      rays_per_batch=TRAIN_RAYS), tracks, None, tdraws)):
+        model = new_model(dev, flagship_model_cfg(conv_impl=conv, pixel_feature_mode="epipolar"),
+                          seed)
+        state = create_train_state(model, cfg, mesh=mesh)
+        start = None if mesh else {k: v.detach().float().cpu().clone()
+                                   for k, v in model.state_dict().items()}
+        if mesh is not None:
+            b = shard_batch(b, mesh)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = train_step(state, b, updated=True, yx=y, draws=d)
+        torch.cuda.synchronize()
+        out[name] = dict(ms=(time.perf_counter() - t0) * 1e3, counts=K.launch_counts(),
+                         metrics={k: float(v) for k, v in metrics.items()}, start=start,
+                         state={k: v.detach().float().cpu().clone()
+                                for k, v in model.state_dict().items()})
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank, n, init_method, device):
+    """A gloo rank on `device`, the parent's card (phase 14 b, c):
+    `dp_steps` on the rank's rows, whether every rank's state is bit for bit
+    rank 0's, and the 480x640 render sharded over the ranks (the second
+    call timed). Rank 0 returns its states and render."""
+    import torch
+
+    from neural_jacobian_field_torch.inference.render import render_camera_sharded
+    from neural_jacobian_field_torch.ops.kernels.build import load_kernels
+    from neural_jacobian_field_torch.parallel import all_gather, close_mesh, make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        load_kernels()  # built by the parent: loaded, not built again
+    mesh = make_mesh(dev, init_method, rank, n, backend="gloo")
+    try:
+        out = dp_steps(dev, mesh)
+        for name in ("stage1", "tracks"):
+            flat = torch.cat([v.reshape(-1) for v in out[name]["state"].values()]).to(dev)
+            rows = all_gather(flat[None], mesh)
+            out[name]["ranks_equal"] = bool((rows == rows[:1]).all())
+            if rank:
+                del out[name]["state"]
+            del flat, rows
+        model = build_model(dev, "epipolar")
+        cam, robot = cameras(dev)
+        times = []
+        for _ in range(2):  # the first call captures the programs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = render_camera_sharded(model, cam, robot, Z_NEAR, Z_FAR, H, W, mesh,
+                                      patch_size=PATCH)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["render"] = dict(s=times[-1])
+        if rank == 0:
+            out["render"].update({k: getattr(r, k).cpu() for k in ("rgb", "depth_raw",
+                                                                    "flow_raw")})
+        return out
+    finally:
+        close_mesh()
+
+
+@contextlib.contextmanager
+def recorded_action_loss(into):
+    """Record what each stage-2 step hands its loss: (flow, target flow,
+    visibility mask, flow weight) on the host."""
+    from neural_jacobian_field_torch.training import train as T
+
+    plain = T.action_loss
+
+    def recording(out, mt, cfg):
+        into.append((out.optical_flow.detach().float().cpu(), mt.optical_flow.float().cpu(),
+                     mt.visible_mask.float().cpu(), cfg.flow_weight))
+        return plain(out, mt, cfg)
+
+    T.action_loss = recording
+    try:
+        yield
+    finally:
+        T.action_loss = plain
+
+
+def dp_distance(label, got, want, lr) -> dict:
+    """How far one step's result `got` lies from the one-process step `want`
+    (from the same start): the loss's absolute difference; the parameters
+    that moved, the l2 norm and the largest element of their difference
+    over the lr, and the share of elements beyond 1e-2 lr; the running
+    statistics' l2 difference and largest difference over their scale.
+    Parameters the step left alone (stage 2's frozen ones) must be bit for
+    bit the same in both."""
+    import torch
+
+    start = want["start"]
+    sq, far, n, top, stats_sq, stats = 0.0, 0, 0, 0.0, 0.0, 0.0
+    for k, w in want["state"].items():
+        g = got["state"][k]
+        if "running_" in k:
+            stats_sq += float(((g - w).double() ** 2).sum())
+            stats = max(stats, float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+            continue
+        if torch.equal(w, start[k]):  # frozen (stage 2)
+            check(torch.equal(g, w), f"dp {label}: {k} moved in one run, not in the other")
+            continue
+        err = (g - w).double().abs() / lr
+        sq, top = sq + float((err ** 2).sum()), max(top, float(err.max()))
+        far, n = far + int((err > 1e-2).sum()), n + err.numel()
+    return dict(loss=abs(got["metrics"]["loss/total"] - want["metrics"]["loss/total"]),
+                params_l2=sq ** 0.5, params_max=top, share=far / max(n, 1),
+                stats_l2=stats_sq ** 0.5, stats_rel=stats)
+
+
+def dp_two_ranks(dev, timings, paths):
+    """Phase 14 (b), (c): two gloo ranks sharing the card against one process
+    on the same global batch and draws (references computed while the ranks
+    run)."""
+    import torch
+
+    from neural_jacobian_field_torch.inference.render import render_camera
+    from neural_jacobian_field_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch.start(dp_rank, 2, args=(str(dev),), timeout_s=600)
+    recorded = []
+    with recorded_action_loss(recorded):
+        one = dp_steps(dev)
+    swapped = dp_steps(dev, swap=True)
+    model = build_model(dev, "epipolar")
+    cam, robot = cameras(dev)
+    ref = render_camera(model, cam, robot, Z_NEAR, Z_FAR, H, W, patch_size=PATCH)
+    ref = {k: getattr(ref, k).cpu() for k in ("rgb", "depth_raw", "flow_raw")}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    r0, r1 = ranks.join()
+    print(f"dp (b) two gloo ranks on one card (spawned, file:// rendezvous; gloo takes "
+          f"all_reduce, broadcast and all_gather on CUDA tensors: the steps run them), global "
+          f"batch {DP_B} ({DP_B // 2} a rank): ranks and references done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, lr in (("stage1", TRAIN_LR), ("tracks", ACTION_LR)):
+        d = dp_distance(name, r0[name], one[name], lr)
+        e = dp_distance(name, swapped[name], one[name], lr)
+        paths[f"dp_gloo_{name}"] = r0[name]["counts"]
+        rays = TRACKS if name == "tracks" else TRAIN_RAYS
+        print(f"dp (b) {name} step (eager, {DP_B} x {rays} rays, 480x640), two ranks against "
+              f"one process [one process on the batch's halves swapped against one process]: "
+              f"loss {r0[name]['metrics']['loss/total']:.6f} vs "
+              f"{one[name]['metrics']['loss/total']:.6f}, difference {d['loss']:.3e} "
+              f"[{e['loss']:.3e}]; the parameters that moved: l2 difference {d['params_l2']:.4f} "
+              f"lr [{e['params_l2']:.4f}], largest {d['params_max']:.4f} lr "
+              f"[{e['params_max']:.4f}], {d['share']:.3%} of elements beyond 1e-2 lr "
+              f"[{e['share']:.3%}]; running statistics: l2 difference {d['stats_l2']:.3e} "
+              f"[{e['stats_l2']:.3e}], largest {d['stats_rel']:.3e} of scale "
+              f"[{e['stats_rel']:.3e}]; the two ranks' states bit for bit equal="
+              f"{r0[name]['ranks_equal'] and r1[name]['ranks_equal']}; step "
+              f"{r0[name]['ms']:.1f} ms a rank (first call), {one[name]['ms']:.1f} ms in one "
+              f"process; launches a rank {sum(r0[name]['counts'].values())}, equal to one "
+              f"process's={r0[name]['counts'] == one[name]['counts']}")
+        # tolerance: a summation order's worth. The two ranks' step may lie
+        # at most 10x as far from one process as one process on the same
+        # batch in another order does (loss, parameters, statistics). The
+        # largest element is printed, not held: after Adam's first step it
+        # is at most about 2 lr however wrong a run is
+        check(all(d[k] <= 10 * e[k] for k in ("loss", "params_l2", "stats_l2"))
+              and r0[name]["ranks_equal"] and r1[name]["ranks_equal"],
+              f"dp (b) {name}: the two-rank step is further from one process than 10 summation "
+              f"orders, or the ranks differ")
+        timings[f"dp_gloo_{name}_step_ms"] = r0[name]["ms"]
+    want = stage1_counts("epipolar")["update"]
+    check(all(paths["dp_gloo_stage1"].get(k, 0) >= v for k, v in want.items()),
+          f"dp (b) stage 1: a kernel of the step did not launch on the ranks: "
+          f"{paths['dp_gloo_stage1']}")
+    # the gap a mean of the ranks' masked means would have shown
+    flow, target, mask, weight = recorded[0]
+    err = (weight * (flow - target) ** 2).sum(-1) * mask
+    half = DP_B // 2
+    num, den = err.flatten(1).sum(1), mask.flatten(1).sum(1)
+    parts = [(float(num[:half].sum()), float(den[:half].sum())),
+             (float(num[half:].sum()), float(den[half:].sum()))]
+    glob = sum(p[0] for p in parts) / sum(p[1] for p in parts)
+    mom = sum(a / b for a, b in parts) / 2
+    print(f"dp (b) tracks: visible tracks {int(parts[0][1])} on rank 0, {int(parts[1][1])} on "
+          f"rank 1; the global masked mean {glob:.6f} (the step's loss "
+          f"{one['tracks']['metrics']['loss/flow']:.6f}), a mean of the ranks' means would "
+          f"give {mom:.6f}: {abs(mom - glob) / glob:.2%} off")
+    check(abs(mom - glob) / glob > 1e-2, "dp (b) tracks: the case does not tell the two apart")
+
+    rgb = float((r0["render"]["rgb"] - ref["rgb"]).abs().max())
+    depth = float((r0["render"]["depth_raw"] - ref["depth_raw"]).abs().max())
+    bits = all(torch.equal(r0["render"][k], ref[k]) for k in ref)
+    print(f"dp (c) 480x640 render sharded over the two ranks ({PATCH} rays a chunk a rank) "
+          f"against render_camera in one process: rgb max abs diff {rgb:.3e} (tol 2e-3), "
+          f"depth {depth:.3e} (tol 2e-2), bit for bit (rgb, depth, flow)={bits}; "
+          f"{r0['render']['s']:.3f} s a render (second call), {card_line()}")
+    check(rgb <= 2e-3 and depth <= 2e-2, "dp (c): the sharded render disagrees")
+    timings["dp_gloo_render_s"] = r0["render"]["s"]
+
+
+def dp_one_rank_nccl(dev, timings, paths, work):
+    """Phase 14 (a): the flagship's captured 6-step stage-1 program (5 frozen
+    + 1 update, epipolar, batch 7 x 256) on a one-rank NCCL mesh against
+    phase 5's program (no mesh) on the same inputs, both from seeded
+    weights: two calls each (the capture, then a replay with its launches
+    counted), every metric and state tensor bit for bit; a replay traced
+    for NCCL's kernel; the two programs timed in turns."""
+    import torch
+
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.parallel import close_mesh, make_mesh
+    from neural_jacobian_field_torch.training import (create_train_state, make_multi_train_step,
+                                                      stack_batches)
+
+    gates = (False,) * 5 + (True,)
+    batch = train_batch(dev)
+    stacked = stack_batches([batch] * 6)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    plan = [step_draws(dev, g) for _ in range(6)]
+    yx = torch.stack([p[0] for p in plan])
+    draws = [torch.stack(ds) for ds in zip(*(p[1] for p in plan))]
+    mesh = make_mesh(dev, f"file://{work / 'nccl_rendezvous'}", 0, 1)
+    runs = {}
+    try:
+        for name in ("plain", "nccl"):
+            model, state = new_train_state(dev, "epipolar")
+            if name == "nccl":
+                state = create_train_state(model, state.cfg, mesh=mesh)
+            multi = make_multi_train_step(model, state.cfg, 6, static_schedule=gates)
+            first = multi(state, stacked, yx=yx, draws=draws)  # the capture
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            second = multi(state, stacked, yx=yx, draws=draws)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            _, rec = state_record(state)
+            runs[name] = dict(state=state, multi=multi, counts=counts, values=[
+                *(v.cpu() for v in first.values()), *(v.cpu() for v in second.values()), *rec])
+        same = sum(torch.equal(a, b) for a, b in zip(runs["plain"]["values"],
+                                                     runs["nccl"]["values"]))
+        total = len(runs["plain"]["values"])
+        paths["dp_nccl_program6"] = runs["nccl"]["counts"]
+        nccl = runs["nccl"]
+        _, wall, busy, _, by_name = trace(lambda: nccl["multi"](nccl["state"], stacked, yx=yx,
+                                                                draws=draws))
+        found = {n: v for n, v in by_name.items() if re.search(NCCL_KERNELS, n, re.I)}
+        ms = {"plain": [], "nccl": []}
+        for name in ("plain", "nccl", "nccl", "plain"):
+            run = runs[name]
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run["multi"](run["state"], stacked, yx=yx, draws=draws)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        rays = 6 * TRAIN_B * TRAIN_RAYS
+        rate = {k: rays / statistics.median(v) * 1e3 for k, v in ms.items()}
+        timings["dp_nccl_program6_rays_per_s"] = rate["nccl"]
+        timings["dp_plain_program6_rays_per_s"] = rate["plain"]
+        print(f"dp (a) one NCCL rank: the captured 6-step stage-1 program (5 frozen + 1 update, "
+              f"{TRAIN_B} x {TRAIN_RAYS} rays) with its collectives captured, against phase 5's "
+              f"program on the same inputs: {same} of {total} tensors bit for bit (metrics of "
+              f"two calls, parameters, statistics, Adam's state); launches through replay equal="
+              f"{runs['plain']['counts'] == counts}; NCCL kernels in a traced replay: "
+              + ", ".join(f"{re.search(NCCL_KERNELS + r'[^_]*', n, re.I).group(0)[:60]} x{c} "
+                          f"{us / 1e3:.4f} ms" for n, (us, c) in found.items())
+              + f" (replay: wall {wall / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms); the "
+              f"cycle {rate['nccl']:.1f} rays/s against {rate['plain']:.1f} without the mesh "
+              f"(in turns, medians of 6 calls each); {card_line()}")
+        check(same == total and runs["plain"]["counts"] == counts and found,
+              "dp (a): the one-rank NCCL program differs from phase 5's, or no NCCL kernel ran")
+    finally:
+        runs.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        close_mesh()
+        torch.cuda.empty_cache()
+
+
+def dp_examples(dev, timings, work):
+    """Phase 14 (d): the three real_world modules on the card at their own
+    defaults: example 1's training and render, example 2's solves, example
+    3's loop on a checkpoint written with its model config (seeded
+    weights; its convergence printed, not gated)."""
+    import torch
+
+    from neural_jacobian_field_torch.data import make_synthetic_scene
+    from neural_jacobian_field_torch.models.model import Model
+    from neural_jacobian_field_torch.training import (CheckpointManager, TrainCfg,
+                                                      create_train_state)
+    from neural_jacobian_field_torch.tutorials import real_world_1_visualize as rw1
+    from neural_jacobian_field_torch.tutorials import real_world_2_inverse_dynamics as rw2
+    from neural_jacobian_field_torch.tutorials import real_world_3_closed_loop_3d as rw3
+
+    t0 = time.perf_counter()
+    out = rw1.main(["--out", str(work / "rw1"), "--scene", str(work / "rw1_scene")])
+    losses, rgb = out["losses"], out["render"].rgb
+    files = sorted(p.name for p in out["out"].iterdir())
+    print(f"dp (d) real_world_1: {len(losses)} steps, rgb loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, render {tuple(rgb.shape)} finite "
+          f"{bool(torch.isfinite(rgb).all())}, {files}; {time.perf_counter() - t0:.1f} s")
+    check(all(math.isfinite(v) for v in losses) and bool(torch.isfinite(rgb).all())
+          and len(files) == 4, "dp (d): real_world_1 failed")
+    t0 = time.perf_counter()
+    out = rw2.main(["--scene", str(work / "rw2_scene")])
+    ls_err = float((out["least_squares"] - out["true_action"]).abs().max())
+    first, last = float(out["losses"][0]), float(out["losses"][-1])
+    print(f"dp (d) real_world_2: Adam loss {first:.3e} -> {last:.3e}, least squares within "
+          f"{ls_err:.2e} of the true action; {time.perf_counter() - t0:.1f} s")
+    check(last < 0.5 * first and ls_err <= 2e-2, "dp (d): real_world_2 failed")
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(work / "rw3_scene", num_cameras=3, num_trajs=2,
+                                 frames_per_traj=4, height=48, width=64, action_dim=3)
+    model = Model(rw3.model_cfg())
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    CheckpointManager(work / "rw3_ck", save_interval_steps=1).maybe_save(
+        create_train_state(model, TrainCfg(mode="action")))
+    out = rw3.main(["--scene", str(scene), "--ckpt", str(work / "rw3_ck"), "--iters", "3"])
+    print(f"dp (d) real_world_3: 3 iterations on a seeded checkpoint, max joint error per "
+          f"iteration {[round(e, 4) for e in out['errors']]} (not gated: the loop converges "
+          f"only with a trained model); {time.perf_counter() - t0:.1f} s")
+    check(all(math.isfinite(e) for e in out["errors"]), "dp (d): real_world_3 failed")
+
+
+def dp_phase(dev, timings, paths, work):
+    """Phase 14: data parallel (lines "dp")."""
+    for part, fn in (("a", lambda: dp_one_rank_nccl(dev, timings, paths, work)),
+                     ("b, c", lambda: dp_two_ranks(dev, timings, paths)),
+                     ("d", lambda: dp_examples(dev, timings, work))):
+        t0 = time.perf_counter()
+        fn()
+        timings[f"dp_{part.replace(', ', '')}_s"] = time.perf_counter() - t0
+        print(f"dp ({part}) done in {time.perf_counter() - t0:.1f} s")
+
+
 def trace(fn):
     """torch.profiler around one fn() (ended by a synchronize): the profile,
     the traced wall time (the first host event to the last device event),
@@ -4701,6 +5111,9 @@ def main() -> int:
             t0 = time.perf_counter()
             twod_phase(dev, timings, Path(work))
             phase_line(13, "2d family", t0)
+            t0 = time.perf_counter()
+            dp_phase(dev, timings, paths, Path(work))
+            phase_line(14, "data parallel", t0)
         timings["script_s"] = time.perf_counter() - t_start
         print("timings: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
         print("launches by path: " + json.dumps(paths))

@@ -140,8 +140,8 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------- K1-bwd
 //
 // Three stages on the current stream, planned by onehot_gather.bwd_plan:
-//  (a) bucket: per image, a stable counting sort of the Q n entries
-//      (entry id p * Q + q, int32; Q = 4 corners for K1) by texel, into CSR order: integer
+//  (a) bucket: per image, a stable counting sort of the 4 n entries
+//      (entry id 4 p + corner, int32) by texel, into CSR order: integer
 //      histograms per tile of entries (bucket_count), the exclusive scan over
 //      (texel, tile) (bucket_scan), and stable in-tile ranks by
 //      __match_any_sync and a running count per texel (bucket_place). A
@@ -372,33 +372,28 @@ __device__ __forceinline__ void store_row8(__nv_bfloat16* row, int ch, int c,
   }
 }
 
-__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
-__device__ __forceinline__ void set_zero(__nv_bfloat16& v) { v = __float2bfloat16(0.f); }
-
 // (b) warp gw = ((b * chunks) + piece) * slabs + slab walks CSR entries
-// [piece * len, min(Q n, (piece + 1) * len)) of image b on channels
-// [256 slab, 256 slab + 256). part[b][piece][slot][c] (float32); rows
-// inside one piece go to out in OutT. Entry e adds row e / Q of g, times
-// its weight w4[e] (kW) or as it is. shared: one table (ids, weights, and
-// so one CSR list) for every image, that of image 0.
-template <typename T, typename OutT, bool kVec, int Q, bool kW>
+// [piece * len, min(4 n, (piece + 1) * len)) of image b on channels
+// [256 slab, 256 slab + 256). part[b][piece][slot][c] and the rows inside
+// one piece, out, are float32. Entry e adds row e / 4 of g times its
+// weight w4[e].
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(128)
     segment_sum_kernel(const T* __restrict__ g, const float* __restrict__ w4,
                        const int* __restrict__ rowptr, const int* __restrict__ ent,
-                       float* __restrict__ part, OutT* __restrict__ out, int b_count, int n,
-                       int k, int c, int len, int chunks, int slabs, int shared) {
+                       float* __restrict__ part, float* __restrict__ out, int b_count, int n,
+                       int k, int c, int len, int chunks, int slabs) {
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * 4 + (threadIdx.x >> 5);
   if (gw >= static_cast<long long>(b_count) * chunks * slabs) return;
   const int b = static_cast<int>(gw / (static_cast<long long>(chunks) * slabs));
   const int r = static_cast<int>(gw - static_cast<long long>(b) * chunks * slabs);
   const int piece = r / slabs, slab = r - piece * slabs;
-  const int e_total = Q * n;
+  const int e_total = 4 * n;
   const int i0 = piece * len, i1 = min(e_total, i0 + len);
-  const int bt = shared ? 0 : b;  // the table's image
-  const int* rp = rowptr + static_cast<size_t>(bt) * (k + 1);
-  const int* eb = ent + static_cast<size_t>(bt) * e_total;
-  const float* wb = kW ? w4 + static_cast<size_t>(bt) * e_total : nullptr;
+  const int* rp = rowptr + static_cast<size_t>(b) * (k + 1);
+  const int* eb = ent + static_cast<size_t>(b) * e_total;
+  const float* wb = w4 + static_cast<size_t>(b) * e_total;
   const T* gb = g + static_cast<size_t>(b) * n * c;
   const int ch = slab * kSlabCh + 8 * lane;
   // the texel of entry i0: the last kk with rp[kk] <= i0 (it is not empty)
@@ -428,13 +423,13 @@ __global__ void __launch_bounds__(128)
     const int cnt = min(32, i1 - base);
     const int my_e = next_e;
     if (base + 32 < i1) next_e = base + 32 + lane < i1 ? eb[base + 32 + lane] : 0;
-    const float my_w = kW && lane < cnt ? round_w(wb[my_e], T()) : 0.f;
+    const float my_w = lane < cnt ? round_w(wb[my_e], T()) : 0.f;
     for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
       Row8<T> rows[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int e = __shfl_sync(0xffffffffu, my_e, j0 + u);
-        if (j0 + u < cnt) rows[u].template load<kVec>(gb + static_cast<size_t>(e / Q) * c, ch, c);
+        if (j0 + u < cnt) rows[u].template load<kVec>(gb + static_cast<size_t>(e / 4) * c, ch, c);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -449,7 +444,7 @@ __global__ void __launch_bounds__(128)
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float prod = kW ? __fmul_rn(wv, rows[u].get(i)) : rows[u].get(i);
+          const float prod = __fmul_rn(wv, rows[u].get(i));
           acc[i] = fresh ? prod : __fadd_rn(acc[i], prod);
         }
         fresh = false;
@@ -461,22 +456,21 @@ __global__ void __launch_bounds__(128)
 
 // (c) one warp per (image, texel): zeros for an untouched texel, the sum of
 // its partials in piece order for a texel cut by piece boundaries, nothing
-// (the segment pass wrote it) for a texel inside one piece; out in OutT.
-template <typename OutT, bool kVec>
+// (the segment pass wrote it) for a texel inside one piece.
+template <bool kVec>
 __global__ void __launch_bounds__(256)
     merge_parts_kernel(const int* __restrict__ rowptr, const float* __restrict__ part,
-                       OutT* __restrict__ out, int b_count, int k, int c, int len, int chunks,
-                       int shared) {
+                       float* __restrict__ out, int b_count, int k, int c, int len,
+                       int chunks) {
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   if (gw >= static_cast<long long>(b_count) * k) return;
   const int b = static_cast<int>(gw / k), kk = static_cast<int>(gw - static_cast<long long>(b) * k);
-  const size_t bt = shared ? 0 : b;  // the table's image
-  const int s = rowptr[bt * (k + 1) + kk];
-  const int e = rowptr[bt * (k + 1) + kk + 1];
-  OutT* dst = out + static_cast<size_t>(gw) * c;
+  const int s = rowptr[static_cast<size_t>(b) * (k + 1) + kk];
+  const int e = rowptr[static_cast<size_t>(b) * (k + 1) + kk + 1];
+  float* dst = out + static_cast<size_t>(gw) * c;
   if (s == e) {
-    for (int i = lane; i < c; i += 32) set_zero(dst[i]);
+    for (int i = lane; i < c; i += 32) dst[i] = 0.f;
     return;
   }
   const int first = s / len, last = (e - 1) / len;
@@ -531,30 +525,26 @@ int gather_fwd(const void* flat, const void* idx, const void* w4, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-
-// shared: idx (and w4) hold one table for all b images: it is sorted once
-// (the bucket stages on one image), and every image's sums walk its list.
-template <typename T, typename OutT, int Q, bool kW>
+template <typename T>
 int scatter_bwd(const void* g, const void* idx, const void* w4, void* iscratch, void* part,
                 void* out, int b, int k, int c, int n, int tile, int tiles, int len,
-                bool smem_hist, bool shared, cudaStream_t s) {
-  const int e_total = Q * n;
-  const int bs = shared ? 1 : b;  // tables to sort
-  int* cnt = static_cast<int*>(iscratch);  // [bs][tiles][k]
-  int* rowptr = cnt + static_cast<size_t>(bs) * tiles * k;  // [bs][k + 1]
-  int* ent = rowptr + static_cast<size_t>(bs) * (k + 1);     // [bs][Q n]
+                bool smem_hist, cudaStream_t s) {
+  const int e_total = 4 * n;
+  int* cnt = static_cast<int*>(iscratch);  // [b][tiles][k]
+  int* rowptr = cnt + static_cast<size_t>(b) * tiles * k;  // [b][k + 1]
+  int* ent = rowptr + static_cast<size_t>(b) * (k + 1);     // [b][4 n]
   const auto* ix = static_cast<const long long*>(idx);
-  const dim3 tgrid(tiles, bs);
+  const dim3 tgrid(tiles, b);
   if (smem_hist) {
     bucket_count_kernel<true><<<tgrid, 256, k * sizeof(int), s>>>(ix, cnt, e_total, k, tile, tiles);
   } else {
-    cudaMemsetAsync(cnt, 0, static_cast<size_t>(bs) * tiles * k * sizeof(int), s);
+    cudaMemsetAsync(cnt, 0, static_cast<size_t>(b) * tiles * k * sizeof(int), s);
     bucket_count_kernel<false><<<tgrid, 256, 0, s>>>(ix, cnt, e_total, k, tile, tiles);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bucket_scan_kernel<<<bs, 1024, 0, s>>>(cnt, rowptr, k, tiles, e_total);
-  const dim3 pgrid((tiles + kPlaceWarps - 1) / kPlaceWarps, bs);
+  bucket_scan_kernel<<<b, 1024, 0, s>>>(cnt, rowptr, k, tiles, e_total);
+  const dim3 pgrid((tiles + kPlaceWarps - 1) / kPlaceWarps, b);
   if (smem_hist) {
     const size_t smem = static_cast<size_t>(kPlaceWarps) * k * sizeof(int);
     err = cudaFuncSetAttribute(bucket_place_kernel<true>,
@@ -574,23 +564,20 @@ int scatter_bwd(const void* g, const void* idx, const void* w4, void* iscratch, 
   const auto* gg = static_cast<const T*>(g);
   const auto* w = static_cast<const float*>(w4);
   auto* pp = static_cast<float*>(part);
-  auto* o = static_cast<OutT*>(out);
-  const int sh = shared ? 1 : 0;
+  auto* o = static_cast<float*>(out);
   if (c % 8 == 0)
-    segment_sum_kernel<T, OutT, true, Q, kW><<<sblocks, 128, 0, s>>>(
-        gg, w, rowptr, ent, pp, o, b, n, k, c, len, chunks, slabs, sh);
+    segment_sum_kernel<T, true><<<sblocks, 128, 0, s>>>(
+        gg, w, rowptr, ent, pp, o, b, n, k, c, len, chunks, slabs);
   else
-    segment_sum_kernel<T, OutT, false, Q, kW><<<sblocks, 128, 0, s>>>(
-        gg, w, rowptr, ent, pp, o, b, n, k, c, len, chunks, slabs, sh);
+    segment_sum_kernel<T, false><<<sblocks, 128, 0, s>>>(
+        gg, w, rowptr, ent, pp, o, b, n, k, c, len, chunks, slabs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned mblocks = static_cast<unsigned>((static_cast<long long>(b) * k + 7) / 8);
   if (c % 8 == 0)
-    merge_parts_kernel<OutT, true><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks,
-                                                           sh);
+    merge_parts_kernel<true><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks);
   else
-    merge_parts_kernel<OutT, false><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks,
-                                                            sh);
+    merge_parts_kernel<false><<<mblocks, 256, 0, s>>>(rowptr, pp, o, b, k, c, len, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1224,50 +1211,10 @@ extern "C" int njf_onehot_scatter_bwd(const void* g, const void* idx, const void
       (smem_hist && k > 12288))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return is_f32 ? scatter_bwd<float, float, 4, true>(g, idx, w4, iscratch, part, out, b, k, c,
-                                                     n, tile, tiles, len, smem_hist != 0, false,
-                                                     s)
-                : scatter_bwd<__nv_bfloat16, float, 4, true>(g, idx, w4, iscratch, part, out, b,
-                                                             k, c, n, tile, tiles, len,
-                                                             smem_hist != 0, false, s);
-}
-
-// K1-bwd-rows' previous design, kept as the yardstick chip_smoke times
-// beside it (onehot_gather.row_scatter_csr; no path of the port calls it):
-// K1-bwd's stages for q entries a point, out in g's type, a shared table
-// sorted once (shared != 0: idx and w are [1, n, q]); the plan and the
-// scratch as njf_onehot_scatter_bwd's with q n entries per table in place
-// of 4n. q n <= 2^30.
-extern "C" int njf_row_scatter_csr(const void* g, const void* idx, const void* w,
-                                   void* iscratch, void* part, void* out, int b, int k, int c,
-                                   int n, int q, int tile, int tiles, int len, int smem_hist,
-                                   int is_f32, int has_w, int shared, void* stream) {
-  if (b <= 0 || k <= 0 || c <= 0 || n <= 0 || (q != 1 && q != 4) ||
-      static_cast<long long>(q) * n > (1LL << 30) || tile <= 0 || tiles <= 0 ||
-      static_cast<long long>(tile) * tiles < static_cast<long long>(q) * n ||
-      static_cast<long long>(tile) * tiles > (1LL << 31) - 1 || len <= 0 ||
-      (smem_hist && k > 12288) || (has_w && w == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool sh = smem_hist != 0, one = shared != 0;
-#define NJF_ROW_SCATTER_CSR(T, Q, W) \
-  return scatter_bwd<T, T, Q, W>(g, idx, w, iscratch, part, out, b, k, c, n, tile, tiles, len, \
-                                 sh, one, s)
-  if (is_f32) {
-    if (q == 1) {
-      if (has_w) NJF_ROW_SCATTER_CSR(float, 1, true);
-      NJF_ROW_SCATTER_CSR(float, 1, false);
-    }
-    if (has_w) NJF_ROW_SCATTER_CSR(float, 4, true);
-    NJF_ROW_SCATTER_CSR(float, 4, false);
-  }
-  if (q == 1) {
-    if (has_w) NJF_ROW_SCATTER_CSR(__nv_bfloat16, 1, true);
-    NJF_ROW_SCATTER_CSR(__nv_bfloat16, 1, false);
-  }
-  if (has_w) NJF_ROW_SCATTER_CSR(__nv_bfloat16, 4, true);
-  NJF_ROW_SCATTER_CSR(__nv_bfloat16, 4, false);
-#undef NJF_ROW_SCATTER_CSR
+  return is_f32 ? scatter_bwd<float>(g, idx, w4, iscratch, part, out, b, k, c, n, tile, tiles,
+                                     len, smem_hist != 0, s)
+                : scatter_bwd<__nv_bfloat16>(g, idx, w4, iscratch, part, out, b, k, c, n, tile,
+                                             tiles, len, smem_hist != 0, s);
 }
 
 // K1-bwd-rows: g [b, n, c] (bf16 when is_f32 == 0, else float32), idx

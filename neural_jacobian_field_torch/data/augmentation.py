@@ -1,5 +1,6 @@
 """Context-image augmentation (host-side NumPy, NHWC; the port's copy of
-data/augmentation.py, with the same calls to `random` and `np.random`):
+data/augmentation.py, with the same draws, through data/streams.py: by
+default the global `random` and `np.random`):
   - RandomBackground: with the robot mask, substitute the background with a
     random solid colour / two-colour gradient / +-noise image, and
     optionally paste a random occluder crop (from a COCO-format directory,
@@ -10,13 +11,13 @@ data/augmentation.py, with the same calls to `random` and `np.random`):
 Images are read and resized through data/image_io.py.
 """
 
-import random
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from . import image_io
+from .streams import nprandom, pyrandom
 
 
 def _rgb(img: np.ndarray) -> np.ndarray:
@@ -43,7 +44,7 @@ def _crop(img: np.ndarray, x0: int, y0: int, x1: int, y1: int) -> np.ndarray:
 
 def get_random_solid_color_image(shape) -> np.ndarray:
     """image_augmentation.py:240-243 (uint8, [H, W, 3])."""
-    rgb = (np.random.rand(3) * 255).astype(np.uint8)
+    rgb = (nprandom().rand(3) * 255).astype(np.uint8)
     return np.ones(shape, np.uint8) * rgb[None, None, :]
 
 
@@ -60,23 +61,23 @@ def get_gradient_image(rgb1: np.ndarray, rgb2: np.ndarray, vertical: bool) -> np
 def add_noise(rgb_image: np.ndarray, max_noise: int = 50) -> np.ndarray:
     """image_augmentation.py:268-285 (uint8 wraparound preserved)."""
     shape = rgb_image.shape
-    noise_a = (np.random.rand(*shape) * max_noise).astype(np.uint8)
-    noise_b = (np.random.rand(*shape) * max_noise).astype(np.uint8)
+    noise_a = (nprandom().rand(*shape) * max_noise).astype(np.uint8)
+    noise_b = (nprandom().rand(*shape) * max_noise).astype(np.uint8)
     return (rgb_image.astype(np.uint8) + noise_a - noise_b).astype(np.uint8)
 
 
 def get_random_image(shape) -> np.ndarray:
     """Random solid / gradient background, optionally noised
     (image_augmentation.py:226-237). shape = (H, W, 3); returns uint8."""
-    if np.random.rand() < 0.5:
+    if nprandom().rand() < 0.5:
         img = get_random_solid_color_image(shape)
     else:
         img = get_gradient_image(
             get_random_solid_color_image(shape),
             get_random_solid_color_image(shape),
-            vertical=bool(np.random.rand() < 0.5),
+            vertical=bool(nprandom().rand() < 0.5),
         )
-    if np.random.rand() < 0.5:
+    if nprandom().rand() < 0.5:
         return img.astype(np.uint8)
     return add_noise(img)
 
@@ -96,7 +97,7 @@ class ZeroMaskPatchedImage:
         out = image.copy()
         tiles = out[: l * p, : k * p].reshape(l, p, k, p, -1).swapaxes(1, 2)
         flat = tiles.reshape(l * k, p, p, -1)
-        idx = np.random.permutation(l * k)[: int(l * k * self.mask_ratio)]
+        idx = nprandom().permutation(l * k)[: int(l * k * self.mask_ratio)]
         flat[idx] = 0.0
         out[: l * p, : k * p] = flat.reshape(l, k, p, p, -1).swapaxes(1, 2).reshape(
             l * p, k * p, -1
@@ -140,11 +141,11 @@ class CocoOccluderSource:
         """One bbox-cropped instance as float [h, w, 3] in [0, 1], or None
         (empty image / area below threshold — the reference returns the
         input unchanged in those cases)."""
-        img_id = random.choice(self.image_ids)
+        img_id = pyrandom().choice(self.image_ids)
         anns = self.anns_by_image.get(img_id, [])
         if not anns:
             return None
-        bbox, area = anns[np.random.randint(0, len(anns))]
+        bbox, area = anns[nprandom().randint(0, len(anns))]
         if area < self.min_area:
             return None
         x_min, y_min, bw, bh = bbox
@@ -158,7 +159,7 @@ class CocoOccluderSource:
             # EXCEPT the max(1, ...) clamps below, which diverge from the
             # reference only where rand_threshold*dim/area < 1, a degenerate
             # case where PIL would raise on a 0-size resize.
-            rand_threshold = np.random.randint(int(self.min_area), int(self.max_area))
+            rand_threshold = nprandom().randint(int(self.min_area), int(self.max_area))
             crop = image_io.resize_bilinear(crop, max(1, int(bw * rand_threshold / area)),
                                             max(1, int(bh * rand_threshold / area)))
         return np.asarray(crop).astype(np.float32) / 255.0
@@ -209,7 +210,7 @@ class RandomBackground:
             if crop is None:
                 return img
         elif self.occluders:
-            crop = _rgb(image_io.read_image(random.choice(self.occluders))
+            crop = _rgb(image_io.read_image(pyrandom().choice(self.occluders))
                         ).astype(np.float32) / 255.0
         else:
             return img
@@ -219,8 +220,8 @@ class RandomBackground:
         ch, cw = crop.shape[:2]
         if ch < 2 or cw < 2:
             return img
-        y = np.random.randint(0, h - ch)
-        x = np.random.randint(0, w - cw)
+        y = nprandom().randint(0, h - ch)
+        x = nprandom().randint(0, w - cw)
         # refuse if the paste would hide too much of the robot
         # (image_augmentation.py:195-209)
         area_before = float(np.sum(mask))
@@ -233,9 +234,9 @@ class RandomBackground:
         return out
 
     def __call__(self, img: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        if np.random.rand() < self.p:
+        if nprandom().rand() < self.p:
             img = self.randomize_bkgd(img, mask)
-        if np.random.rand() < self.p:
+        if nprandom().rand() < self.p:
             img = self.randomize_occluder(img, mask)
         return img
 
@@ -243,7 +244,7 @@ class RandomBackground:
 def random_horizontal_flip(images: List[np.ndarray], pix_map: np.ndarray,
                            p: float = 0.5) -> Tuple[List[np.ndarray], np.ndarray]:
     """image_augmentation.py:15-32 ([H, W, C] images, pix_map [..., H, W, 2])."""
-    if np.random.rand() < p:
+    if nprandom().rand() < p:
         w = images[0].shape[1]
         images = [img[:, ::-1] for img in images]
         pix_map = pix_map.copy()
@@ -254,7 +255,7 @@ def random_horizontal_flip(images: List[np.ndarray], pix_map: np.ndarray,
 def random_vertical_flip(images: List[np.ndarray], pix_map: np.ndarray,
                          p: float = 0.5) -> Tuple[List[np.ndarray], np.ndarray]:
     """image_augmentation.py:35-52."""
-    if np.random.rand() < p:
+    if nprandom().rand() < p:
         h = images[0].shape[0]
         images = [img[::-1] for img in images]
         pix_map = pix_map.copy()

@@ -3,12 +3,12 @@ copy of data/dataset.py, NumPy only). Per-item work (image, depth and flow
 loading, context/target view pairing, qpos -> normalized action deltas)
 stays on the host; pixel subsampling and ray generation happen on the
 device (training/prepare.py). The items are the JAX package's: the same
-calls to the global `random` and `np.random`, in the same order, so the
+draws from the global `random` and `np.random` (through data/streams.py,
+which can seed an item's own streams instead), in the same order, so the
 same seeds give the same items. Images are read by data/image_io.py
 (Pillow), or by the native batch decoder (data/native.py) where it
 builds."""
 
-import random
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -18,6 +18,7 @@ import numpy as np
 from . import conventions as cv
 from . import image_io
 from .dataparser import DataparserConfig, merge_dataparser_outputs, parse_transforms
+from .streams import nprandom, pyrandom
 
 
 @dataclass
@@ -198,7 +199,7 @@ class DatasetCommon:
             return "fwd"
         if curr_frame_idx >= max_num_frames - frame_displacement:
             return "bwd"
-        return random.choice(["fwd", "bwd"])
+        return pyrandom().choice(["fwd", "bwd"])
 
     # -- item assembly ---------------------------------------------------------
 
@@ -212,7 +213,7 @@ class DatasetCommon:
             ctxt_file_idx = int(self.cfg.overfit_to_scene)
 
         ctxt_cam_idx = int(self.outputs.sample_to_camera_idx[ctxt_file_idx])
-        trgt_cam_idx = random.randrange(len(self.outputs.cam2worlds))
+        trgt_cam_idx = pyrandom().randrange(len(self.outputs.cam2worlds))
 
         ctxt_img_filename = self.outputs.image_filenames[ctxt_file_idx]
         trgt_img_filename = cv.get_trgt_view_filename(
@@ -247,7 +248,7 @@ class DatasetCommon:
 
         if self.cfg.mode == "action":
             traj_idx, curr_frame_idx = cv.get_traj_and_frame_idx(trgt_img_filename)
-            displacement = random.randint(1, self.cfg.max_frame_displacement)
+            displacement = pyrandom().randint(1, self.cfg.max_frame_displacement)
             flow_type = self.random_select_action_type(
                 curr_frame_idx, displacement, self.get_max_num_frames_per_traj(traj_idx)
             )
@@ -288,7 +289,7 @@ class DatasetCommon:
                                   plan["hw_trgt"])
         except OSError:
             # corrupt-image retry with a random resample (dataset.py:345-354)
-            return self.__getitem__(random.randint(0, self.num_files - 1))
+            return self.__getitem__(pyrandom().randint(0, self.num_files - 1))
 
         trgt_depth = load_depth(plan["depth_path"], plan["depth_scale"],
                                 plan["hw_trgt"])
@@ -331,10 +332,10 @@ class DatasetCommon:
         negative_yx = np.asarray(data.get("negative_yx", np.zeros((0, 2))), np.float32)
 
         if self.cfg.num_positive_samples is not None:
-            sel = np.random.permutation(len(tracks))[: self.cfg.num_positive_samples]
+            sel = nprandom().permutation(len(tracks))[: self.cfg.num_positive_samples]
             tracks, visible = tracks[sel], visible[sel]
         if self.cfg.num_negative_samples is not None and len(negative_yx):
-            sel = np.random.permutation(len(negative_yx))[: self.cfg.num_negative_samples]
+            sel = nprandom().permutation(len(negative_yx))[: self.cfg.num_negative_samples]
             negative_yx = negative_yx[sel]
 
         curr = tracks[:, curr_frame_idx]  # [N, 2] xy

@@ -11,7 +11,8 @@ its static outputs, and one chunk (`_render_chunk`: ray bundle, features,
 proposal, decoder, compositing), which reads those outputs in place and is
 replayed per chunk: copy the chunk's rays in, replay, copy its eight outputs
 into slices of the full-image outputs. On the CPU the same Python runs
-eagerly.
+eagerly. `render_camera_sharded` splits the rays over the ranks of a
+data-parallel mesh and gathers the shares.
 """
 
 from dataclasses import dataclass
@@ -69,6 +70,26 @@ def patch_render(model: Model, camera_input: CameraInput, rendering_input: Rende
     """Chunked full-image render. The ray count must be a multiple of
     patch_size (render_camera pads it) and at least render_height *
     render_width; the padding rays are dropped."""
+    outs = _render_rays(model, camera_input, rendering_input, robot_input, patch_size)
+    return _image_output(outs, render_height, render_width)
+
+
+def _image_output(outs, height: int, width: int) -> RenderingOutput:
+    """The eight per-ray outputs [B, rays, ...] cut to height x width rays
+    and shaped as images."""
+
+    def unchunk(x):
+        x = x[:, :height * width]
+        return x.reshape(x.shape[0], height, width, *x.shape[2:])
+
+    return RenderingOutput(*map(unchunk, outs))
+
+
+def _render_rays(model: Model, camera_input: CameraInput, rendering_input: RenderingInput,
+                 robot_input: RobotInput, patch_size: int) -> list:
+    """The eight outputs of every ray [B, rays, ...], rendered in chunks of
+    patch_size (the ray count a multiple of it): the chunk program's
+    replays on the card, eagerly elsewhere."""
     num_rays = rendering_input.origins.shape[1]
     if num_rays % patch_size:
         raise ValueError("pad rays to a multiple of patch_size")
@@ -98,12 +119,7 @@ def patch_render(model: Model, camera_input: CameraInput, rendering_input: Rende
         features = model.compute_pixel_encoding(camera_input, robot_input).features
         parts = [_render_chunk(model, features, *per_render, *chunk_rays) for chunk_rays in rays]
         outs = [torch.cat(xs, dim=1) for xs in zip(*parts)]
-
-    def unchunk(x):
-        x = x[:, :render_height * render_width]
-        return x.reshape(b, render_height, render_width, *x.shape[2:])
-
-    return RenderingOutput(*map(unchunk, outs))
+    return outs
 
 
 def render_camera(model: Model, camera_input: CameraInput, robot_input: RobotInput,
@@ -111,6 +127,36 @@ def render_camera(model: Model, camera_input: CameraInput, robot_input: RobotInp
                   patch_size: int = 2048) -> RenderingOutput:
     """Render the TARGET camera of camera_input at height x width. Target
     intrinsics that look denormalized (fx > 2) are normalized for the rays."""
+    ri = _camera_rendering_input(camera_input, z_near, z_far, height, width, patch_size)
+    return patch_render(model, camera_input, ri, robot_input, patch_size=patch_size,
+                        render_height=height, render_width=width)
+
+
+@torch.no_grad()
+def render_camera_sharded(model: Model, camera_input: CameraInput, robot_input: RobotInput,
+                          z_near, z_far, height: int, width: int, mesh,
+                          patch_size: int = 2048) -> RenderingOutput:
+    """`render_camera` with the rays sharded over the ranks of `mesh`
+    (parallel/mesh.py; the JAX render_camera_sharded): the rays are padded
+    to a multiple of ranks x patch_size, each rank encodes the context
+    (replicated) and renders its contiguous share of the rays in chunks of
+    patch_size, and the shares are gathered to every rank. Volume rendering
+    is independent per ray, so nothing else is exchanged."""
+    from ..parallel.mesh import all_gather
+
+    ri = _camera_rendering_input(camera_input, z_near, z_far, height, width,
+                                 patch_size * mesh.size)
+    share = mesh.rows(ri.origins.shape[1], "the padded rays")
+    mine = RenderingInput(origins=ri.origins[:, share], directions=ri.directions[:, share],
+                          z_near=ri.z_near, z_far=ri.z_far)
+    outs = _render_rays(model, camera_input, mine, robot_input, patch_size)
+    return _image_output([all_gather(o, mesh, dim=1) for o in outs], height, width)
+
+
+def _camera_rendering_input(camera_input: CameraInput, z_near, z_far, height: int, width: int,
+                            quantum: int) -> RenderingInput:
+    """The target camera's rays at height x width, padded (with the first
+    rays) to a multiple of `quantum`, and the depth range per camera."""
     cam2world = camera_input.trgt_extrinsics
     b = cam2world.shape[0]
     intr = camera_input.trgt_intrinsics
@@ -120,20 +166,20 @@ def render_camera(model: Model, camera_input: CameraInput, robot_input: RobotInp
     norm[1, 1:].fill_(1.0 / height)
     intr_n = torch.where(intr[:, 0:1, 0:1] > 2.0, intr * norm, intr)
     origins, directions = camera_rays(height, width, intr_n, cam2world)
-    pad = (-origins.shape[1]) % patch_size
-    if pad:
-        origins = torch.cat([origins, origins[:, :pad]], dim=1)
-        directions = torch.cat([directions, directions[:, :pad]], dim=1)
+    n = origins.shape[1]
+    pad = (-n) % quantum
+    if pad:  # the first rays again, cycled where the image has fewer rays than the pad
+        again = torch.arange(pad, device=origins.device) % n
+        origins = torch.cat([origins, origins[:, again]], dim=1)
+        directions = torch.cat([directions, directions[:, again]], dim=1)
 
     def per_camera(v):
         if isinstance(v, torch.Tensor):
             return v.to(dtype=origins.dtype, device=origins.device).expand(b)
         return torch.full((b,), float(v), dtype=origins.dtype, device=origins.device)
 
-    ri = RenderingInput(origins=origins, directions=directions,
-                        z_near=per_camera(z_near), z_far=per_camera(z_far))
-    return patch_render(model, camera_input, ri, robot_input, patch_size=patch_size,
-                        render_height=height, render_width=width)
+    return RenderingInput(origins=origins, directions=directions,
+                          z_near=per_camera(z_near), z_far=per_camera(z_far))
 
 
 # -- host-side colormaps (validation frames) ------------------------------------

@@ -103,7 +103,12 @@ class BatchNorm(nn.Module):
     takes mean = s1 / n and var = max(s2 / n - mean^2, 0), n = B*H*W,
     instead (the JAX BatchNormFromStats). Both modes compute
     (y - mean) * (rsqrt(var + eps) * scale) + bias in float32 and cast back
-    once."""
+    once. Inside a data-parallel step (parallel/mesh.py: an active mesh) the
+    statistics are the global batch's, as under JAX's SPMD: the ranks' means
+    of y and y^2 averaged over the ranks (the shards are equal), or their
+    sums s1, s2 summed over the ranks with n the global count; the sums are
+    differentiable, so the backward is the global batch's too, and the
+    running statistics come out the same on every rank."""
 
     MOMENTUM = 0.9  # Flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 
@@ -125,14 +130,25 @@ class BatchNorm(nn.Module):
     def forward(self, y, train: bool = False, s1=None, s2=None):
         at = torch.promote_types(y.dtype, torch.float32)
         if train:
+            # imported here: the parallel package imports training's, which imports the models
+            from ..parallel.mesh import active_mesh, all_reduce_sum
+
+            mesh = active_mesh()
             if s1 is None:
                 yf = y.to(at)
                 mean = yf.mean(dim=(0, 1, 2))
-                var = torch.clamp((yf * yf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+                mean_sq = (yf * yf).mean(dim=(0, 1, 2))
+                if mesh is not None:
+                    mean, mean_sq = all_reduce_sum(torch.stack([mean, mean_sq]), mesh) / mesh.size
+                var = torch.clamp(mean_sq - mean * mean, min=0.0)
             else:
                 n = y.numel() // y.shape[-1]
-                mean = s1.to(at) / n
-                var = torch.clamp(s2.to(at) / n - mean * mean, min=0.0)
+                s1, s2 = s1.to(at), s2.to(at)
+                if mesh is not None:
+                    s1, s2 = all_reduce_sum(torch.stack([s1, s2]), mesh)
+                    n *= mesh.size
+                mean = s1 / n
+                var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.float())

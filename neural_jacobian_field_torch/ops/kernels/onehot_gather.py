@@ -31,9 +31,7 @@ channels), or two sharing its work in a dense call on few thread blocks,
 that writes every row of its block once, each texel's entries
 summed from 0 in entry order (bit for bit the plain version) unless it has
 more than `rows_plan(...).piece`, then in at most ROWS_PIECES pieces added
-in order. `row_scatter_csr` is its previous design, K1-bwd's counting sort
-generalised, kept only as the yardstick chip_smoke times beside it.
-`small_scatter` (njf_small_scatter, K1-bwd-small, csrc/small_scatter.cu) is
+in order. `small_scatter` (njf_small_scatter, K1-bwd-small, csrc/small_scatter.cu) is
 the same function with one entry a point and unit weights for images that
 fit a thread block, sorted and summed there in one launch: `small_plan`
 admits the shapes (the interlevel loss's per-ray rows), and gather_rows's
@@ -162,19 +160,15 @@ class BwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS, q: int = 4,
-             shared: bool = False) -> BwdPlan:
-    """q entries per point (4 for K1-bwd; any q for `row_scatter_csr`);
-    shared: one table of ids for every image (sorted once: one image's
-    counters, row pointers and ids). Tiles of 4096 entries (fewer, longer ones where K x tiles would pass
+def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS) -> BwdPlan:
+    """Four corner entries per point. Tiles of 4096 entries (fewer, longer ones where K x tiles would pass
     COUNTERS). Pieces: the largest power of two in [64, 2048] that gives an
     image at least 24 warps per SM, more than the card holds at once, so the
     warps in flight work on about one image and its g stays in L2 (the
     pieces are walked image by image)."""
-    entries = q * n
-    if min(b, n, k, c) <= 0 or q not in (1, 4) or entries > MAX_ENTRIES:
-        raise ValueError(f"K1-bwd: b {b}, n {n}, k {k}, c {c}, q {q} (q in 1, 4; qn <= "
-                         f"{MAX_ENTRIES})")
+    entries = 4 * n
+    if min(b, n, k, c) <= 0 or entries > MAX_ENTRIES:
+        raise ValueError(f"K1-bwd: b {b}, n {n}, k {k}, c {c} (4n <= {MAX_ENTRIES})")
     tiles = max(1, min(-(-entries // 4096), COUNTERS // k))
     tile = -(-entries // tiles)
     tile = -(-tile // 32) * 32
@@ -183,9 +177,8 @@ def bwd_plan(b: int, n: int, k: int, c: int, sms: int = SMS, q: int = 4,
     while piece > 64 and -(-entries // piece) < 24 * sms:
         piece //= 2
     pieces = -(-entries // piece)
-    tables = 1 if shared else b
     return BwdPlan(entries, tile, tiles, k <= SMEM_TEXELS, piece, pieces,
-                   tables * (tiles * k + k + 1 + entries), b * pieces * 2 * c)
+                   b * (tiles * k + k + 1 + entries), b * pieces * 2 * c)
 
 
 def _onehot_scatter_bwd_cuda(g, idx, w4, k):
@@ -315,31 +308,27 @@ def rows_plan(b: int, n: int, k: int, c: int, sms: int = SMS, q: int = 1,
                     if splits > 1 else 0)
 
 
-def _rows_args(name, g, idx, w, k):
-    """The row scatters' checks: g [B, N, C] bf16 or float32, idx [B, N, Q]
-    or [1, N, Q] (one table for every image) int64, w shaped as idx or None,
-    contiguous on the card. -> (g, idx, w, shared, is_f32)."""
+def _row_scatter_cuda(g, idx, w, k):
+    """g [B, N, C] bf16 or float32, idx [B, N, Q] or [1, N, Q] (one table
+    for every image) int64, w shaped as idx or None, contiguous on the
+    card."""
     if (g.dim() != 3 or idx.dim() != 3 or idx.shape[1] != g.shape[1]
             or idx.shape[0] not in (1, g.shape[0])):
-        raise ValueError(f"{name}: expected g [B, N, C] and idx [B, N, Q] or [1, N, Q], "
+        raise ValueError(f"row_scatter: expected g [B, N, C] and idx [B, N, Q] or [1, N, Q], "
                          f"got {tuple(g.shape)}, {tuple(idx.shape)}")
     if w is not None and tuple(w.shape) != tuple(idx.shape):
-        raise ValueError(f"{name}: w must be shaped as idx, got {tuple(w.shape)}")
+        raise ValueError(f"row_scatter: w must be shaped as idx, got {tuple(w.shape)}")
     if k <= 0:
-        raise ValueError(f"{name}: the map needs rows, got k = {k}")
+        raise ValueError(f"row_scatter: the map needs rows, got k = {k}")
     g = g.contiguous()
-    is_f32 = _dtype_flag(f"{name} g", g)
-    check_cuda_tensor(g, f"{name} g", g.dtype, 3)
+    is_f32 = _dtype_flag("row_scatter g", g)
+    check_cuda_tensor(g, "row_scatter g", g.dtype, 3)
     idx = idx.to(torch.int64).contiguous()
-    check_cuda_tensor(idx, f"{name} idx", torch.int64, 3)
+    check_cuda_tensor(idx, "row_scatter idx", torch.int64, 3)
     if w is not None:
         w = w.to(torch.float32).contiguous()
-        check_cuda_tensor(w, f"{name} w", torch.float32, 3)
-    return g, idx, w, idx.shape[0] == 1 and g.shape[0] > 1, is_f32
-
-
-def _row_scatter_cuda(g, idx, w, k):
-    g, idx, w, shared, is_f32 = _rows_args("row_scatter", g, idx, w, k)
+        check_cuda_tensor(w, "row_scatter w", torch.float32, 3)
+    shared = idx.shape[0] == 1 and g.shape[0] > 1
     b, n, c = g.shape
     q = idx.shape[-1]
     dev = g.device
@@ -366,29 +355,6 @@ def row_scatter(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Tensor:
     float32 g on the card, the output in g's dtype)."""
     return dispatch("row_scatter", g, lambda: _row_scatter_cuda(g, idx, w, k),
                     lambda: row_scatter_plain(g, idx, w, k))
-
-
-def row_scatter_csr(g: torch.Tensor, idx: torch.Tensor, w, k: int) -> torch.Tensor:
-    """K1-bwd-rows' previous design, K1-bwd's counting sort by texel, piece
-    sums and ordered merge for Q entries a point (njf_row_scatter_csr,
-    planned by `bwd_plan(..., q, shared)`; the same function, its own
-    summation order): the yardstick chip_smoke times beside the kernel. No
-    path of the port calls it; CUDA tensors only, uncounted."""
-    g, idx, w, shared, is_f32 = _rows_args("row_scatter_csr", g, idx, w, k)
-    b, n, c = g.shape
-    q = idx.shape[-1]
-    dev = g.device
-    plan = bwd_plan(b, n, k, c, _sms(dev.index), q, shared)
-    out = torch.empty((b, k, c), dtype=g.dtype, device=dev)
-    iscratch = torch.empty(plan.int_elems, dtype=torch.int32, device=dev)
-    part = torch.empty(plan.part_elems, dtype=torch.float32, device=dev)
-    with _on_device(g):
-        load_kernels().call(
-            "njf_row_scatter_csr", g.data_ptr(), idx.data_ptr(), 0 if w is None else w.data_ptr(),
-            iscratch.data_ptr(), part.data_ptr(), out.data_ptr(), b, k, c, n, q, plan.tile,
-            plan.tiles, plan.piece, int(plan.smem_hist), is_f32, int(w is not None), int(shared),
-            stream_of(g))
-    return out
 
 
 SMALL_ENTRIES = 4096     # entries per image: 16-bit list positions, a short walk

@@ -8,9 +8,12 @@ consumer's stream wait on that event and marks the tensors as used by it,
 so the allocator does not hand their memory back before the consumer's
 work on them is done. At most `depth` staged batches wait. A stream of
 `stack_batches` results (a leading [K] substep axis) needs no mode of its
-own: on one card it is copied as any other batch (the JAX prefetcher's
-`stacked` flag only chose which axis to shard over devices). On the CPU
-(`device` "cpu") the thread passes the batches through.
+own: on one card it is copied as any other batch. With a `mesh`
+(parallel/mesh.py) the thread first keeps this rank's rows of each batch
+(`shard_batch`), as the JAX `DevicePrefetcher(host_iter, mesh)` does (a
+stream of stacks is sharded by its maker, `shard_stacked_batch`, before it
+is pinned). On the CPU (`device` "cpu") the thread passes the batches
+through.
 """
 
 import queue
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..training.prepare import RawBatch
+from .mesh import shard_batch
 
 
 def to_device(batch: RawBatch, device, non_blocking: bool = False) -> RawBatch:
@@ -29,8 +33,10 @@ def to_device(batch: RawBatch, device, non_blocking: bool = False) -> RawBatch:
 
 
 class DevicePrefetcher:
-    def __init__(self, host_iter, device, depth: int = 2):
+    def __init__(self, host_iter, device, depth: int = 2, mesh=None):
         self.device = torch.device(device)
+        if mesh is not None:
+            host_iter = (shard_batch(batch, mesh) for batch in host_iter)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         cuda = self.device.type == "cuda"

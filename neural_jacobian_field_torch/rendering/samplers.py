@@ -71,6 +71,11 @@ class RaySamples:
     def get_weights(self, densities: torch.Tensor) -> torch.Tensor:
         return render_weights(densities, self.deltas)
 
+    def spacing_to_euclidean(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalized spacing x in [0, 1] (between s_near and s_far) ->
+        euclidean distance along the ray."""
+        return spacing_fn_inv(self.spacing, x * self.s_far + (1 - x) * self.s_near)
+
 
 def sdist_edges(ray_samples: RaySamples) -> torch.Tensor:
     """Spacing-domain bin edges [B, R, S+1]."""

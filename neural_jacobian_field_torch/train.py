@@ -19,6 +19,19 @@ checkpoints every checkpoint.every_n_train_steps (training/checkpoint.py).
 `checkpoint.load` warm-starts the parameters from a checkpoint directory
 this port wrote (the stage-2 start from stage 1), with a fresh optimizer.
 
+Data parallelism across cards (parallel/mesh.py), the JAX package's mesh:
+
+    torchrun --nproc_per_node N -m neural_jacobian_field_torch.train <overrides>
+
+Each rank takes cuda:LOCAL_RANK (NCCL; with `--device cpu`, gloo ranks on
+the CPU); the batch is rounded to a multiple of N, as the JAX CLI rounds it
+to its device count; each rank's loader makes only that rank's rows of
+each global batch, with its own workers, every item drawn from streams
+seeded by (seed, batch, row) alone (data/loader.py, `shard`), so the global
+batches are the same for any number of ranks; rank 0 alone logs,
+validates, writes checkpoints and run.json. Without torchrun one process
+runs as before.
+
 It runs on the card unless `--device cpu` (or `device=` of `train`) asks
 for the CPU, and raises where there is no card. With `--profile N` it
 traces N dispatches of the steady window under torch.profiler: the first
@@ -31,6 +44,7 @@ traced dispatches' device idle share.
 
 import json
 import math
+import os
 import sys
 import time
 from pathlib import Path
@@ -43,7 +57,7 @@ from .data import DataLoader, get_dataset
 from .data import image_io, native
 from .data.loader import ValidationWrapper, collate, pin
 from .models.model import Model
-from .parallel import DevicePrefetcher, to_device
+from .parallel import DevicePrefetcher, close_mesh, make_mesh, to_device
 from .training import (MultiStepDispatch, TrainCfg, create_train_state, host_step_schedule,
                        make_multi_train_step, make_train_step, stack_batches)
 from .training.checkpoint import CheckpointManager, load_params_only
@@ -57,28 +71,43 @@ __all__ = ["CONFIG_DIR", "Trainer", "train", "main"]
 class Trainer:
     """The CLI's set-up and step loop: `run()` trains to the step limit,
     `dispatch()` runs one dispatch (steps_per_call steps), `close()` stops
-    the pipeline's threads and writes run.json."""
+    the pipeline's threads and writes run.json. `mesh` (parallel/mesh.py)
+    makes the run one rank of a data-parallel group; under torchrun's
+    environment the Trainer makes it."""
 
     def __init__(self, cfg: PipelineCfg, max_steps_override: Optional[int] = None,
-                 log_dir=None, device=None):
+                 log_dir=None, device=None, mesh=None):
         self.cfg = cfg
-        self.device = dev = resolve_device(device)
+        self.own_mesh = mesh is None and "WORLD_SIZE" in os.environ
+        if self.own_mesh:
+            mesh = make_mesh(device)
+        self.mesh = mesh
+        self.rank0 = mesh is None or mesh.rank == 0
+        ranks = 1 if mesh is None else mesh.size
+        self.device = dev = resolve_device(device) if mesh is None else mesh.device
         cuda = dev.type == "cuda"
         mode = cfg.dataset.mode
         print(f"mode={mode} device={dev}"
-              + (f" ({torch.cuda.get_device_name(dev)})" if cuda else ""), flush=True)
+              + (f" ({torch.cuda.get_device_name(dev)})" if cuda else "")
+              + (f" rank {mesh.rank} of {ranks} ({mesh.backend})" if mesh else ""), flush=True)
         dataset = get_dataset(cfg.dataset, "train")
         self.num_tracks = None
         if mode == "action" and cfg.dataset.action_supervision_type == "tracks":
             self.num_tracks = ((cfg.dataset.num_positive_samples or 512)
                                + (cfg.dataset.num_negative_samples or 512))
-        self.batch_size = cfg.training.data.batch_size
+        # the global batch, a multiple of the ranks
+        self.batch_size = max(cfg.training.data.batch_size // ranks, 1) * ranks
         self.spc = spc = max(int(cfg.training.steps_per_call), 1)
+        shard = None if mesh is None else (mesh.rank, mesh.size)
+        if mesh is not None:
+            print(f"data parallel: this rank makes its {self.batch_size // ranks} rows of each "
+                  f"global batch of {self.batch_size}, each item seeded by ({cfg.seed}, batch, "
+                  "row)", flush=True)
         # page-locked batches for an asynchronous copy to the card; K > 1
         # stacks K batches first and pins the stack
         self.loader = DataLoader(dataset, self.batch_size, num_tracks=self.num_tracks,
                                  num_workers=cfg.training.data.num_workers, seed=cfg.seed,
-                                 pin_memory=cuda and spc == 1)
+                                 pin_memory=cuda and spc == 1, shard=shard)
         host_iter = iter(self.loader)
 
         compute_dtype = (torch.bfloat16 if cfg.training.compute_dtype == "bfloat16"
@@ -97,18 +126,22 @@ class Trainer:
         if cfg.checkpoint.load:
             print(f"warm-starting params from {cfg.checkpoint.load}")
             load_params_only(cfg.checkpoint.load, model)
-        self.state = create_train_state(model, self.tcfg)
+        self.state = create_train_state(model, self.tcfg, mesh=mesh)
         print("train state initialized", flush=True)
 
-        self.ckpt = CheckpointManager(cfg.checkpoint.dir,
-                                      save_interval_steps=cfg.checkpoint.every_n_train_steps)
-        self.wandb_run = maybe_init_wandb(cfg.wandb)
-        self.logger = MetricsLogger(log_dir=log_dir or Path("logs"), wandb_run=self.wandb_run)
+        # rank 0 alone writes: checkpoints, metrics, validation frames, run.json
+        self.ckpt = self.wandb_run = self.logger = None
+        if self.rank0:
+            self.ckpt = CheckpointManager(
+                cfg.checkpoint.dir, save_interval_steps=cfg.checkpoint.every_n_train_steps)
+            self.wandb_run = maybe_init_wandb(cfg.wandb)
+            self.logger = MetricsLogger(log_dir=log_dir or Path("logs"),
+                                        wandb_run=self.wandb_run)
 
         # validation data: one random item of the val split per pass, never
         # the training batch
         self.val_sampler = None
-        if cfg.training.val_check_interval:
+        if cfg.training.val_check_interval and self.rank0:
             try:
                 self.val_sampler = ValidationWrapper(get_dataset(cfg.dataset, "val"),
                                                      seed=cfg.seed + 2)
@@ -141,7 +174,7 @@ class Trainer:
             self.device_iter = DevicePrefetcher(host_iter, dev, depth=2)
         self.max_steps = max_steps_override or cfg.training.max_steps
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
-        self.info = {"device": str(dev), "mode": mode, "steps_per_call": spc,
+        self.info = {"device": str(dev), "mode": mode, "steps_per_call": spc, "ranks": ranks,
                      "batch_size": self.batch_size, "rays_per_batch": self.tcfg.rays_per_batch,
                      "validation_frames": [], "losses": []}
         self._t_last, self._n_last = time.time(), 0
@@ -190,14 +223,16 @@ class Trainer:
                 host = {k: float(v.reshape(-1)[-1]) for k, v in metrics.items()}
                 dt = time.time() - self._t_last
                 rays = (i - self._n_last) * self.batch_size * self.tcfg.rays_per_batch
-                self.logger.log(i, {**host, "perf/rays_per_sec": rays / dt})
+                if self.logger is not None:
+                    self.logger.log(i, {**host, "perf/rays_per_sec": rays / dt})
                 self.info["losses"].append((i, host["loss/total"]))
                 self._t_last, self._n_last = time.time(), i
                 logged = i
             vci = cfg.training.val_check_interval
             if vci and self.val_sampler is not None and (prev // vci) != (i // vci):
                 self.validate(i)
-            self.ckpt.maybe_save(state)
+            if self.ckpt is not None:
+                self.ckpt.maybe_save(state)
         return state
 
     def validate(self, step: int):
@@ -206,8 +241,7 @@ class Trainer:
         PNGs under <log_dir>/val_<step>/ (or logged to wandb)."""
         from .visualization import render_interpolated_view
 
-        raw = to_device(collate([self.val_sampler[0]], num_tracks=self.num_tracks),
-                        self.device)
+        raw = to_device(collate([self.val_sampler[0]], num_tracks=self.num_tracks), self.device)
         rgb = raw.ctxt_rgb[:1]
         if rgb.dtype == torch.uint8:
             rgb = rgb.float() / 255.0
@@ -253,6 +287,10 @@ class Trainer:
     def close(self):
         self.device_iter.close()
         self.loader.close()
+        if self.own_mesh:
+            close_mesh()
+        if self.logger is None:
+            return
         self.logger.close()
         self.info.update(
             steps=self.state.step, loader_paths=dict(self.loader.paths),
@@ -265,11 +303,13 @@ class Trainer:
 
 
 def train(cfg: PipelineCfg, max_steps_override: Optional[int] = None, log_dir=None,
-          device=None, profile: int = 0):
+          device=None, profile: int = 0, mesh=None):
     """Train to the step limit; returns the TrainState (training/train.py).
     `device` None means the card; `profile` > 0 traces that many dispatches
-    of the steady window (Trainer.run)."""
-    trainer = Trainer(cfg, max_steps_override, log_dir, device)
+    of the steady window (Trainer.run); `mesh` makes the run a rank of a
+    data-parallel group (made from torchrun's environment where it is
+    None and the environment names one)."""
+    trainer = Trainer(cfg, max_steps_override, log_dir, device, mesh)
     try:
         trainer.run(profile)
     finally:

@@ -43,6 +43,20 @@ program's memory pool, which the train programs of a model share; the
 metrics come back as copies. On the CPU, and inside `model.programs.eager()`,
 the same Python runs eagerly: `train_step` is that body.
 
+Data parallelism (parallel/mesh.py): a state made with a mesh
+(`create_train_state(..., mesh=)`, parameters, buffers and Adam's state
+broadcast from rank 0) takes each step on the rank's rows of a global batch
+of B = b x ranks, as JAX's SPMD step does on a batch sharded over its mesh:
+the randomness is drawn for the global batch on every rank from the same
+generator, and each rank keeps its rows (the pixel set is shared); the
+forward, loss and backward run with the mesh active, so that BatchNorm's
+statistics, the tracks loss's masked mean and the metrics are the global
+batch's; the gradients are averaged over the ranks (one flat all-reduce)
+before clipping and Adam, so the parameters stay bit for bit equal on every
+rank. Under NCCL the programs capture the collectives with the step; a gloo
+group cannot be captured, so its steps run eagerly (what `_run_program`
+does for a mesh that does not capture), on the CPU or the card.
+
 A step repeats bit for bit on the card, as the JAX step does on the CPU or
 the TPU: its forward and backward run under cuDNN's deterministic
 algorithms (`ops/deterministic.deterministic_cudnn`, for the step alone),
@@ -58,6 +72,8 @@ import torch
 from ..models.decoders import action_param_pattern
 from ..models.model import Model, StepCtx, step_anneal, step_schedules
 from ..ops.deterministic import deterministic_cudnn
+from ..parallel.mesh import Mesh, all_reduce, all_reduce_mean_, data_parallel, replicate, shard_rows
+from ..utils.logging import get_sanity_metrics_traced
 from .losses import LossCfg, action_loss, perception_loss
 from .optim import Adam
 from .prepare import RawBatch, prepare_training_batch, sample_pixels
@@ -73,6 +89,9 @@ class TrainCfg:
     loss: LossCfg = field(default_factory=LossCfg)
     grad_clip_norm: Optional[float] = None  # global-norm clipping, before decay
     encoder_lr_scale: float = 1.0  # stage-1 lr multiplier on encoder.* parameters
+    # the min and max of every float tensor of the step's inputs, targets and
+    # outputs in its metrics (sanity/input_*, sanity/target_*, sanity/output_*)
+    log_sanity: bool = False
 
 
 @dataclass
@@ -82,6 +101,7 @@ class TrainState:
     cfg: TrainCfg
     step: int = 0
     steps_since_update: int = 0  # the proposal sampler's update counter
+    mesh: Optional[Mesh] = None  # data parallelism: this rank's place (parallel/mesh.py)
 
 
 def trainable_mask(model: torch.nn.Module, mode: str, action_decoder_cfg) -> Dict[str, str]:
@@ -165,15 +185,21 @@ def merge_compatible_params(template: Dict[str, torch.Tensor],
 
 
 def create_train_state(model: Model, cfg: TrainCfg,
-                       init_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+                       init_params: Optional[Dict[str, torch.Tensor]] = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """A fresh optimizer over the model's (already initialised) parameters.
     `init_params` (a state dict, running statistics included) warm-starts
     the model shape-tolerantly, with the fresh optimizer state ("so that
-    optimization restarts"): stage 2 from a stage-1 model."""
+    optimization restarts"): stage 2 from a stage-1 model. With a `mesh`
+    the steps are data-parallel, and the parameters, buffers and optimizer
+    state are broadcast from rank 0 (the JAX `replicate`)."""
     if init_params is not None:
         current = model.state_dict()
         model.load_state_dict(merge_compatible_params(current, init_params), strict=True)
-    return TrainState(model=model, optimizer=make_optimizer(cfg, model), cfg=cfg)
+    state = TrainState(model=model, optimizer=make_optimizer(cfg, model), cfg=cfg, mesh=mesh)
+    if mesh is not None:
+        replicate(state, mesh)
+    return state
 
 
 
@@ -203,19 +229,24 @@ def step_randomness(state: TrainState, batch: RawBatch,
     shared pixel set yx [R, 2] (None where tracks choose the pixels), then
     each sampling level's stratified jitter in [0, 1) (the spaced sample's,
     then each resample's) [B, R, S + 1], or [B, R, 1] with single_jitter.
-    Returns (yx, draws)."""
+    Returns (yx, draws). With the state's mesh the batch is the rank's rows
+    and B the global batch (its rows times the ranks): the draws, given or
+    drawn (alike on every rank, from the same generator), are the global
+    batch's, and the rank's rows of them are returned."""
     b, h, w = batch.trgt_rgb.shape[:3]
     dev = batch.trgt_rgb.device
+    mesh = state.mesh
     tracks = state.cfg.mode == "action" and batch.pixel_selector is not None
     if yx is None and not tracks:
         yx = sample_pixels(state.cfg.rays_per_batch, h, w, generator, dev)
     if draws is None:
         rays = batch.pixel_selector.shape[1] if tracks else yx.shape[0]
         rcfg = state.model.cfg.rendering
-        draws = [torch.rand((b, rays, 1 if rcfg.single_jitter else s + 1),
+        b_global = b * (1 if mesh is None else mesh.size)
+        draws = [torch.rand((b_global, rays, 1 if rcfg.single_jitter else s + 1),
                             generator=generator, device=dev)
                  for s in (*rcfg.num_proposal_samples, rcfg.num_nerf_samples)]
-    return yx, tuple(draws)
+    return yx, tuple(shard_rows(d, mesh) for d in draws)
 
 
 def _advance(state: TrainState, gates: Sequence[bool]) -> None:
@@ -237,42 +268,69 @@ def train_step(state: TrainState, batch: RawBatch,
     (`step_randomness`). Returns the loss metrics (detached)."""
     upd, _ = step_gate(state, updated)
     yx, draws = step_randomness(state, batch, generator, yx, draws)
-    metrics = _device_step(state.model, state.optimizer, state.cfg, batch, upd, yx, draws)
+    metrics = _device_step(state.model, state.optimizer, state.cfg, batch, upd, yx, draws,
+                           state.mesh)
     _advance(state, (upd,))
     return metrics
 
 
 def _device_step(model: Model, opt: Adam, cfg: TrainCfg, batch: RawBatch, updated: bool,
-                 yx: Optional[torch.Tensor], draws: Sequence[torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
+                 yx: Optional[torch.Tensor], draws: Sequence[torch.Tensor],
+                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """The device work of one step, what a train program captures: nothing
-    in it reads a value back to the host or touches the host's counters."""
+    in it reads a value back to the host or touches the host's counters.
+    With a mesh: the rank's rows, the global batch's statistics, loss and
+    metrics, and the gradients averaged over the ranks."""
     mi, mt = prepare_training_batch(batch, cfg.rays_per_batch, yx=yx, mode=cfg.mode)
     ctx = StepCtx(anneal=step_anneal(opt.prepare(), model.cfg.rendering), updated=updated,
-                  draws=tuple(draws), render_flow=cfg.mode == "action")
+                  draws=tuple(draws), render_flow=cfg.mode == "action" or cfg.log_sanity)
     opt.zero_grad(set_to_none=True)
-    with deterministic_cudnn():  # the convolutions' backward without atomics
+    with deterministic_cudnn(), data_parallel(mesh):  # cuDNN's backward without atomics
         out = model(mi, train=True, ctx=ctx)
         loss_fn = perception_loss if cfg.mode == "perception" else action_loss
         loss, metrics = loss_fn(out, mt, cfg.loss)
         loss.backward()
-    _apply_gradients(opt, cfg)
+        if cfg.log_sanity:
+            metrics.update(_sanity_metrics(mi, mt, out, mesh))
+    _apply_gradients(opt, cfg, mesh)
     return metrics
+
+
+def _sanity_metrics(mi, mt, out, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """The min and max of every float tensor of the model's inputs, targets
+    and outputs (`get_sanity_metrics_traced`), as 0-d device tensors under
+    the JAX step's names; with a mesh, the global batch's. A step that logs
+    them renders the optical flow in stage 1 too, as the JAX step then
+    does (its output is among them)."""
+    got = {f"sanity/{kind}_{k}": v.detach()
+           for kind, tree in (("input", mi), ("target", mt), ("output", out))
+           for k, v in get_sanity_metrics_traced(tree).items()}
+    if mesh is not None and got:
+        keys = list(got)
+        for suffix, op in (("_min", "min"), ("_max", "max")):
+            part = [k for k in keys if k.endswith(suffix)]
+            got.update(zip(part, all_reduce(torch.stack([got[k].float() for k in part]),
+                                            mesh, op).unbind()))
+    return got
 
 
 def apply_gradients(state: TrainState) -> None:
     """The optimizer half of a step, on the gradients in the parameters'
-    .grad: zeros where there is none, global-norm clipping, Adam at the
-    count's warmup learning rate; then step += 1."""
-    _apply_gradients(state.optimizer, state.cfg)
+    .grad: zeros where there is none, the mean over the state's mesh,
+    global-norm clipping, Adam at the count's warmup learning rate; then
+    step += 1."""
+    _apply_gradients(state.optimizer, state.cfg, state.mesh)
     state.step += 1
 
 
-def _apply_gradients(opt: Adam, cfg: TrainCfg) -> None:
+def _apply_gradients(opt: Adam, cfg: TrainCfg, mesh: Optional[Mesh] = None) -> None:
     params = opt.params()
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        with torch.no_grad():
+            all_reduce_mean_([p.grad for p in params], mesh)
     if cfg.grad_clip_norm is not None:
         with torch.no_grad():
             clip_by_global_norm_([p.grad for p in params], cfg.grad_clip_norm)
@@ -294,8 +352,8 @@ def _program_inputs(batch: RawBatch, yx, draws) -> Tuple[tuple, tuple]:
     return tuple(n for n, _ in named), tuple(t for _, t in named)
 
 
-def _steps_program(model: Model, opt: Adam, cfg: TrainCfg, gates: Tuple[bool, ...],
-                   stacked: bool, names: tuple, *tensors):
+def _steps_program(model: Model, opt: Adam, cfg: TrainCfg, mesh: Optional[Mesh],
+                   gates: Tuple[bool, ...], stacked: bool, names: tuple, *tensors):
     """The body of a train program: len(gates) steps, step i on the i-th
     entry of each input when `stacked`, else one step on the inputs as
     they are. Returns (metric names, *metrics), each metric [K] when
@@ -307,7 +365,7 @@ def _steps_program(model: Model, opt: Adam, cfg: TrainCfg, gates: Tuple[bool, ..
         at = {n: (t[i] if stacked else t) for n, t in given.items()}
         batch = RawBatch(**{n: at[n] for n in _BATCH_FIELDS if n in at})
         draws = [at[f"draw{j}"] for j in range(n_draws)]
-        steps.append(_device_step(model, opt, cfg, batch, updated, at.get("yx"), draws))
+        steps.append(_device_step(model, opt, cfg, batch, updated, at.get("yx"), draws, mesh))
     keys = tuple(sorted(steps[0]))
     if not stacked:
         return (keys, *(steps[0][k] for k in keys))
@@ -318,14 +376,21 @@ def _run_program(state: TrainState, gates: Tuple[bool, ...], stacked: bool, batc
                  yx, draws) -> Dict[str, torch.Tensor]:
     """The steps through the model's program for these gates (captured at
     its first call, replayed after), or eagerly where the model's programs
-    do not capture; then the host's counters advance."""
-    model, opt, cfg = state.model, state.optimizer, state.cfg
+    do not capture or the state's mesh cannot be captured (gloo); then the
+    host's counters advance."""
+    model, opt, cfg, mesh = state.model, state.optimizer, state.cfg, state.mesh
     names, tensors = _program_inputs(batch, yx, draws)
-    key = (_steps_program, model, opt, cfg, gates, stacked, names, opt.hyperparameters())
-    writes = [*model.parameters(), *model.buffers(), *opt.state_tensors()]
-    keys, *values = model.programs.run(
-        key, tensors, lambda *ts: _steps_program(model, opt, cfg, gates, stacked, names, *ts),
-        writes=writes, pool="train")
+
+    def fn(*ts):
+        return _steps_program(model, opt, cfg, mesh, gates, stacked, names, *ts)
+
+    if mesh is not None and not mesh.captures:
+        keys, *values = fn(*tensors)
+    else:
+        key = (_steps_program, model, opt, cfg, mesh, gates, stacked, names,
+               opt.hyperparameters())
+        writes = [*model.parameters(), *model.buffers(), *opt.state_tensors()]
+        keys, *values = model.programs.run(key, tensors, fn, writes=writes, pool="train")
     _advance(state, gates)
     return dict(zip(keys, values))
 

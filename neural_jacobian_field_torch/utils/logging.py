@@ -39,10 +39,17 @@ def _float_leaves(tree, prefix: str = ""):
 
 def get_sanity_metrics(tree, prefix: str = "") -> Dict[str, float]:
     """Min and max of every float tensor, as host floats."""
+    return {k: float(v) for k, v in get_sanity_metrics_traced(tree, prefix).items()}
+
+
+def get_sanity_metrics_traced(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Min and max of every float tensor as 0-d tensors on its device, read
+    by nothing on the host (a captured train step carries them)."""
     out = {}
     for name, leaf in _float_leaves(tree, prefix):
-        out[f"{name}_min"] = float(leaf.min())
-        out[f"{name}_max"] = float(leaf.max())
+        leaf = leaf.detach()
+        out[f"{name}_min"] = leaf.amin()
+        out[f"{name}_max"] = leaf.amax()
     return out
 
 

@@ -1468,3 +1468,35 @@ def test_train_program_capture_waits_on_no_host_sync(dev, mode):
         torch.cuda.set_sync_debug_mode("default")
     assert len(state.model.programs) == 3
     assert all(bool(torch.isfinite(t).all()) for t in out)
+
+
+@pytest.mark.parametrize("mode", ["epipolar"])
+def test_one_rank_nccl_train_program_is_the_plain_step(dev, mode, tmp_path):
+    """The data-parallel step on a one-rank NCCL mesh (parallel/mesh.py: the
+    global BatchNorm statistics, loss means and metrics, the gradients'
+    all-reduce, all captured in the train programs) against the same steps
+    with no mesh, from the same state and randomness: every metric,
+    parameter, statistic and Adam tensor bit for bit (one rank's sums are
+    its own; NCCL's average multiplies by 1)."""
+    from neural_jacobian_field_torch.parallel import close_mesh, make_mesh
+    from neural_jacobian_field_torch.training import create_train_state, step_randomness
+
+    plain = _train_state(dev, mode)
+    batch = _train_batch(dev)
+    g = _gen(7)
+    randomness = [step_randomness(plain, batch, g) for _ in range(4)]
+    mesh = make_mesh(dev, f"file://{tmp_path / 'rendezvous'}", 0, 1)
+    try:
+        meshed = _train_state(dev, mode)
+        meshed = create_train_state(meshed.model, meshed.cfg, mesh=mesh)
+        out = {}
+        for name, state in (("plain", plain), ("mesh", meshed)):
+            metrics = _train_calls(state, batch, randomness)
+            torch.cuda.synchronize()
+            out[name] = [t.clone() for t in metrics + _train_tensors(state)]
+        assert len(meshed.model.programs) == 3
+    finally:
+        close_mesh()
+    assert len(out["plain"]) == len(out["mesh"])
+    for i, (a, b) in enumerate(zip(out["plain"], out["mesh"])):
+        assert torch.equal(a, b), i

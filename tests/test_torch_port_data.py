@@ -199,6 +199,45 @@ def test_loader_per_item_path_and_threads(scenes, no_native):
                for b in batches)
 
 
+@pytest.mark.parametrize("workers", [0, 3])
+@pytest.mark.parametrize("mode", ["perception", "tracks"])
+def test_sharded_loader_rows_make_the_global_batch(scenes, mode, workers):
+    """DataLoader(shard=(rank, size)), the data-parallel loader: the two
+    ranks' rows of each global batch, in rank order, are the one-rank
+    loader's batch bit for bit, with worker threads or without and whatever
+    else draws from the global streams meanwhile; another seed gives other
+    batches; a batch that does not divide over the ranks raises."""
+    from neural_jacobian_field_torch.data import DataLoader, get_dataset
+
+    _, tcfg = _cfgs(scenes / "port", **MODES[mode])
+    ds = get_dataset(tcfg, "train")
+
+    def batches(shard, n_workers=0, seed=5):
+        loader = DataLoader(ds, 4, num_tracks=24 if mode == "tracks" else None,
+                            num_workers=n_workers, seed=seed, shard=shard)
+        it, out = iter(loader), []
+        for _ in range(3):
+            random.random()  # draws of the global streams between batches
+            np.random.rand()
+            out.append(next(it))
+        loader.close()
+        return out
+
+    whole = batches((0, 1))
+    parts = [batches((r, 2), workers) for r in range(2)]
+    for t, want in enumerate(whole):
+        for name in want.__dataclass_fields__:
+            w = getattr(want, name)
+            if w is None:
+                assert getattr(parts[0][t], name) is None, name
+                continue
+            got = torch.cat([getattr(p[t], name) for p in parts])
+            assert got.dtype == w.dtype and torch.equal(got, w), (t, name)
+    assert not torch.equal(batches((0, 1), seed=6)[0].ctxt_rgb, whole[0].ctxt_rgb)
+    with pytest.raises(ValueError, match="does not divide"):
+        DataLoader(ds, 3, shard=(0, 2))
+
+
 def test_loader_native_path_emits_uint8(scenes):
     from neural_jacobian_field_torch.data import DataLoader, get_dataset
 

@@ -246,13 +246,11 @@ def test_bucket_covers_every_entry_once_in_order(n, hc, wc, hot):
 def k1_emulate(g, idx, w4, k, plan) -> torch.Tensor:
     """The kernels' gF [b, k, c] float32, vectorised: the CSR order (a
     stable sort), each texel's runs inside a piece summed in list order, a
-    texel's runs added in piece order. idx [b, n, q]: q = 4 corners (K1-bwd)
-    or q = 1 (the generalised scatter, row_scatter_csr); w4 None: unit
-    weights."""
+    texel's runs added in piece order. idx [b, n, 4] corner ids, w4 [b, n, 4]
+    their weights."""
     b, n, c = g.shape
-    q = idx.shape[-1]
-    e, length = q * n, plan.piece
-    rw = (torch.ones((b, e)) if w4 is None else w4.to(g.dtype).float().reshape(b, e))
+    e, length = 4 * n, plan.piece
+    rw = w4.to(g.dtype).float().reshape(b, e)
     keys = idx.reshape(b, e)
     order = torch.sort(keys, dim=1, stable=True).indices
     tex = torch.gather(keys, 1, order)
@@ -261,8 +259,8 @@ def k1_emulate(g, idx, w4, k, plan) -> torch.Tensor:
              | torch.cat([torch.ones((b, 1), dtype=torch.bool), tex[:, 1:] != tex[:, :-1]],
                          1).reshape(-1))
     run_id = torch.cumsum(start, 0) - 1
-    rows = g.float()[torch.arange(b)[:, None], order // q]
-    prod = (rows if w4 is None else rw.gather(1, order)[..., None] * rows).reshape(b * e, c)
+    rows = g.float()[torch.arange(b)[:, None], order // 4]
+    prod = (rw.gather(1, order)[..., None] * rows).reshape(b * e, c)
     runs = torch.zeros((int(run_id[-1]) + 1, c))
     for j in range(length):
         sel = pos % length == j

@@ -44,7 +44,8 @@ print(len(names))
 CLI_MODULES = (
     "config", "config.common", "config.tools", "data",
     "data.augmentation", "data.conventions", "data.dataparser", "data.dataset",
-    "data.image_io", "data.loader", "data.native", "data.synthetic", "ops.grid_sample",
+    "data.image_io", "data.loader", "data.native", "data.streams", "data.synthetic",
+    "ops.grid_sample",
     "parallel", "parallel.prefetch", "utils.logging", "utils.metrics", "utils.profiling",
     "visualization", "visualization.validation", "visualization.view_interpolation", "train",
     "verify_e2e")
@@ -54,6 +55,11 @@ CLI_MODULES = (
 TOOLS_MODULES = (
     "ops", "ops.compositing", "inference", "inference.sensitivity", "inference.loaders",
     "utils.device", "utils.port_torch", "utils.from_jax", "flow", "flow.raft", "ingest")
+
+# data parallelism across cards and the real-world examples
+PARALLEL_MODULES = (
+    "parallel.mesh", "parallel.launch", "parallel.dryrun", "tutorials.real_world_1_visualize",
+    "tutorials.real_world_2_inverse_dynamics", "tutorials.real_world_3_closed_loop_3d")
 
 
 def test_port_imports_without_jax():
@@ -65,7 +71,7 @@ def test_port_imports_without_jax():
     *_, listed, count = out.stdout.strip().splitlines()
     assert int(count) >= 20
     imported = set(listed.split())
-    missing = [m for m in CLI_MODULES + TOOLS_MODULES
+    missing = [m for m in CLI_MODULES + TOOLS_MODULES + PARALLEL_MODULES
                if f"neural_jacobian_field_torch.{m}" not in imported]
     assert not missing, missing
 
