@@ -1,0 +1,10 @@
+"""encode_ms.control: CUDA events around the benchmark's call of
+`Model.encode_image` in each request of the measured
+window (recorded in the traced run only), the mean per request."""
+
+import statistics
+
+
+def read(cell, out):
+    spans = out.context.get("spans", {}).get("encode_ms")
+    return statistics.fmean(spans) if spans else None
