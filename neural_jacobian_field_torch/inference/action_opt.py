@@ -14,6 +14,13 @@ formula written out in tensor ops, the best-loss tracking, the loss and
 action histories in preallocated buffers) is captured once and replayed per
 call, and nothing in it waits on the host. On the CPU the same Python runs
 eagerly.
+
+Each iteration of the Adam solve marks its phases (utils/profiling.py):
+"render" (the predicted flow, and its backward), "loss" (the objective and
+its backward) and "optimizer" (the update, the histories and the best
+action), on one iteration in `MARK_EVERY`; the iterations between are
+marked as a whole ("iterations", shared among the three in the proportion
+the marked ones give them).
 """
 
 from typing import NamedTuple, Optional
@@ -21,9 +28,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.model import CameraInput, Model, ModelInferenceEncoding, RobotInput
+from ..utils import profiling
 
 # optax.adam's defaults
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
+# the Adam solve marks its phases on every MARK_EVERY-th iteration
+MARK_EVERY = 10
 
 
 def _bias_correction(decay: float, step: int) -> float:
@@ -69,14 +79,17 @@ def _adam_solve(model: Model, num_iters: int, learning_rate: float, reg_multipli
     predict = _predictor(model, action_features, weights, positions, trgt_extrinsics,
                          trgt_intrinsics)
 
-    def loss_fn(action):
-        err = (predict(action) - target) ** 2
-        if mask:
-            err = err * mask[0][..., None]
-            loss = err.sum() / torch.clamp(mask[0].sum(), min=1.0)
-        else:
-            loss = err.mean()
-        return loss + reg_multiplier * (action ** 2).mean()
+    def loss_fn(action, marked=True):
+        with profiling.layer("render", exit_mark=False, on=marked) as lay:
+            flow = lay.output(predict(action))
+        with profiling.layer("loss", exit_mark=False, on=marked):
+            err = (flow - target) ** 2
+            if mask:
+                err = err * mask[0][..., None]
+                loss = err.sum() / torch.clamp(mask[0].sum(), min=1.0)
+            else:
+                loss = err.mean()
+            return loss + reg_multiplier * (action ** 2).mean()
 
     action = action0.detach()
     m, v = torch.zeros_like(action), torch.zeros_like(action)
@@ -84,25 +97,30 @@ def _adam_solve(model: Model, num_iters: int, learning_rate: float, reg_multipli
     losses = action.new_empty((num_iters,))
     actions = action.new_empty((num_iters, *action.shape))
     for step in range(1, num_iters + 1):
+        marked = (step - 1) % MARK_EVERY == 0
+        if (step - 1) % MARK_EVERY == 1:  # the first iteration after a marked one
+            profiling.mark("iterations")
         with torch.enable_grad():
             a = action.detach().requires_grad_(True)
-            loss = loss_fn(a)
+            loss = loss_fn(a, marked)
             (grad,) = torch.autograd.grad(loss, a)
-        loss = loss.detach()
-        losses[step - 1] = loss
-        actions[step - 1] = action
-        best_action = torch.where(loss < best_loss, action, best_action)
-        best_loss = torch.minimum(loss, best_loss)
-        # optax.scale_by_adam, then scale(-learning_rate), then apply_updates
-        m = (1 - _B1) * grad + _B1 * m
-        v = (1 - _B2) * (grad * grad) + _B2 * v
-        m_hat = m / _bias_correction(_B1, step)
-        v_hat = v / _bias_correction(_B2, step)
-        action = action + m_hat / (torch.sqrt(v_hat) + _EPS) * -learning_rate
+        with profiling.layer("optimizer", exit_mark=False, on=marked):
+            loss = loss.detach()
+            losses[step - 1] = loss
+            actions[step - 1] = action
+            best_action = torch.where(loss < best_loss, action, best_action)
+            best_loss = torch.minimum(loss, best_loss)
+            # optax.scale_by_adam, then scale(-learning_rate), then apply_updates
+            m = (1 - _B1) * grad + _B1 * m
+            v = (1 - _B2) * (grad * grad) + _B2 * v
+            m_hat = m / _bias_correction(_B1, step)
+            v_hat = v / _bias_correction(_B2, step)
+            action = action + m_hat / (torch.sqrt(v_hat) + _EPS) * -learning_rate
     with torch.no_grad():
         final_loss = loss_fn(action)
-    best_action = torch.where(final_loss < best_loss, action, best_action)
-    best_loss = torch.minimum(final_loss, best_loss)
+    with profiling.layer("optimizer", exit_mark=False):
+        best_action = torch.where(final_loss < best_loss, action, best_action)
+        best_loss = torch.minimum(final_loss, best_loss)
     return best_action, best_loss, losses, actions
 
 
@@ -123,9 +141,11 @@ def optimize_actions(model: Model, encoding: ModelInferenceEncoding,
                               device=encoding.weights.device) * action_init_var
     inputs = _inputs(encoding, camera_input, trgt_pixel_flow, visible_mask) + (action0,)
     key = (_adam_solve, model, num_iters, learning_rate, reg_multiplier, visible_mask is None)
-    return ActionOptResult(*model.programs.run(
-        key, inputs,
-        lambda *xs: _adam_solve(model, num_iters, learning_rate, reg_multiplier, *xs)))
+    with profiling.span("njf.solve", call=True):
+        return ActionOptResult(*model.programs.run(
+            key, inputs,
+            lambda *xs: _adam_solve(model, num_iters, learning_rate, reg_multiplier, *xs),
+            name="solve"))
 
 
 def _least_squares(model: Model, damping: float, action_features, weights, positions,
@@ -135,9 +155,11 @@ def _least_squares(model: Model, damping: float, action_features, weights, posit
     batch = weights.shape[0]
     action_dim = action_features.shape[-1] // 3
     a0 = torch.zeros((batch, action_dim), device=weights.device)
-    with torch.no_grad():
-        f0 = predict(a0)
-    jac = torch.func.jacfwd(predict)(a0)  # [B, R, 2, B, A]
+    with profiling.layer("render", exit_mark=False):
+        with torch.no_grad():
+            f0 = predict(a0)
+        jac = torch.func.jacfwd(predict)(a0)  # [B, R, 2, B, A]
+    profiling.mark("optimizer")
     jac = torch.einsum("brcba->brca", jac)
     resid = target - f0
     if mask:
@@ -164,7 +186,8 @@ def solve_actions_least_squares(model: Model, encoding: ModelInferenceEncoding,
     diagonal of J^T J). J comes from one forward-mode Jacobian over the
     cached encoding."""
     inputs = _inputs(encoding, camera_input, trgt_pixel_flow, visible_mask)
-    (action,) = model.programs.run(
-        (_least_squares, model, damping, visible_mask is None), inputs,
-        lambda *xs: _least_squares(model, damping, *xs))
+    with profiling.span("njf.solve", call=True):
+        (action,) = model.programs.run(
+            (_least_squares, model, damping, visible_mask is None), inputs,
+            lambda *xs: _least_squares(model, damping, *xs), name="solve_least_squares")
     return action

@@ -26,7 +26,15 @@ one launch per operation:
   of a name (`pool`), which must then never run concurrently;
 - launch accounting: a capture launches nothing, so the kernel wrappers'
   counts made while capturing are taken back and added on every replay:
-  `ops.kernels.launch_counts()` counts what ran.
+  `ops.kernels.launch_counts()` counts what ran;
+- spans and marks (utils/profiling.py): each program is registered there
+  and counts its captures and replays; a capture is a span
+  (`njf.program.capture`: `njf.program.warm_up`, `njf.program.graph`,
+  ended by a synchronize), and so is each part of a call (`njf.program.
+  replay`: `lookup`, `copy_in`, `launch`, `accounting`, `copy_out`) while
+  host spans are recorded; the function runs inside `profiling.program`,
+  so the layer marks it makes are captured with it (into a mark buffer
+  the program holds) and stamped by every replay.
 
 A program is keyed by its function and static arguments (`key`), the shapes,
 dtypes and devices of its inputs, and the addresses, dtypes and shapes of
@@ -45,6 +53,8 @@ import itertools
 
 import torch
 from torch import nn
+
+from ..utils import profiling
 
 
 def _launch_state() -> dict:
@@ -121,29 +131,46 @@ class CapturedProgram:
     other element is returned as it was at capture. The `writes` tensors,
     which fn updates in place, are put back after the warm-up and the
     capture; `pool` is the backend's memory pool to capture into (None: a
-    private one)."""
+    private one); `pid` is the program's identifier in utils/profiling.py
+    (None: a new one, named after fn)."""
 
-    def __init__(self, fn, inputs, backend, writes=(), pool=None):
+    def __init__(self, fn, inputs, backend, writes=(), pool=None, pid=None):
         self.backend = backend
+        self.pid = profiling.new_program(getattr(fn, "__name__", "program")) \
+            if pid is None else pid
+        device = inputs[0].device
         self.inputs = tuple(t.detach().clone(memory_format=torch.contiguous_format)
                             for t in inputs)
         capture = backend.capture if pool is None else functools.partial(backend.capture,
                                                                          pool=pool)
+        self.slots = profiling.mark_slots(device)  # outside the pool: it outlives the graph
+
+        def marked(*xs):
+            with profiling.program(self.pid, device, self.slots):
+                return fn(*xs)
+
         with torch.no_grad():
             saved = [t.detach().clone() for t in writes]
-        try:
-            backend.warm_up(fn, self.inputs)
-            before = _launch_state()
+        with profiling.span("njf.program.capture", always=True, program=self.pid):
             try:
-                with _no_collection():
-                    self._graph, outputs = capture(fn, self.inputs)
+                with profiling.span("njf.program.warm_up", always=True):
+                    backend.warm_up(marked, self.inputs)
+                before = _launch_state()
+                try:
+                    with profiling.span("njf.program.graph", always=True), _no_collection():
+                        self._graph, outputs = capture(marked, self.inputs)
+                finally:
+                    after = _launch_state()
+                    _set_launches(before)
             finally:
-                after = _launch_state()
-                _set_launches(before)
-        finally:
-            with torch.no_grad():
-                for t, s in zip(writes, saved):
-                    t.copy_(s)
+                with torch.no_grad():
+                    for t, s in zip(writes, saved):
+                        t.copy_(s)
+            # the span ends with the capture's device work, except under CUDA's
+            # sync debug mode, where nothing in a capture may wait
+            if device.type == "cuda" and torch.cuda.get_sync_debug_mode() == 0:
+                torch.cuda.synchronize(device)
+        profiling.captured(self.pid)
         self.launches = {name: (after[name][0] - n, after[name][1] - legacy)
                          for name, (n, legacy) in before.items()}
         self.outputs = tuple(outputs)
@@ -153,11 +180,15 @@ class CapturedProgram:
         """Copy the inputs into the static buffers (None keeps a buffer as it
         is), replay, count the launches; returns the static outputs, which
         the next replay overwrites. Nothing is recorded for autograd."""
-        for buf, t in zip(self.inputs, inputs):
-            if t is not None and t is not buf:
-                buf.copy_(t)
-        self.backend.replay(self._graph)
-        _set_launches(_launch_state(), self.launches)
+        with profiling.span("njf.program.copy_in"):
+            for buf, t in zip(self.inputs, inputs):
+                if t is not None and t is not buf:
+                    buf.copy_(t)
+        with profiling.span("njf.program.launch", program=self.pid):
+            self.backend.replay(self._graph)
+        with profiling.span("njf.program.accounting"):
+            _set_launches(_launch_state(), self.launches)
+            profiling.replayed(self.pid)
         return self.outputs
 
     @torch.no_grad()
@@ -165,10 +196,11 @@ class CapturedProgram:
         """Replay; returns copies of the outputs, or copies them into `out`
         (one destination per output) and returns it."""
         outputs = self.replay(*inputs)
-        if out is None:
-            return tuple(o.clone() if isinstance(o, torch.Tensor) else o for o in outputs)
-        for dst, o in zip(out, outputs):
-            dst.copy_(o)
+        with profiling.span("njf.program.copy_out"):
+            if out is None:
+                return tuple(o.clone() if isinstance(o, torch.Tensor) else o for o in outputs)
+            for dst, o in zip(out, outputs):
+                dst.copy_(o)
         return out
 
 
@@ -190,6 +222,14 @@ class ProgramCache:
         self.enabled = True
         self._programs = {}  # (key, signature) -> (resident signature, program)
         self._pools = {}  # pool name -> the backend's pool
+        self._ids = {}  # (key, signature) -> the program's identifier in profiling
+
+    def _pid(self, sig, name) -> int:
+        pid = self._ids.get(sig)
+        if pid is None:
+            pid = self._ids[sig] = profiling.new_program(name or getattr(sig[0][0], "__name__",
+                                                                          "program"))
+        return pid
 
     def captures(self, t: torch.Tensor) -> bool:
         """Whether a call on t's device runs as a captured program."""
@@ -205,30 +245,40 @@ class ProgramCache:
         finally:
             self.enabled = enabled
 
-    def get(self, key: tuple, inputs, fn, resident=(), writes=(),
-            pool=None) -> CapturedProgram:
+    @staticmethod
+    def _signature(key: tuple, inputs) -> tuple:
+        return (key, tuple((tuple(t.shape), t.dtype, t.device) for t in inputs))
+
+    def get(self, key: tuple, inputs, fn, resident=(), writes=(), pool=None,
+            name=None) -> CapturedProgram:
         """The program of `key` for inputs like `inputs`; fn (called as
         fn(*inputs)) is captured only where no program matches. fn reads
         `resident` and reads and updates `writes` in place; `pool` names the
-        memory pool it shares with the other programs of that name."""
-        sig = (key, tuple((tuple(t.shape), t.dtype, t.device) for t in inputs))
-        res = _resident(key, [*resident, *writes])
-        entry = self._programs.get(sig)
+        memory pool it shares with the other programs of that name; `name`
+        names the program in utils/profiling.py (None: key[0]'s name)."""
+        with profiling.span("njf.program.lookup"):
+            sig = self._signature(key, inputs)
+            res = _resident(key, [*resident, *writes])
+            entry = self._programs.get(sig)
         if entry is None or entry[0] != res:
             self._programs.pop(sig, None)  # free the superseded program's pool first
             if pool is not None and pool not in self._pools:
                 self._pools[pool] = self.backend.pool()
             entry = (res, CapturedProgram(fn, inputs, self.backend, writes,
-                                          self._pools.get(pool)))
+                                          self._pools.get(pool), self._pid(sig, name)))
             self._programs[sig] = entry
         return entry[1]
 
-    def run(self, key: tuple, inputs, fn, resident=(), writes=(), pool=None):
+    def run(self, key: tuple, inputs, fn, resident=(), writes=(), pool=None, name=None):
         """fn(*inputs): replayed from its program (copies of the outputs)
-        where this cache captures inputs[0]'s device, else run eagerly."""
+        where this cache captures inputs[0]'s device, else run eagerly (its
+        marks then the program's last run)."""
         if self.captures(inputs[0]):
-            return self.get(key, inputs, fn, resident, writes, pool)(*inputs)
-        return fn(*inputs)
+            with profiling.span("njf.program.replay"):
+                return self.get(key, inputs, fn, resident, writes, pool, name)(*inputs)
+        pid = self._pid(self._signature(key, inputs), name)
+        with profiling.program(pid, inputs[0].device, eager=True):
+            return fn(*inputs)
 
     def __len__(self) -> int:
         return len(self._programs)

@@ -24,6 +24,7 @@ from ..rendering.geometry import project_world_coords_to_camera
 from ..rendering.samplers import (
     ProposalSamplerCfg, RayBundle, proposal_anneal, proposal_sample, sdist_edges,
     tdist_edges)
+from ..utils import profiling
 from .decoders import (
     DECODERS,
     ActionDecoderFlowMlpCfg,
@@ -265,18 +266,22 @@ class Model(nn.Module):
         """The context image's features (the encoder in training mode with
         `train`); in the pyramid layout the levels are packed here (K6) for
         the knot gathers."""
-        features = self.encoder(image, train)
-        if self.compute_dtype is not None:
-            features = features.to(self.compute_dtype)
+        with profiling.layer("encoder") as lay:
+            features = self.encoder(image, train)
+            if self.compute_dtype is not None:
+                features = features.to(self.compute_dtype)
+            features = lay.output(features)
         if isinstance(features, FeaturePyramid):
-            features = pack_pyramid(features)
+            with profiling.layer("features") as lay:
+                features = lay.output(pack_pyramid(features))
         return features
 
     def features_program(self, image: torch.Tensor):
         """The serving encoder (`encode_features`) as a captured program for
         images like `image`; its outputs are the features' `feature_fields`."""
         return self.programs.get((Model.encode_features, self), (image,),
-                                 lambda x: feature_fields(self.encode_features(x)))
+                                 lambda x: feature_fields(self.encode_features(x)),
+                                 name="features")
 
     def compute_pixel_encoding(self, camera_input: CameraInput,
                                robot_input: RobotInput, train: bool = False) -> PixelEncoding:
@@ -300,11 +305,13 @@ class Model(nn.Module):
         if (self.cfg.rendering.pixel_feature_mode != "epipolar"
                 or not isinstance(pixel_encoding.features, PackedPyramid)):
             return pixel_encoding
-        knots = build_ray_knots(pixel_encoding.features, ray_bundle.origins,
-                                ray_bundle.directions, ray_bundle.nears[..., 0],
-                                ray_bundle.fars[..., 0], pixel_encoding.extrinsics,
-                                pixel_encoding.intrinsics,
-                                num_knots=tuple(self.cfg.rendering.epipolar_knots))
+        with profiling.layer("features") as lay:
+            knots = build_ray_knots(pixel_encoding.features, ray_bundle.origins,
+                                    ray_bundle.directions, ray_bundle.nears[..., 0],
+                                    ray_bundle.fars[..., 0], pixel_encoding.extrinsics,
+                                    pixel_encoding.intrinsics,
+                                    num_knots=tuple(self.cfg.rendering.epipolar_knots))
+            knots = lay.output(knots)
         return replace(pixel_encoding, features=knots)
 
     def compute_proposal(self, ray_bundle: RayBundle, pixel_encoding: PixelEncoding,
@@ -315,13 +322,15 @@ class Model(nn.Module):
         ctx = ctx or StepCtx()
         density_fns = [(lambda xyz, net=net: net(xyz, pixel_encoding))
                        for net in self.proposal_networks]
-        ray_samples, weights_list, ray_samples_list = proposal_sample(
-            ray_bundle, density_fns, self.sampler_cfg, anneal=ctx.anneal,
-            updated=ctx.updated, stratified=stratified, generator=ctx.generator,
-            draws=ctx.draws)
-        positions = ray_samples.get_positions()
-        directions = ray_bundle.directions[..., None, :].expand(positions.shape)
-        return ray_samples, positions, directions, weights_list, ray_samples_list
+        with profiling.layer("sampler") as lay:
+            ray_samples, weights_list, ray_samples_list = proposal_sample(
+                ray_bundle, density_fns, self.sampler_cfg, anneal=ctx.anneal,
+                updated=ctx.updated, stratified=stratified, generator=ctx.generator,
+                draws=ctx.draws)
+            positions = ray_samples.get_positions()
+            directions = ray_bundle.directions[..., None, :].expand(positions.shape)
+            return lay.output((ray_samples, positions, directions, weights_list,
+                               ray_samples_list))
 
     @staticmethod
     def render_optical_flow(weights, ray_positions, scene_flow, trgt_extrinsics,
@@ -368,8 +377,18 @@ class Model(nn.Module):
         pixel_encoding = self.attach_ray_features(pixel_encoding, ray_bundle)
         ray_samples, positions, directions, weights_list, ray_samples_list = (
             self.compute_proposal(ray_bundle, pixel_encoding, ctx, stratified=train))
-        dec = self.decoder(positions, directions, pixel_encoding, flow=render_flow,
-                           features=compute_vis_features)
+        with profiling.layer("decoder") as lay:
+            dec = lay.output(self.decoder(positions, directions, pixel_encoding,
+                                          flow=render_flow, features=compute_vis_features))
+        with profiling.layer("render") as lay:
+            return lay.output(self._render(dec, ray_samples, positions, weights_list,
+                                           ray_samples_list, camera_input, render_flow,
+                                           compute_vis_features, train))
+
+    def _render(self, dec, ray_samples, positions, weights_list, ray_samples_list,
+                camera_input, render_flow, compute_vis_features, train) -> ModelOutput:
+        """Compositing, depth and flow of the decoded samples (render_rays'
+        last part)."""
         weights = ray_samples.get_weights(dec.density)
         rgb = torch.sum(weights * dec.color, dim=-2)
         steps = (ray_samples.starts + ray_samples.ends) / 2
@@ -408,8 +427,9 @@ class Model(nn.Module):
                   camera_input.ctxt_intrinsics, robot_input.robot_action,
                   rendering_input.origins, rendering_input.directions,
                   rendering_input.z_near, rendering_input.z_far)
-        return ModelInferenceEncoding(*self.programs.run(
-            (Model._encode_image, self), inputs, self._encode_image))
+        with profiling.span("njf.encode", call=True):
+            return ModelInferenceEncoding(*self.programs.run(
+                (Model._encode_image, self), inputs, self._encode_image, name="encode"))
 
     def _encode_image(self, image, ctxt_extrinsics, ctxt_intrinsics, action, origins,
                       directions, z_near, z_far):
@@ -419,8 +439,11 @@ class Model(nn.Module):
                                        intrinsics=ctxt_intrinsics, action=action)
         pixel_encoding = self.attach_ray_features(pixel_encoding, ray_bundle)
         ray_samples, positions, _, _, _ = self.compute_proposal(ray_bundle, pixel_encoding)
-        density, action_features = self.decoder.encode_image(positions, pixel_encoding)
-        return density, action_features, ray_samples.get_weights(density), positions
+        with profiling.layer("decoder"):
+            density, action_features = self.decoder.encode_image(positions, pixel_encoding)
+        with profiling.layer("render"):
+            weights = ray_samples.get_weights(density)
+        return density, action_features, weights, positions
 
     def infer_optical_flow(self, encoding: ModelInferenceEncoding,
                            camera_input: CameraInput,

@@ -12,6 +12,7 @@ from ..ops.epipolar import KnotFeatures, RayKnots, knot_features
 from ..ops.grid_sample import grid_sample_bilinear
 from ..ops.pixel_gather import PackedPyramid, pyramid_pixel_levels
 from ..rendering.geometry import homogenize_points, project_z_divide, transform_world2cam
+from ..utils import profiling
 
 
 def get_pixel_aligned_features(
@@ -26,7 +27,13 @@ def get_pixel_aligned_features(
     coarse) [B, N, C_l] of a PackedPyramid, whose concatenation in that order
     is the reference's [B, N, 512] feature (the ResnetFC trunks take them
     level by level), or, for a concat map [B, Hf, Wf, C], its bilinear
-    samples [B, N, C] (align_corners=True, border padding)."""
+    samples [B, N, C] (align_corners=True, border padding). A "features"
+    layer of utils/profiling.py."""
+    with profiling.layer("features") as lay:
+        return lay.output(_pixel_aligned(coords_3d_world, cam2world, intrinsics, img_features))
+
+
+def _pixel_aligned(coords_3d_world, cam2world, intrinsics, img_features):
     c3d_cam_hom = transform_world2cam(homogenize_points(coords_3d_world), cam2world[:, None])
     c2d_cam, _ = project_z_divide(c3d_cam_hom, intrinsics[:, None])
     if isinstance(img_features, torch.Tensor):

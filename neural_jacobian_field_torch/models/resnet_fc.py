@@ -32,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.epipolar import KnotFeatures
+from ..utils import profiling
 from . import initializers as init
 
 
@@ -109,14 +110,16 @@ class ResnetFC(nn.Module):
 
     def forward(self, z, x: torch.Tensor, compute_features: bool = False):
         """The output [..., d_out] float32; with compute_features, (output,
-        the block outputs concatenated [..., n_blocks * d_hidden] float32)."""
-        if self.remat and torch.is_grad_enabled():
-            # the trunks draw no randomness (every draw is passed in), so no
-            # RNG state is kept for the recompute: reading the CUDA RNG state
-            # would fail inside a CUDA-graph capture
-            return checkpoint(self._forward, z, x, compute_features, use_reentrant=False,
-                              preserve_rng_state=False)
-        return self._forward(z, x, compute_features)
+        the block outputs concatenated [..., n_blocks * d_hidden] float32).
+        A "field" layer of utils/profiling.py."""
+        with profiling.layer("field") as lay:
+            if self.remat and torch.is_grad_enabled():
+                # the trunks draw no randomness (every draw is passed in), so no
+                # RNG state is kept for the recompute: reading the CUDA RNG state
+                # would fail inside a CUDA-graph capture
+                return lay.output(checkpoint(self._forward, z, x, compute_features,
+                                             use_reentrant=False, preserve_rng_state=False))
+            return lay.output(self._forward(z, x, compute_features))
 
     def _forward(self, z, x: torch.Tensor, compute_features: bool):
         cfg, dt = self.cfg, self.compute_dtype

@@ -64,6 +64,7 @@ _SIGNATURES = {
                         _I, _I, _P),
     "njf_small_scatter": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "njf_upsample_bwd": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "njf_mark": (_P, _P),
 }
 
 

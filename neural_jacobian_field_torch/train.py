@@ -36,10 +36,15 @@ It runs on the card unless `--device cpu` (or `device=` of `train`) asks
 for the CPU, and raises where there is no card. With `--profile N` it
 traces N dispatches of the steady window under torch.profiler: the first
 N after the first log point past the proposal warm-up (N below the log
-interval), the window's logged rate restarting after them. At the end it
-writes <log_dir>/run.json: the loader's paths and the image decoders that
-served, the captured programs, the validation frames written, and the
-traced dispatches' device idle share.
+interval), the window's logged rate restarting after them; the trace goes
+to <log_dir>/trace.json (utils/profiling.trace: the port's host spans, and
+each program launch's layers on the device timeline over its kernels). At
+the end it writes <log_dir>/run.json: the loader's paths and the image
+decoders that served, the captured programs, the validation frames
+written, and, from the traced dispatches, the device idle share, the host
+spans by name, the last replay's layers per program
+(profiling.device_spans) and the programs' captures, replays and the
+kernels' launches.
 """
 
 import json
@@ -63,7 +68,7 @@ from .training import (MultiStepDispatch, TrainCfg, create_train_state, host_ste
 from .training.checkpoint import CheckpointManager, load_params_only
 from .utils.device import resolve_device
 from .utils.logging import MetricsLogger, maybe_init_wandb
-from .utils.profiling import device_idle_share
+from .utils import profiling
 
 __all__ = ["CONFIG_DIR", "Trainer", "train", "main"]
 
@@ -183,7 +188,8 @@ class Trainer:
         """One dispatch (steps_per_call steps) on the next staged batch;
         returns the step metrics (each [K] where K > 1)."""
         state = self.state
-        batch = next(self.device_iter)
+        with profiling.span("njf.loader.wait"):
+            batch = next(self.device_iter)
         if self.spc > 1:
             gates, ssu = [], state.steps_since_update
             for j in range(self.spc):
@@ -269,19 +275,34 @@ class Trainer:
         print(f"[val {step}] wrote frames -> {out}", flush=True)
 
     def profile(self, dispatches: int):
-        """The device's idle share over the next `dispatches` dispatches, as
-        torch.profiler sees it (utils/profiling.device_idle_share), into
-        run.json; returns the last dispatch's metrics."""
+        """The next `dispatches` dispatches under torch.profiler, written as
+        <log_dir>/trace.json (utils/profiling.trace); into run.json the
+        device's idle share (utils/profiling.device_idle_share), the host
+        spans recorded by name (count and ms), each program's last replay by
+        layer (device ms, self ms per step) and the counters. Returns the
+        last dispatch's metrics."""
+        from .ops.kernels import launch_counts
+
         first, metrics = self.state.step, []
-        out = device_idle_share(lambda: metrics.extend(self.dispatch()
-                                                       for _ in range(dispatches)),
-                                self.device)
-        self.info["profile"] = {"dispatches": dispatches, "steps": [first, self.state.step],
-                                **out}
+        log_dir = self.logger.log_dir if self.logger is not None else Path("logs")
+        profiling.clear()
+        out = profiling.device_idle_share(lambda: metrics.extend(
+            self.dispatch() for _ in range(dispatches)), self.device, str(log_dir))
+        spans = {}
+        for s in profiling.host_spans():
+            if s.end_ns is not None:
+                n, ms = spans.get(s.name, (0, 0.0))
+                spans[s.name] = (n + 1, ms + s.ms)
+        self.info["profile"] = {
+            "dispatches": dispatches, "steps": [first, self.state.step], **out,
+            "host_spans": {k: {"count": n, "ms": ms} for k, (n, ms) in sorted(spans.items())},
+            "programs": [{k: v for k, v in p.items() if k != "spans"}
+                         for p in profiling.device_spans()],
+            "counters": {"programs": profiling.counters(), "launches": launch_counts()}}
         share = "not measured" if out["idle_share"] is None else f"{out['idle_share']:.4f}"
         print(f"profile: {dispatches} dispatches (steps {first}-{self.state.step}), traced "
               f"wall {out['wall_ms']:.3f} ms, device busy {out['busy_ms']:.3f} ms, idle share "
-              f"{share}", flush=True)
+              f"{share}; trace {log_dir / 'trace.json'}", flush=True)
         return metrics[-1]
 
     def close(self):

@@ -41,7 +41,10 @@ program (reassigned, they make it be captured again; the warm-up calls
 before a capture leave them as they were); the gradients live in the
 program's memory pool, which the train programs of a model share; the
 metrics come back as copies. On the CPU, and inside `model.programs.eager()`,
-the same Python runs eagerly: `train_step` is that body.
+the same Python runs eagerly: `train_step` is that body. A call's host parts
+are spans (`njf.train.call`: split, randomness, stack, program, advance) and
+each step's layers are marked inside the program (`step`, then the model's
+layers, `loss` and `optimizer`; utils/profiling.py).
 
 Data parallelism (parallel/mesh.py): a state made with a mesh
 (`create_train_state(..., mesh=)`, parameters, buffers and Adam's state
@@ -73,6 +76,7 @@ from ..models.decoders import action_param_pattern
 from ..models.model import Model, StepCtx, step_anneal, step_schedules
 from ..ops.deterministic import deterministic_cudnn
 from ..parallel.mesh import Mesh, all_reduce, all_reduce_mean_, data_parallel, replicate, shard_rows
+from ..utils import profiling
 from ..utils.logging import get_sanity_metrics_traced
 from .losses import LossCfg, action_loss, perception_loss
 from .optim import Adam
@@ -281,18 +285,22 @@ def _device_step(model: Model, opt: Adam, cfg: TrainCfg, batch: RawBatch, update
     in it reads a value back to the host or touches the host's counters.
     With a mesh: the rank's rows, the global batch's statistics, loss and
     metrics, and the gradients averaged over the ranks."""
-    mi, mt = prepare_training_batch(batch, cfg.rays_per_batch, yx=yx, mode=cfg.mode)
-    ctx = StepCtx(anneal=step_anneal(opt.prepare(), model.cfg.rendering), updated=updated,
-                  draws=tuple(draws), render_flow=cfg.mode == "action" or cfg.log_sanity)
-    opt.zero_grad(set_to_none=True)
-    with deterministic_cudnn(), data_parallel(mesh):  # cuDNN's backward without atomics
-        out = model(mi, train=True, ctx=ctx)
-        loss_fn = perception_loss if cfg.mode == "perception" else action_loss
-        loss, metrics = loss_fn(out, mt, cfg.loss)
-        loss.backward()
-        if cfg.log_sanity:
-            metrics.update(_sanity_metrics(mi, mt, out, mesh))
-    _apply_gradients(opt, cfg, mesh)
+    with profiling.layer("step"):
+        mi, mt = prepare_training_batch(batch, cfg.rays_per_batch, yx=yx, mode=cfg.mode)
+        ctx = StepCtx(anneal=step_anneal(opt.prepare(), model.cfg.rendering), updated=updated,
+                      draws=tuple(draws), render_flow=cfg.mode == "action" or cfg.log_sanity)
+        opt.zero_grad(set_to_none=True)
+        with deterministic_cudnn(), data_parallel(mesh):  # cuDNN's backward without atomics
+            out = model(mi, train=True, ctx=ctx)
+            loss_fn = perception_loss if cfg.mode == "perception" else action_loss
+            with profiling.layer("loss") as lay:
+                loss, metrics = loss_fn(out, mt, cfg.loss)
+                loss = lay.output(loss)
+            loss.backward()
+            if cfg.log_sanity:
+                metrics.update(_sanity_metrics(mi, mt, out, mesh))
+        with profiling.layer("optimizer"):
+            _apply_gradients(opt, cfg, mesh)
     return metrics
 
 
@@ -384,14 +392,17 @@ def _run_program(state: TrainState, gates: Tuple[bool, ...], stacked: bool, batc
     def fn(*ts):
         return _steps_program(model, opt, cfg, mesh, gates, stacked, names, *ts)
 
-    if mesh is not None and not mesh.captures:
-        keys, *values = fn(*tensors)
-    else:
-        key = (_steps_program, model, opt, cfg, mesh, gates, stacked, names,
-               opt.hyperparameters())
-        writes = [*model.parameters(), *model.buffers(), *opt.state_tensors()]
-        keys, *values = model.programs.run(key, tensors, fn, writes=writes, pool="train")
-    _advance(state, gates)
+    with profiling.span("njf.train.program"):
+        if mesh is not None and not mesh.captures:
+            keys, *values = fn(*tensors)
+        else:
+            key = (_steps_program, model, opt, cfg, mesh, gates, stacked, names,
+                   opt.hyperparameters())
+            writes = [*model.parameters(), *model.buffers(), *opt.state_tensors()]
+            keys, *values = model.programs.run(key, tensors, fn, writes=writes, pool="train",
+                                               name="train")
+    with profiling.span("njf.train.advance"):
+        _advance(state, gates)
     return dict(zip(keys, values))
 
 
@@ -406,9 +417,11 @@ def make_train_step(model: Model, cfg: TrainCfg, static_updated: Optional[bool] 
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         if state.model is not model or state.cfg != cfg:
             raise ValueError("make_train_step: the state is not of this model and config")
-        updated, _ = step_gate(state, static_updated)
-        yx, draws = step_randomness(state, batch, generator, yx, draws)
-        return _run_program(state, (updated,), False, batch, yx, draws)
+        with profiling.span("njf.train.call", call=True, steps=1):
+            updated, _ = step_gate(state, static_updated)
+            with profiling.span("njf.train.randomness"):
+                yx, draws = step_randomness(state, batch, generator, yx, draws)
+            return _run_program(state, (updated,), False, batch, yx, draws)
 
     return step
 
@@ -433,22 +446,26 @@ def make_multi_train_step(model: Model, cfg: TrainCfg, steps_per_call: int,
             raise ValueError("make_multi_train_step: the state is not of this model and "
                              "config")
         k = steps_per_call
-        at = [RawBatch(**{n: None if getattr(batch, n) is None else getattr(batch, n)[i]
-                          for n in _BATCH_FIELDS}) for i in range(k)]
-        drawn = [step_randomness(state, at[i], generator,
-                                 None if yx is None else yx[i],
-                                 None if draws is None else [d[i] for d in draws])
-                 for i in range(k)]
-        if static_schedule is None:
-            out = []
-            for i in range(k):
-                updated, _ = step_gate(state)
-                out.append(_run_program(state, (updated,), False, at[i], *drawn[i]))
-            return {n: torch.stack([m[n] for m in out]) for n in out[0]}
-        yx = None if drawn[0][0] is None else torch.stack([d[0] for d in drawn])
-        draws = [torch.stack(ds) for ds in zip(*(d[1] for d in drawn))]
-        return _run_program(state, tuple(bool(g) for g in static_schedule), True, batch,
-                            yx, draws)
+        with profiling.span("njf.train.call", call=True, steps=k):
+            with profiling.span("njf.train.split"):
+                at = [RawBatch(**{n: None if getattr(batch, n) is None else getattr(batch, n)[i]
+                                  for n in _BATCH_FIELDS}) for i in range(k)]
+            with profiling.span("njf.train.randomness"):
+                drawn = [step_randomness(state, at[i], generator,
+                                         None if yx is None else yx[i],
+                                         None if draws is None else [d[i] for d in draws])
+                         for i in range(k)]
+            if static_schedule is None:
+                out = []
+                for i in range(k):
+                    updated, _ = step_gate(state)
+                    out.append(_run_program(state, (updated,), False, at[i], *drawn[i]))
+                return {n: torch.stack([m[n] for m in out]) for n in out[0]}
+            with profiling.span("njf.train.stack"):
+                yx = None if drawn[0][0] is None else torch.stack([d[0] for d in drawn])
+                draws = [torch.stack(ds) for ds in zip(*(d[1] for d in drawn))]
+            return _run_program(state, tuple(bool(g) for g in static_schedule), True, batch,
+                                yx, draws)
 
     return step
 

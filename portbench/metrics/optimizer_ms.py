@@ -1,0 +1,13 @@
+"""optimizer_ms.train, .action and .control (the suffix names the end-to-end
+metric it moves): device ms a step (a request, in .control) in the optimizer
+(zero-fill, clipping, Adam; in .control the solve's update, histories and
+best action), the self time of its marks (harness/spans.py: the last replay
+of the cell's programs)."""
+
+from portbench.harness import spans
+
+LAYERS = ("optimizer",)
+
+
+def read(cell, out):
+    return spans.layers_ms(cell, LAYERS)

@@ -119,7 +119,9 @@ def test_profile_traces_a_dispatch_of_the_steady_window(scene, tmp_path):
     """`--profile 1` traces the first dispatch after the first log point
     past the proposal warm-up (steps 100-101 here), not one after the run;
     the next window's rate restarts after it. The dispatches are stand-ins
-    that only count steps, so the loop's schedule is what is tested."""
+    that only count steps, so the loop's schedule is what is tested; the
+    trace is written to trace.json and run.json holds the span table and
+    the counters."""
     from neural_jacobian_field_torch.config import CONFIG_DIR, get_typed_root_config, load_config
 
     cfg = get_typed_root_config(load_config(CONFIG_DIR, [
@@ -143,6 +145,9 @@ def test_profile_traces_a_dispatch_of_the_steady_window(scene, tmp_path):
     run = json.loads((tmp_path / "logs" / "run.json").read_text())
     assert run["profile"]["steps"] == [100, 101] and run["profile"]["dispatches"] == 1
     assert run["profile"]["idle_share"] is None  # no device on the CPU: not measured
+    assert (tmp_path / "logs" / "trace.json").exists()
+    assert {"host_spans", "programs", "counters"} <= set(run["profile"])
+    assert set(run["profile"]["counters"]) == {"programs", "launches"}
     assert calls == list(range(300)) and run["steps"] == 300
     rows = [json.loads(line) for line in (tmp_path / "logs" / "metrics.jsonl").read_text()
             .splitlines()]
@@ -304,20 +309,14 @@ def test_validation_video_frames(scene):
 
 
 def test_profiling_helpers_on_cpu(tmp_path):
-    """trace() writes a Chrome trace, annotate() names a range in it, the
-    host StepTimer skips its warm-up steps, device_idle_share reports no
-    idle share for a CPU run (no device timeline)."""
-    from neural_jacobian_field_torch.utils.profiling import (
-        StepTimer, annotate, device_idle_share, trace)
+    """trace() writes a Chrome trace, span() names a range in it,
+    device_idle_share reports no idle share for a CPU run (no device
+    timeline)."""
+    from neural_jacobian_field_torch.utils.profiling import device_idle_share, span, trace
 
     with trace(str(tmp_path)):
-        with annotate("njf_span"):
+        with span("njf_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert "njf_span" in (tmp_path / "trace.json").read_text()
-    timer = StepTimer(skip=2)
-    assert timer.mean_step_time is None
-    for _ in range(6):
-        timer.tick()
-    assert timer.mean_step_time is not None and timer.mean_step_time >= 0.0
     out = device_idle_share(lambda: torch.ones(8).sum(), "cpu")
     assert out["busy_ms"] == 0.0 and out["idle_share"] is None and out["wall_ms"] > 0

@@ -1470,6 +1470,85 @@ def test_train_program_capture_waits_on_no_host_sync(dev, mode):
     assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
+def _six_step_call(state, batch, seed=7):
+    """One call of the 6-step stage-1 program (5 frozen steps, 1 update),
+    its randomness from a seeded generator; returns the program."""
+    from neural_jacobian_field_torch.training import make_multi_train_step, stack_batches
+
+    step = make_multi_train_step(state.model, state.cfg, 6,
+                                 static_schedule=(False,) * 5 + (True,))
+    step(state, stack_batches([batch] * 6), generator=_gen(seed))
+    (program,) = list(state.model.programs)
+    return program
+
+
+def test_captured_marks_cover_the_replay(dev):
+    """A captured stage-1 program's layer marks (utils/profiling.py) cover
+    its replay: from the first mark to the last is within 2% of CUDA events
+    around the graph's replay, every layer has time, the self times sum to
+    it, and no mark was dropped."""
+    from neural_jacobian_field_torch.utils import profiling
+
+    state = _train_state(dev, "epipolar")
+    program = _six_step_call(state, _train_batch(dev))
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        program.backend.replay(program._graph)
+        b.record()
+        torch.cuda.synchronize()
+        (run,) = [r for r in profiling.device_spans("train") if r["id"] == program.pid]
+        events = a.elapsed_time(b)
+        assert abs(run["device_ms"] - events) <= 0.02 * events, (run["device_ms"], events)
+    assert run["steps"] == 6 and run["dropped"] == 0 and run["marks"] > 100
+    assert set(run["self_ms"]) >= set(profiling.LAYERS)
+    assert sum(run["self_ms"].values()) == pytest.approx(run["device_ms"], rel=1e-9)
+    assert run["self_ms"][profiling.UNATTRIBUTED] <= 0.1 * run["device_ms"]
+
+
+def test_marks_leave_a_replay_bit_identical(dev, monkeypatch):
+    """Parameters, BatchNorm statistics and Adam's state after a 6-step
+    replay are the same bits whether the program was captured with its
+    layer marks or with them off (NJF_SPANS=0's switch), and so are the
+    call's metrics."""
+    from neural_jacobian_field_torch.utils import profiling
+
+    batch = _train_batch(dev)
+    got = {}
+    for on in (True, False):
+        monkeypatch.setattr(profiling, "ENABLED", on)
+        state = _train_state(dev, "epipolar")
+        program = _six_step_call(state, batch)
+        torch.cuda.synchronize()
+        got[on] = [t.clone() for t in _train_tensors(state)] + [
+            o.clone() for o in program.outputs if isinstance(o, torch.Tensor)]
+        assert (program.slots is not None) == on
+    assert len(got[True]) == len(got[False])
+    assert all(torch.equal(a, b) for a, b in zip(got[True], got[False]))
+
+
+def test_second_capture_of_a_key_is_counted(dev):
+    """encode_image captured, replayed, then captured again once its weights
+    moved (reassigned, not loaded in place): its program's `captures`
+    counter reads 2 and `replays` 3, and a capture span is recorded for
+    each capture."""
+    from neural_jacobian_field_torch.utils import profiling
+
+    model = _serving_model(dev, "epipolar")
+    cam, ri, robot = _serving_scene(dev)
+    captures = len(profiling.host_spans("njf.program.capture"))
+    for _ in range(2):
+        model.encode_image(cam, ri, robot)
+    for p in model.parameters():
+        p.data = p.data.clone()
+    model.encode_image(cam, ri, robot)
+    torch.cuda.synchronize()
+    pid = [p.pid for p in model.programs][0]
+    counts = [c for k, c in profiling.counters().items() if k == f"encode#{pid}"]
+    assert counts == [{"captures": 2, "replays": 3}]
+    assert len(profiling.host_spans("njf.program.capture")) == captures + 2
+
+
 @pytest.mark.parametrize("mode", ["epipolar"])
 def test_one_rank_nccl_train_program_is_the_plain_step(dev, mode, tmp_path):
     """The data-parallel step on a one-rank NCCL mesh (parallel/mesh.py: the
