@@ -1,10 +1,17 @@
 """Inverse dynamics: find the action whose predicted flow matches a target
 (PyTorch counterpart of inference/action_opt.py).
 
-The field is evaluated once (`Model.encode_image`); each iteration then
-touches only an einsum and a projection (`Model.infer_optical_flow`), so the
-100-step Adam loop costs no field evaluation. The closed-form alternative
-solves damped normal equations on the flow Jacobian at a = 0.
+The field is evaluated once (`Model.encode_image`). The flow is linear in
+the action up to the projection's divide by depth, so a solve composites
+the encoding along each ray once, before its iterations
+(`Model.composite_flow`: the per-sample Jacobian, [B, R, S, A * 3], read
+once into [B, R, A, 3], with the composited positions, both in the target
+camera's homogeneous pixel frame, and their projection). Each iteration then
+reads only that composite: the action's flow is a [B, R, A, 3] product
+summed over A, a divide by depth and a difference
+(`Model.composited_optical_flow`), forward and backward. The closed-form
+alternative solves damped normal equations on the flow Jacobian at a = 0,
+taken by forward mode through the same composite.
 
 As in the JAX package, where `optimize_actions` is one jit over a
 `lax.scan` and the least-squares solve one jit, each solver is one device
@@ -20,14 +27,15 @@ Each iteration of the Adam solve marks its phases (utils/profiling.py):
 its backward) and "optimizer" (the update, the histories and the best
 action), on one iteration in `MARK_EVERY`; the iterations between are
 marked as a whole ("iterations", shared among the three in the proportion
-the marked ones give them).
+the marked ones give them). The composite is "render" too, as its part
+"composite", which that proportion leaves out.
 """
 
 from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.model import CameraInput, Model, ModelInferenceEncoding, RobotInput
+from ..models.model import CameraInput, Model, ModelInferenceEncoding
 from ..utils import profiling
 
 # optax.adam's defaults
@@ -60,13 +68,16 @@ def _inputs(encoding: ModelInferenceEncoding, camera_input: CameraInput,
 
 def _predictor(model: Model, action_features, weights, positions, trgt_extrinsics,
                trgt_intrinsics):
-    """action [B, A] -> predicted flow [B, R, 2] over the cached encoding."""
-    encoding = ModelInferenceEncoding(density=None, action_features=action_features.detach(),
-                                      weights=weights.detach(),
-                                      ray_samples_positions=positions.detach())
+    """action [B, A] -> predicted flow [B, R, 2] over the cached encoding,
+    composited here, once."""
+    encoding = ModelInferenceEncoding(density=None, action_features=action_features,
+                                      weights=weights, ray_samples_positions=positions)
     cam = CameraInput(input_image=None, ctxt_extrinsics=None, ctxt_intrinsics=None,
                       trgt_extrinsics=trgt_extrinsics, trgt_intrinsics=trgt_intrinsics)
-    return lambda action: model.infer_optical_flow(encoding, cam, RobotInput(action))
+    with profiling.layer("render", exit_mark=False), \
+            profiling.layer("composite", exit_mark=False), torch.no_grad():
+        composite = model.composite_flow(encoding, cam)
+    return lambda action: model.composited_optical_flow(composite, action)
 
 
 def _adam_solve(model: Model, num_iters: int, learning_rate: float, reg_multiplier: float,

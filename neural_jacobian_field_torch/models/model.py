@@ -20,7 +20,9 @@ from torch import nn
 from ..inference.programs import ProgramCache
 from ..ops.pixel_gather import (
     FeaturePyramid, PackedPyramid, feature_fields, features_from_fields, pack_pyramid)
-from ..rendering.geometry import project_world_coords_to_camera
+from ..rendering.geometry import (
+    homogenize_points, homogenize_vecs, project_world_coords_to_camera, transform_world2cam,
+    z_divide)
 from ..rendering.samplers import (
     ProposalSamplerCfg, RayBundle, proposal_anneal, proposal_sample, sdist_edges,
     tdist_edges)
@@ -163,6 +165,22 @@ class ModelInferenceEncoding:
     action_features: torch.Tensor  # [B, R, S, A*3]
     weights: torch.Tensor  # [B, R, S, 1]
     ray_samples_positions: torch.Tensor  # [B, R, S, 3]
+
+
+@dataclass
+class FlowComposite:
+    """A cached encoding composited along each ray, in the target camera's
+    homogeneous pixel frame, for the flow of any action
+    (`Model.composite_flow`). The flow is linear in the action up to the
+    projection's divide by depth: with P = K [R | t]^-1 the target camera's
+    map from world to homogeneous pixel coordinates, P (sum_s w_s (x_s +
+    J_s a)) = P x + (P's linear part applied to J) a, where x = sum_s w_s
+    x_s and J = sum_s w_s J_s. A solve reads these in place of the
+    per-sample Jacobian."""
+
+    jacobian: torch.Tensor  # [B, R, A, 3]: J, by P's linear part
+    points: torch.Tensor  # [B, R, 3]: P x
+    uv: torch.Tensor  # [B, R, 2]: x projected (the flow's origin)
 
 
 @dataclass
@@ -445,19 +463,45 @@ class Model(nn.Module):
             weights = ray_samples.get_weights(density)
         return density, action_features, weights, positions
 
+    @staticmethod
+    def composite_flow(encoding: ModelInferenceEncoding,
+                       camera_input: CameraInput) -> FlowComposite:
+        """Composite the encoding's per-sample Jacobian and positions along
+        each ray, and take both into the target camera's homogeneous pixel
+        frame: one read of the Jacobian for any number of actions. The sums
+        over the samples are elementwise products and reductions in the
+        encoding's dtype (float32 as served), as render_optical_flow sums,
+        so no TF32 matmul enters them; the camera maps are the projection's
+        own einsums. Counted as the running program's composite
+        (utils/profiling.py)."""
+        profiling.composite()
+        weights = encoding.weights
+        jacobian = torch.sum(weights * encoding.action_features, dim=-2).unflatten(-1, (-1, 3))
+        positions = torch.sum(weights * encoding.ray_samples_positions, dim=-2)
+        ext, intr = camera_input.trgt_extrinsics, camera_input.trgt_intrinsics
+        # as project_world_coords_to_camera maps points; vectors by the linear part
+        cam = transform_world2cam(homogenize_points(positions), ext[:, None])
+        points = torch.einsum("...ij,...j->...i", intr[:, None], cam[..., :3])
+        cam = transform_world2cam(homogenize_vecs(jacobian), ext[:, None, None])
+        jacobian = torch.einsum("...ij,...j->...i", intr[:, None, None], cam[..., :3])
+        return FlowComposite(jacobian, points, z_divide(points)[..., :2])
+
+    @staticmethod
+    def composited_optical_flow(composite: FlowComposite, action: torch.Tensor) -> torch.Tensor:
+        """Flow [B, R, 2] of action [B, A]: the composite's points moved by
+        its Jacobian times the action, divided by depth, less the origin;
+        differentiable with respect to the action."""
+        xyw = composite.points + torch.sum(composite.jacobian * action[:, None, :, None], dim=-2)
+        return z_divide(xyw)[..., :2] - composite.uv
+
     def infer_optical_flow(self, encoding: ModelInferenceEncoding,
                            camera_input: CameraInput,
                            robot_input: RobotInput) -> torch.Tensor:
-        """Flow [B, R, 2] from a cached encoding: an einsum and a projection,
-        differentiable with respect to the action."""
-        action = robot_input.robot_action
-        af = encoding.action_features
-        j = af.reshape(*af.shape[:-1], action.shape[-1], -1)
-        scene_flow = torch.einsum("brsat,ba->brst", j, action)
-        optical_flow, _, _ = self.render_optical_flow(
-            encoding.weights, encoding.ray_samples_positions, scene_flow[..., :3],
-            camera_input.trgt_extrinsics, camera_input.trgt_intrinsics)
-        return optical_flow
+        """Flow [B, R, 2] from a cached encoding, differentiable with respect
+        to the action: the encoding composited (`composite_flow`), then the
+        action's flow from the composite (`composited_optical_flow`)."""
+        return self.composited_optical_flow(self.composite_flow(encoding, camera_input),
+                                            robot_input.robot_action)
 
 
 def make_model_cfg(action_decoder_name: str = "jacobian_transformer",

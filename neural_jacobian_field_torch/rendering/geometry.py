@@ -57,9 +57,12 @@ def project_z_divide(xyz_cam_hom: torch.Tensor, intrinsics: torch.Tensor,
                      eps: float = 1e-9):
     """Homogeneous camera-space points -> pixel coords. Returns (xyw[..., 3], z)."""
     xyw = torch.einsum("...ij,...j->...i", intrinsics, xyz_cam_hom[..., :3])
-    z = xyw[..., -1:]
-    xyw = xyw / (z + eps)
-    return xyw[..., :3], z
+    return z_divide(xyw, eps), xyw[..., -1:]
+
+
+def z_divide(xyw: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Homogeneous pixel coordinates [..., 3] over their last (z + eps)."""
+    return xyw / (xyw[..., -1:] + eps)
 
 
 def get_world_rays(coordinates_xy: torch.Tensor, intrinsics: torch.Tensor,

@@ -25,7 +25,10 @@ them (PyTorch counterpart of utils/profiling.py).
   registry keeps each program's marks of its last run (a replay, or an
   eager call), so that they outlive the program: `device_spans()` reads
   them after a synchronize.
-- Counters per program: `captures` and `replays` (`counters()`).
+- Counters per program (`counters()`): `captures` and `replays`, and
+  `composites`, the Jacobian composites (`composite`) its body formed in its
+  last run: the run a capture bakes into every replay, or the last eager
+  one.
 - `trace`: torch.profiler around a block, written as a Chrome trace with
   the layers of each traced program launch on the device's timeline;
   `device_idle_share`: the device's idle share as the profiler sees it.
@@ -55,6 +58,10 @@ UNATTRIBUTED = "unattributed"
 # proportion the same run's marked time gives them (a solve marks its
 # phases on some iterations only, and the rest as "iterations")
 SHARED = {"iterations": ("render", "loss", "optimizer")}
+# time marked as one of these is the named layer's, but is left out of the
+# proportions SHARED time is split by (a part of a layer that runs once a
+# program, not once an iteration: the solve's composite)
+PARTS = {"composite": "render"}
 SLOTS = 8192  # marks a program's run can hold on the card
 MAX_SPANS = 1 << 18  # host spans kept until clear()
 MAX_PROGRAMS = 256  # program records kept (the oldest dropped first)
@@ -113,6 +120,7 @@ class _Program:
     name: str
     captures: int = 0
     replays: int = 0
+    composites: int = 0  # formed by its body in its last run
     run: Optional[_Run] = None  # the run whose marks the last run stamped
     stamped: bool = False  # a replay (or an eager run) has written them
     sequence: int = 0  # registry-wide order of the last run
@@ -133,6 +141,7 @@ class _Local(threading.local):
     def __init__(self):
         self.stack = []  # open host spans: (index, call)
         self.runs = []  # open program runs
+        self.bodies = []  # the composites counted by each open program run
 
 
 _REG = _Registry()
@@ -288,25 +297,37 @@ def program(pid: int, device: torch.device, slots: Optional[torch.Tensor] = None
     program's (the one a capture bakes in, or, with `eager`, the last
     run)."""
     p = _REG.programs.get(pid)
-    if not ENABLED or p is None:
+    if p is None:
         yield
         return
-    run = _Run(device, slots if slots is not None else mark_slots(device))
-    _LOCAL.runs.append(run)
-    run.mark(())
+    run = _Run(device, slots if slots is not None else mark_slots(device)) if ENABLED else None
+    _LOCAL.bodies.append(0)
+    if run is not None:
+        _LOCAL.runs.append(run)
+        run.mark(())
     try:
         yield
     finally:
-        run.mark(())
-        _LOCAL.runs.pop()
-        p.run = run
-        if eager:
-            _ran(p)
+        p.composites = _LOCAL.bodies.pop()
+        if run is not None:
+            run.mark(())
+            _LOCAL.runs.pop()
+            p.run = run
+            if eager:
+                _ran(p)
+
+
+def composite() -> None:
+    """Count a Jacobian composite formed by the program run open (outside
+    any, nothing)."""
+    if _LOCAL.bodies:
+        _LOCAL.bodies[-1] += 1
 
 
 def counters() -> Dict[str, dict]:
-    """Captures and replays by program ("<name>#<id>")."""
-    return {f"{p.name}#{p.pid}": {"captures": p.captures, "replays": p.replays}
+    """Captures, replays and composites by program ("<name>#<id>")."""
+    return {f"{p.name}#{p.pid}": {"captures": p.captures, "replays": p.replays,
+                                  "composites": p.composites}
             for p in _REG.programs.values()}
 
 
@@ -475,10 +496,15 @@ def _summary(p: _Program) -> dict:
                 table[UNATTRIBUTED] += left
             if table is self_ns:
                 estimated += left
+    for part, owner in PARTS.items():
+        for table in [self_ns, *per_step.values()]:
+            if part in table:
+                table[owner] = table.get(owner, 0.0) + table.pop(part)
     steps = sorted(s for s in per_step if s >= 0)
     ms = {k: v / 1e6 for k, v in self_ns.items()}
     return {"program": p.name, "id": p.pid, "captures": p.captures, "replays": p.replays,
-            "call": p.call, "device_ms": (t[-1] - t[0]) / 1e6, "marks": len(t),
+            "composites": p.composites, "call": p.call, "device_ms": (t[-1] - t[0]) / 1e6,
+            "marks": len(t),
             "dropped": run.dropped, "steps": max(len(steps), 1), "self_ms": ms,
             "estimated_ms": estimated / 1e6,
             "per_step": [{k: v / 1e6 for k, v in per_step[s].items()} for s in steps],

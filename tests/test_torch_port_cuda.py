@@ -1321,6 +1321,43 @@ def test_serving_capture_waits_on_no_host_sync(dev, mode):
     assert all(bool(torch.isfinite(t.float()).all()) for t in out)
 
 
+def test_captured_solve_on_the_composite_is_the_per_sample_solve(dev, monkeypatch):
+    """The captured 100-step Adam solve at the control cell's shape (1 x
+    4,096 rays x 256 samples, 8 actions; float32) toward a realisable flow,
+    replayed, against an eager solve whose predictor is the per-sample
+    formula (tests/test_torch_port_solve.py's reference: the einsum over the
+    [B, R, S, A, 3] Jacobian each step): the best action within 1e-4
+    relative. The program's counter reads one composite a body run (its two
+    warm-ups and its capture each form one; replays run no body)."""
+    from neural_jacobian_field_torch.inference import action_opt
+    from neural_jacobian_field_torch.models.model import CameraInput, ModelInferenceEncoding
+    from neural_jacobian_field_torch.utils import profiling
+    from test_torch_port_solve import per_sample_flow, random_encoding
+
+    model = _serving_model(dev, "epipolar")
+    enc, cam = random_encoding(1, 4096, 256, 8, torch.float32, seed=11, device=dev,
+                               jacobian_scale=0.2)
+    a_star = 0.2 * torch.randn((1, 8), generator=_gen(12), device=dev)
+    target = per_sample_flow(enc, cam, a_star)
+    a0 = torch.full((1, 8), 1e-3, device=dev)
+
+    def predictor(model, action_features, weights, positions, trgt_extrinsics,
+                  trgt_intrinsics):
+        e = ModelInferenceEncoding(None, action_features, weights, positions)
+        c = CameraInput(None, None, None, trgt_extrinsics, trgt_intrinsics)
+        return lambda a: per_sample_flow(e, c, a)
+
+    with monkeypatch.context() as m, model.programs.eager():
+        m.setattr(action_opt, "_predictor", predictor)
+        want = action_opt.optimize_actions(model, enc, cam, target, action0=a0).action
+    for _ in range(3):  # the capture, then two replays
+        got = action_opt.optimize_actions(model, enc, cam, target, action0=a0).action
+    torch.cuda.synchronize()
+    assert float((got - want).norm()) <= 1e-4 * float(want.norm())
+    (program,) = list(model.programs)
+    assert profiling.counters()[f"solve#{program.pid}"] == {
+        "captures": 1, "replays": 3, "composites": 1}
+
 
 # ------------------------------------------- the train steps as CUDA graphs
 
@@ -1545,7 +1582,7 @@ def test_second_capture_of_a_key_is_counted(dev):
     torch.cuda.synchronize()
     pid = [p.pid for p in model.programs][0]
     counts = [c for k, c in profiling.counters().items() if k == f"encode#{pid}"]
-    assert counts == [{"captures": 2, "replays": 3}]
+    assert counts == [{"captures": 2, "replays": 3, "composites": 0}]
     assert len(profiling.host_spans("njf.program.capture")) == captures + 2
 
 

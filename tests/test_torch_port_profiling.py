@@ -165,9 +165,10 @@ def test_self_times_sum_to_the_root():
 
 
 def test_solve_marks_its_phases_and_one_call():
-    """The encode and the solve each start a call; the solve's marked
-    iterations give render, loss and optimizer, the others are shared among
-    them (estimated), and nothing is left as the pseudo-layer."""
+    """The encode and the solve each start a call; the solve's composite,
+    before its iterations, is render; its marked iterations give render,
+    loss and optimizer, the others are shared among them (estimated), and
+    nothing is left as the pseudo-layer or the part."""
     from neural_jacobian_field_torch.inference import action_opt
 
     state = _state()
@@ -179,8 +180,10 @@ def test_solve_marks_its_phases_and_one_call():
     assert roots[0].call != roots[1].call
     solve = spans.index(roots[1])
     names = _children(spans, solve)
-    assert names[:3] == ["njf.render", "njf.loss", "njf.optimizer"]
-    assert names.count("njf.render") == 3 + 1  # 3 marked iterations and the final score
+    assert names[:4] == ["njf.render", "njf.render", "njf.loss", "njf.optimizer"]
+    assert _children(spans, solve + 1) == ["njf.composite"]
+    # the composite, 3 marked iterations and the final score
+    assert names.count("njf.render") == 1 + 3 + 1
     encode, run = profiling.device_spans()
     assert encode["program"] == "encode" and encode["call"] == roots[0].call
     assert set(encode["self_ms"]) >= {"encoder", "features", "sampler", "field", "decoder",
@@ -190,7 +193,9 @@ def test_solve_marks_its_phases_and_one_call():
     assert 0 < run["estimated_ms"] < run["device_ms"]
     tree = [s["name"] for s in run["spans"] if s["depth"] == 1]
     assert tree[:4] == ["render", "loss", "render", "optimizer"]  # the backward between
+    assert [s["name"] for s in run["spans"] if s["depth"] == 2] == ["composite"]
     assert tree.count("iterations") == 3
+    assert run["composites"] == 1
 
 
 def test_host_spans_are_recorded_only_while_recording():
@@ -255,7 +260,7 @@ def test_captures_and_replays_are_counted():
     lin.weight = torch.nn.Parameter(lin.weight.detach().clone())  # moved: captured again
     cache.run((torch.nn.Linear.forward, lin), (x,), lambda t: (lin(t),), name="lin")
     (name, counts), = profiling.counters().items()
-    assert name.startswith("lin#") and counts == {"captures": 2, "replays": 4}
+    assert name.startswith("lin#") and counts == {"captures": 2, "replays": 4, "composites": 0}
     captures = profiling.host_spans("njf.program.capture")
     assert len(captures) == 2
     spans = profiling.host_spans()
@@ -293,6 +298,41 @@ def _run(name, marks, steps=False):
 def _host(name, start_ms, end_ms, **attrs):
     profiling._REG.spans.append(profiling.Span(name, int(start_ms * 1e6), int(end_ms * 1e6),
                                                -1, 1, attrs))
+
+
+def test_composites_are_counted_per_body_run():
+    """`composites` reads what a program's body formed in one run: 0 for a
+    train program, 1 for the Adam solve, eager or captured (two warm-up
+    runs and the capture each form one; replays run no body); and the
+    composite's time is render's, outside the split of the iterations'."""
+    from neural_jacobian_field_torch.inference.programs import ProgramCache
+    from test_torch_port_programs import CountingBackend
+
+    state = _state()
+    _train_call(state)
+    _solve(state.model, num_iters=3)
+    state.model.programs = ProgramCache(CountingBackend())
+    for _ in range(3):
+        _solve(state.model, num_iters=3)
+    got = sorted((k.split("#")[0], v["captures"], v["replays"], v["composites"])
+                 for k, v in profiling.counters().items())
+    assert got == [("encode", 0, 0, 0), ("encode", 1, 3, 0), ("solve", 0, 0, 1),
+                   ("solve", 1, 3, 1), ("train", 0, 0, 0)]
+
+
+def test_a_part_is_its_layer_outside_the_split():
+    """A part's time (PARTS) goes to its layer after the shared time is
+    split by the layers' own marked time."""
+    run = profiling._Run(torch.device("cpu"), None)
+    run.labels = [((), -1), (("render", "composite"), -1), (("render",), -1), (("loss",), -1),
+                  (("iterations",), -1), ((), -1)]
+    run.host_ns = [0, 10, 40, 50, 60, 100]
+    p = profiling._Program(1, "solve", run=run, stamped=True)
+    self_ms = profiling._summary(p)["self_ms"]
+    # iterations' 40 split 1:1 by render's 10 and loss's 10; the part's 30 added after
+    assert self_ms["render"] * 1e6 == pytest.approx(10 + 30 + 20)
+    assert self_ms["loss"] * 1e6 == pytest.approx(10 + 20)
+    assert "composite" not in self_ms
 
 
 @pytest.mark.parametrize("metric,want_train,want_control", [
