@@ -283,7 +283,8 @@ class Model(nn.Module):
     def encode_features(self, image: torch.Tensor, train: bool = False):
         """The context image's features (the encoder in training mode with
         `train`); in the pyramid layout the levels are packed here (K6) for
-        the knot gathers."""
+        the row gathers: the epipolar mode's knots, or the exact mode's
+        per-sample lookups."""
         with profiling.layer("encoder") as lay:
             features = self.encoder(image, train)
             if self.compute_dtype is not None:

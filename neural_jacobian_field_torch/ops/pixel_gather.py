@@ -20,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import profiling
 from .deterministic import gather_rows
 
 
@@ -169,7 +170,10 @@ def gather_bilinear_onehot(level: torch.Tensor, cx: torch.Tensor,
 def pyramid_pixel_levels(pyr: PackedPyramid, fx: torch.Tensor, fy: torch.Tensor):
     """Sample each pyramid level at fine-grid pixel coords (fx, fy) [B, N]:
     (fine [B, N, Cf], mid [B, N, Cm] in the packed maps' dtype, coarse
-    [B, N, Cc] float32). The fused trunk takes them level by level."""
+    [B, N, Cc] float32). The fused trunk takes them level by level. Counted
+    as the running program's `pixel_gathers` (utils/profiling.py): points x
+    levels."""
+    profiling.pixel_gathers(3 * fx.numel())
     hf, wf = pyr.fine_hw
     hm, wm = pyr.mid_hw
     hc = pyr.coarse.shape[1]

@@ -40,11 +40,12 @@ interval), the window's logged rate restarting after them; the trace goes
 to <log_dir>/trace.json (utils/profiling.trace: the port's host spans, and
 each program launch's layers on the device timeline over its kernels). At
 the end it writes <log_dir>/run.json: the loader's paths and the image
-decoders that served, the captured programs, the validation frames
-written, and, from the traced dispatches, the device idle share, the host
-spans by name, the last replay's layers per program
-(profiling.device_spans) and the programs' captures, replays and the
-kernels' launches.
+decoders that served, the captured programs and their counters at the
+end (`program_counters`: captures, replays, composites and pixel gathers
+by program, utils/profiling.counters), the validation frames written, and,
+from the traced dispatches, the device idle share, the host spans by name,
+the last replay's layers per program (profiling.device_spans) and the
+programs' counters and the kernels' launches.
 """
 
 import json
@@ -317,7 +318,8 @@ class Trainer:
             steps=self.state.step, loader_paths=dict(self.loader.paths),
             decoders=dict(image_io.DECODED), native=native.status(),
             programs=len(self.state.model.programs),
-            steady_programs=len(self.steady) if self.spc > 1 else 0)
+            steady_programs=len(self.steady) if self.spc > 1 else 0,
+            program_counters=profiling.counters())
         if self.device.type == "cuda":
             self.info["peak_reserved_gib"] = torch.cuda.max_memory_reserved(self.device) / 2 ** 30
         (self.logger.log_dir / "run.json").write_text(json.dumps(self.info, indent=1))

@@ -25,10 +25,11 @@ them (PyTorch counterpart of utils/profiling.py).
   registry keeps each program's marks of its last run (a replay, or an
   eager call), so that they outlive the program: `device_spans()` reads
   them after a synchronize.
-- Counters per program (`counters()`): `captures` and `replays`, and
-  `composites`, the Jacobian composites (`composite`) its body formed in its
-  last run: the run a capture bakes into every replay, or the last eager
-  one.
+- Counters per program (`counters()`): `captures` and `replays`, and what
+  its body did in its last run (the run a capture bakes into every replay,
+  or the last eager one): `composites`, the Jacobian composites
+  (`composite`) it formed, and `pixel_gathers`, the per-sample pyramid
+  lookups (`pixel_gathers`: points x levels) it made.
 - `trace`: torch.profiler around a block, written as a Chrome trace with
   the layers of each traced program launch on the device's timeline;
   `device_idle_share`: the device's idle share as the profiler sees it.
@@ -121,6 +122,7 @@ class _Program:
     captures: int = 0
     replays: int = 0
     composites: int = 0  # formed by its body in its last run
+    pixel_gathers: int = 0  # per-sample pyramid lookups of its body's last run
     run: Optional[_Run] = None  # the run whose marks the last run stamped
     stamped: bool = False  # a replay (or an eager run) has written them
     sequence: int = 0  # registry-wide order of the last run
@@ -141,7 +143,7 @@ class _Local(threading.local):
     def __init__(self):
         self.stack = []  # open host spans: (index, call)
         self.runs = []  # open program runs
-        self.bodies = []  # the composites counted by each open program run
+        self.bodies = []  # the body counters of each open program run
 
 
 _REG = _Registry()
@@ -301,14 +303,15 @@ def program(pid: int, device: torch.device, slots: Optional[torch.Tensor] = None
         yield
         return
     run = _Run(device, slots if slots is not None else mark_slots(device)) if ENABLED else None
-    _LOCAL.bodies.append(0)
+    _LOCAL.bodies.append({"composites": 0, "pixel_gathers": 0})
     if run is not None:
         _LOCAL.runs.append(run)
         run.mark(())
     try:
         yield
     finally:
-        p.composites = _LOCAL.bodies.pop()
+        body = _LOCAL.bodies.pop()
+        p.composites, p.pixel_gathers = body["composites"], body["pixel_gathers"]
         if run is not None:
             run.mark(())
             _LOCAL.runs.pop()
@@ -321,13 +324,22 @@ def composite() -> None:
     """Count a Jacobian composite formed by the program run open (outside
     any, nothing)."""
     if _LOCAL.bodies:
-        _LOCAL.bodies[-1] += 1
+        _LOCAL.bodies[-1]["composites"] += 1
+
+
+def pixel_gathers(n: int) -> None:
+    """Count `n` per-sample pyramid lookups (points x levels) made by the
+    program run open (outside any, nothing)."""
+    if _LOCAL.bodies:
+        _LOCAL.bodies[-1]["pixel_gathers"] += n
 
 
 def counters() -> Dict[str, dict]:
-    """Captures, replays and composites by program ("<name>#<id>")."""
+    """Captures, replays, composites and pixel gathers by program
+    ("<name>#<id>")."""
     return {f"{p.name}#{p.pid}": {"captures": p.captures, "replays": p.replays,
-                                  "composites": p.composites}
+                                  "composites": p.composites,
+                                  "pixel_gathers": p.pixel_gathers}
             for p in _REG.programs.values()}
 
 
@@ -503,8 +515,8 @@ def _summary(p: _Program) -> dict:
     steps = sorted(s for s in per_step if s >= 0)
     ms = {k: v / 1e6 for k, v in self_ns.items()}
     return {"program": p.name, "id": p.pid, "captures": p.captures, "replays": p.replays,
-            "composites": p.composites, "call": p.call, "device_ms": (t[-1] - t[0]) / 1e6,
-            "marks": len(t),
+            "composites": p.composites, "pixel_gathers": p.pixel_gathers, "call": p.call,
+            "device_ms": (t[-1] - t[0]) / 1e6, "marks": len(t),
             "dropped": run.dropped, "steps": max(len(steps), 1), "self_ms": ms,
             "estimated_ms": estimated / 1e6,
             "per_step": [{k: v / 1e6 for k, v in per_step[s].items()} for s in steps],

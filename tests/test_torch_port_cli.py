@@ -320,3 +320,16 @@ def test_profiling_helpers_on_cpu(tmp_path):
     assert "njf_span" in (tmp_path / "trace.json").read_text()
     out = device_idle_share(lambda: torch.ones(8).sum(), "cpu")
     assert out["busy_ms"] == 0.0 and out["idle_share"] is None and out["wall_ms"] > 0
+
+
+def test_cli_run_json_reports_program_counters(stage1):
+    """run.json's `program_counters`: each program's captures, replays,
+    composites and per-sample pyramid lookups at the end of the run (the
+    train programs of a concat-layout encoder make none: one map, no
+    pyramid)."""
+    out, state = stage1
+    run = json.loads((out / "logs" / "run.json").read_text())
+    trains = [c for k, c in run["program_counters"].items() if k.startswith("train")]
+    assert trains and all(set(c) == {"captures", "replays", "composites", "pixel_gathers"}
+                          for c in trains)
+    assert all(c["pixel_gathers"] == 0 and c["captures"] == 0 for c in trains)

@@ -1356,7 +1356,7 @@ def test_captured_solve_on_the_composite_is_the_per_sample_solve(dev, monkeypatc
     assert float((got - want).norm()) <= 1e-4 * float(want.norm())
     (program,) = list(model.programs)
     assert profiling.counters()[f"solve#{program.pid}"] == {
-        "captures": 1, "replays": 3, "composites": 1}
+        "captures": 1, "replays": 3, "composites": 1, "pixel_gathers": 0}
 
 
 # ------------------------------------------- the train steps as CUDA graphs
@@ -1582,7 +1582,7 @@ def test_second_capture_of_a_key_is_counted(dev):
     torch.cuda.synchronize()
     pid = [p.pid for p in model.programs][0]
     counts = [c for k, c in profiling.counters().items() if k == f"encode#{pid}"]
-    assert counts == [{"captures": 2, "replays": 3, "composites": 0}]
+    assert counts == [{"captures": 2, "replays": 3, "composites": 0, "pixel_gathers": 0}]
     assert len(profiling.host_spans("njf.program.capture")) == captures + 2
 
 

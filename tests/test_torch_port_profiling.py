@@ -260,7 +260,8 @@ def test_captures_and_replays_are_counted():
     lin.weight = torch.nn.Parameter(lin.weight.detach().clone())  # moved: captured again
     cache.run((torch.nn.Linear.forward, lin), (x,), lambda t: (lin(t),), name="lin")
     (name, counts), = profiling.counters().items()
-    assert name.startswith("lin#") and counts == {"captures": 2, "replays": 4, "composites": 0}
+    assert name.startswith("lin#") and counts == {"captures": 2, "replays": 4, "composites": 0,
+                                                   "pixel_gathers": 0}
     captures = profiling.host_spans("njf.program.capture")
     assert len(captures) == 2
     spans = profiling.host_spans()
