@@ -15,6 +15,9 @@
     python3 chip_smoke.py --determinism --torch-deterministic
                                             # the same under PyTorch's own
                                             # deterministic algorithms
+    python3 chip_smoke.py --attention       # only: the build and the
+                                            # Jacobian transformer's fused
+                                            # layer (JT-fwd / JT-bwd) rows
 
 Drives the port's main paths (neural_jacobian_field_torch, never JAX) at the
 flagship configuration with seeded random weights, in both pixel-feature
@@ -399,8 +402,9 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if re.search(r"conv3x3|wgrad|field_mlp_(wg|fwd|bwd_chain|dw_k)",
-                                         m.group(1)) else None
+            fn = m.group(1) if re.search(
+                r"conv3x3|wgrad|field_mlp_(wg|fwd|bwd_chain|dw_k)|jt_(fwd|grad|dw)_kernel",
+                m.group(1)) else None
             if fn:
                 counts[fn] = [0, 0, 0]
         elif fn:
@@ -735,6 +739,160 @@ def kernel_checks(dev):
     del tz, x, z
     torch.cuda.empty_cache()
     return rows
+
+
+ATTN_POINTS, ATTN_KEYS = TRAIN_B * TRAIN_RAYS * 256, 8  # the flow cell's stage-2 step
+
+
+def jt_bwd_point_flops(keys: int, hidden: int = 64, dim: int = 64, inner: int = 512) -> float:
+    """Operations a point of JT-bwd's algorithm needs (its forward recompute
+    not counted): the input gradient through fc2 and fc1, to_out and W_q, V
+    and K (each 2 x its product), and the per-point reductions the weight
+    gradients take, M = a1^T dscore and R = p^T bf16(dx1) ([dim, 8 heads x
+    keys] each), a2^T dh and g^T dy. dW_q, dK, dW_out and dV are formed from
+    M and R once a step, not per point. 196,608 at 8 keys and hidden 64."""
+    heads = inner // 64
+    chain = 2.0 * (2 * dim * hidden + 2 * dim * inner + 2 * inner * keys)
+    reductions = 2.0 * (2 * dim * heads * keys + 2 * dim * hidden)
+    return chain + reductions
+
+
+def attention_layer_checks(dev):
+    """JT-fwd and JT-bwd (the Jacobian transformer's fused layer) at the
+    flow cell's shape (7 x 256 rays x 256 samples, 8 keys, model_allegro_
+    transformer's widths) against their plain version run on the card
+    (float32 matmuls of bf16 values, TF32 off), twice for identical bits
+    (the serving forward's y and the training forward's), with the wrapper
+    and device times (the training forward, which also saves x1, p and the
+    scores for the backward) (TFLOP/s by the operations the layer
+    needs: forward 163,840 a point, as portbench/harness/work.py's
+    transformer_flops counts a layer; the backward as jt_bwd_point_flops
+    counts its algorithm), the bound (operations, or the float32 rows in
+    and out: 512 bytes a point forward, 768 backward), the plain version's
+    time and, as the yardstick, today's per-op module (models/transformer.py
+    off its fused path), which the port no longer calls on this path: its
+    forward, and its backward (forward and backward less forward). One
+    layer a row; a stage-2 step runs three of each."""
+    import torch
+
+    from neural_jacobian_field_torch.models.transformer import Transformer
+    from neural_jacobian_field_torch.ops import kernels as K
+    from neural_jacobian_field_torch.ops.kernels import attn_layer as A
+
+    g = torch.Generator().manual_seed(SEED + 24)
+    layer = Transformer(64, 1, 8, 64, 64, selfatt=False, kv_dim=64,
+                        compute_dtype=torch.bfloat16)
+    layer.init_weights(g)
+    with torch.no_grad():
+        for prm in layer.parameters():
+            prm.add_(0.1 * torch.randn(prm.shape, generator=g))
+    layer = layer.to(dev)
+    n, keys = ATTN_POINTS, ATTN_KEYS
+    x = torch.randn((n, 64), generator=g).to(dev)
+    dy = torch.randn((n, 64), generator=g).to(dev)
+    z = torch.randn((1, keys, 64), generator=g).to(dev)
+    attn, ff = layer.layers_0_attn, layer.layers_0_ff
+    k, v = torch.nn.functional.linear(z[0].bfloat16(), attn.to_kv.weight.bfloat16()).chunk(2, -1)
+    p = A.LayerWeights(layer.layers_0_attn_norm.weight, layer.layers_0_attn_norm.bias,
+                       attn.to_q.weight, attn.to_out.weight, attn.to_out.bias,
+                       layer.layers_0_ff_norm.weight, layer.layers_0_ff_norm.bias,
+                       ff.fc1.weight, ff.fc1.bias, ff.fc2.weight, ff.fc2.bias)
+    scale = 64 ** -0.5
+    packed = (A.pack_weights(k, v, p), A.pack_biases(p))
+    rows = {}
+    with torch.no_grad():
+        y = K.attn_layer_fwd(x, k, v, p, scale, packed)
+        y_want = K.attn_layer_fwd_plain(x, k, v, p, scale)
+        y2, saved = K.attn_layer_fwd(x, k, v, p, scale, packed, save=True)
+        fwd_same = bool(torch.equal(y, y2))
+        got = K.attn_layer_bwd(x, dy, k, v, p, scale, saved, packed)
+        want = K.attn_layer_bwd_plain(x, dy, k, v, p, scale)
+        again = K.attn_layer_bwd(x, dy, k, v, p, scale, saved, packed)
+    flat = lambda r: [r[0], r[1], r[2], *r[3]]  # noqa: E731
+    bwd_same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+    names = ["dx", "dK", "dV", *A.LayerWeights._fields]
+    errs = {nm: rel_err(a, b) for nm, a, b in zip(names, flat(got), flat(want))}
+    fwd_err = rel_err(y - x, y_want - x)
+    print(f"JT-fwd {n} points, {keys} keys: y - x rel_to_scale {fwd_err:.3e} against the plain "
+          f"version (tol 1e-2: bf16 roundings of sums taken in another order); two calls "
+          f"bit-identical={fwd_same}")
+    print("JT-bwd rel_to_scale " + ", ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+          + f" (tol 1e-2); two calls bit-identical={bwd_same}")
+    check(fwd_err < 1e-2 and max(errs.values()) < 1e-2 and fwd_same and bwd_same,
+          "JT-fwd / JT-bwd disagree with their plain version or do not repeat")
+
+    xg = x[None].clone().requires_grad_()
+
+    def per_op(backward):
+        layer._fused = lambda *_: False
+        try:
+            out = layer(xg, z)
+            if backward:
+                out.backward(dy[None])
+        finally:
+            del layer._fused
+
+    fwd_flops, bwd_flops = 163840.0 * n, jt_bwd_point_flops(keys) * n
+    for name, call, plain, flops, bts, lib in (
+            ("JT-fwd", lambda: K.attn_layer_fwd(x, k, v, p, scale, packed, save=True),
+             lambda: K.attn_layer_fwd_plain(x, k, v, p, scale), fwd_flops, 512 * n,
+             lambda: cuda_time_ms(lambda: per_op(False))),
+            ("JT-bwd", lambda: K.attn_layer_bwd(x, dy, k, v, p, scale, saved, packed),
+             lambda: K.attn_layer_bwd_plain(x, dy, k, v, p, scale), bwd_flops, 768 * n,
+             lambda: cuda_time_ms(lambda: per_op(True)) - cuda_time_ms(lambda: per_op(False)))):
+        row = Row()
+        with torch.no_grad():
+            ms = cuda_time_ms(call)
+            plain_ms = cuda_time_ms(plain, reps=3)
+            d_ms = device_ms(call)
+        lib_ms = lib()
+        row.add(fwd_err if name == "JT-fwd" else max(errs.values()), ms, plain_ms, bts, flops,
+                library_ms=lib_ms)
+        rec = rows[name] = row.record()
+        print_times(name, ms, plain_ms, lib_ms, extra=(
+            f" (device {d_ms:.4f}, {flops / d_ms / 1e9:.1f} TFLOP/s; bound {rec['bound_ms']:.4f} "
+            f"by {rec['bound_by']} (operations {flops / PEAK_BF16_FLOPS * 1e3:.4f}, bytes "
+            f"{bts / PEAK_BYTES_PER_S * 1e3:.4f}), bound/device {rec['bound_ms'] / d_ms:.1%})"))
+        torch.cuda.empty_cache()
+    jt_step_times(dev, x, dy, z, g)
+    return rows
+
+
+def jt_step_times(dev, x, dy, z, g, load_s=3.0):
+    """The JT kernels' device ms a layer inside a step's transformer: a bf16
+    stack of 3 layers at the flow shape, forward and backward as a stage-2
+    step runs them, timed per kernel right after a warm-up and again after
+    `load_s` seconds of the same work back to back (a step's sustained load;
+    the card's SM clock read after it)."""
+    import torch
+
+    from neural_jacobian_field_torch.models.transformer import Transformer
+
+    stack = Transformer(64, 3, 8, 64, 64, selfatt=False, kv_dim=64,
+                        compute_dtype=torch.bfloat16)
+    stack.init_weights(g)
+    stack = stack.to(dev)
+    xs, dys = x[None].clone().requires_grad_(), dy[None]
+
+    def step():
+        stack(xs, z).backward(dys)
+
+    groups = {"JT-fwd": r"jt_fwd_kernel", "JT-grad": r"jt_grad_kernel",
+              "JT-dw": r"jt_dw_kernel", "JT-reduce": r"jt_reduce_kernel"}
+    for when in ("after warm-up", f"after {load_s:.0f} s of load"):
+        if when != "after warm-up":
+            t_end = time.perf_counter() + load_s
+            while time.perf_counter() < t_end:
+                step()
+            torch.cuda.synchronize()
+        total, per = device_ms(step, groups=groups)
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                               capture_output=True, text=True).stdout.strip()
+        print(f"JT in a 3-layer step, {x.shape[0]} points, {when}: device {total:.4f} ms a step; "
+              "a layer " + ", ".join(f"{k} {v / 3:.4f}" for k, v in per.items())
+              + f" ms; SM clock {clock}")
+    del stack, xs
+    torch.cuda.empty_cache()
 
 
 def concat_layout_checks(dev):
@@ -3215,6 +3373,7 @@ FLOW_MLP_OVERRIDES = ("model.action_decoder.name=flow_mlp", "model.encoder.conv_
 # the encoder (K9, forward only), the packing, K5, the proposal and density
 # trunks forward; no kernel backward
 STAGE2_FORWARD_ONLY = {"K9-fwd": 24, "K6-fwd": 3, "K5": 1, "K7-tz-fwd": 2}
+TRANSFORMER_LAYERS = {"JT-fwd": 3, "JT-bwd": 3}  # a transformer stage-2 step's fused layers
 
 
 def variant_train_phase(dev, timings, variant, want, remat_variant=None):
@@ -3367,9 +3526,9 @@ def transformer_cli(dev, timings, paths, scene, work):
     convs, 6 steps per call): stage 1 for 96 steps (a log point at 96, the
     steady programs reached), then stage 2 (flow) warm-started from its
     checkpoint for 96 steps; finite logged losses, the kernels of each
-    stage at least its steps times phase 5's per-step counts (stage 2 runs
-    no kernel backward: the transformer is cuBLAS's), and stage 2's
-    freezing by the pattern against the checkpoint."""
+    stage at least its steps times phase 5's per-step counts (stage 2's
+    only kernel backward is the transformer's fused layers', JT-bwd), and
+    stage 2's freezing by the pattern against the checkpoint."""
     import torch
 
     steps = 96
@@ -3379,7 +3538,8 @@ def transformer_cli(dev, timings, paths, scene, work):
     for stage, extra, kernels in (
             ("stage1", [], CLI_STAGE1_KERNELS),
             ("stage2", ["dataset.mode=action", f"checkpoint.load={work / 'ckt1'}",
-                        f"checkpoint.dir={work / 'ckt2'}"], tuple(STAGE2_FORWARD_ONLY))):
+                        f"checkpoint.dir={work / 'ckt2'}"],
+             (*STAGE2_FORWARD_ONLY, *TRANSFORMER_LAYERS))):
         label = f"transformer cli {stage}"
         state, run, counts, peak, wall = cli_run(dev, label, [*base, *extra],
                                                  work / f"logs_t{stage}", steps=steps)
@@ -3440,8 +3600,8 @@ def other_decoders_phase(dev, timings, paths, cam, robot, scene, work):
     model = build_model(dev, None, cfg=tv.cfg)
     _, paths["transformer_serve"] = render_vs_eager(
         dev, model, "transformer", render_all(model),
-        all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n, "K7-tz-fwd": 2 * n}), 24, timings,
-        "transformer_")
+        all_zero_but({"K9-fwd": 24, "K6-fwd": 2 + n, "K5": n, "K7-tz-fwd": 2 * n,
+                      "JT-fwd": 3 * n}), 24, timings, "transformer_")
     inverse_dynamics_phase(dev, model, cam, robot, timings, "transformer", tag="transformer_")
     del model
     free()
@@ -3450,7 +3610,7 @@ def other_decoders_phase(dev, timings, paths, cam, robot, scene, work):
     paths["transformer_train_update"] = counts["update"]
     paths["transformer_train_update_captured"] = counts["update captured"]
     counts = action_phase(dev, timings, "epipolar", "flow", stage1, tv,
-                          all_zero_but(STAGE2_FORWARD_ONLY))
+                          all_zero_but({**STAGE2_FORWARD_ONLY, **TRANSFORMER_LAYERS}))
     paths["transformer_action"] = counts["update"]
     paths["transformer_action_captured"] = counts["update captured"]
     del stage1
@@ -4982,6 +5142,9 @@ def main() -> int:
                              "torch.use_deterministic_algorithms, their ops with atomic sums, "
                              "whether their eager runs repeat bit for bit, and the 6-step "
                              "cycle's rays/s (determinism_report)")
+    parser.add_argument("--attention", action="store_true",
+                        help="only: the build and JT-fwd / JT-bwd's rows "
+                             "(attention_layer_checks)")
     parser.add_argument("--torch-deterministic", action="store_true",
                         help="with --determinism: run it all under "
                              "torch.use_deterministic_algorithms(True)")
@@ -5045,8 +5208,15 @@ def main() -> int:
         print(f"SASS: {len(tma)} TMA / wgmma kernels (K9, the K7 forward and the K7 backward's "
               f"two passes) with HGMMA and UTMALDG" if sass else
               "SASS: no cuobjdump in this toolkit")
+        jt = {fn: c for fn, c in sass.items() if "jt_" in fn}
+        check(not sass or (len(jt) == 4 and all(c[0] and c[1] and not c[2] for c in jt.values())),
+              "a JT kernel (the serving and the training forward, the gradient chain, the "
+              "weight-gradient pass) lacks HGMMA or UTMALDG in its SASS, or kept HMMA")
         if profile is not None:
             (profile_serve if serve else profile_train)(dev, what[0])
+            return 0
+        if args.attention:
+            attention_layer_checks(dev)
             return 0
         if args.determinism:
             failed = determinism_report(dev, torch_deterministic=args.torch_deterministic)
@@ -5059,6 +5229,7 @@ def main() -> int:
         rows = kernel_checks(dev)
         rows.update(k10_checks(dev))
         rows.update(backward_kernel_checks(dev))
+        rows.update(attention_layer_checks(dev))
         phase_line(2, "kernels against their plain versions", t0)
         timings, paths = {}, {}
         cam, robot = cameras(dev)

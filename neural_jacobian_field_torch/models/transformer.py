@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import attn_layer as attn_kernels
+from ..utils import profiling
 from . import initializers as init
 
 
@@ -123,13 +125,18 @@ class Attention(nn.Module):
 class Transformer(nn.Module):
     """Stack of pre-norm attention + feed-forward blocks; forward(x, z) with
     x [..., N, dim] tokens and z [..., M, kv_dim] the cross-attention's
-    keys and values (None for self-attention)."""
+    keys and values (None for self-attention). Where `_fused` holds (the
+    Jacobian decoder's bf16 layers: dim 64, 8 heads of 64, hidden <= 64, at
+    most 8 keys, a float32 residual), each layer is one call of
+    ops/kernels/attn_layer.py (JT-fwd / JT-bwd on the card, their plain
+    version on the CPU), counted per point and layer in the program's
+    `attn_fused_points`; every other module runs the per-op code below."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
                  selfatt: bool = True, kv_dim: Optional[int] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.depth = depth
+        self.depth, self.compute_dtype = depth, compute_dtype
         for i in range(depth):
             self.add_module(f"layers_{i}_attn_norm", LayerNorm(dim, compute_dtype))
             self.add_module(f"layers_{i}_attn", Attention(dim, heads, dim_head, selfatt,
@@ -141,7 +148,34 @@ class Transformer(nn.Module):
         for m in self.children():
             m.init_weights(g)
 
+    def _fused(self, x, z) -> bool:
+        """Whether each layer takes the fused kernels (ops/kernels/attn_layer.py):
+        bf16 compute, cross-attention into one set of keys, the kernels'
+        widths, a float32 residual."""
+        if (self.depth == 0 or self.compute_dtype != torch.bfloat16 or z is None
+                or x.dtype != torch.float32 or z.dim() != 3 or z.shape[0] != 1):
+            return False
+        attn, ff = self.layers_0_attn, self.layers_0_ff
+        return (not attn.selfatt and attn.to_out is not None
+                and attn_kernels.supported(x.shape[-1], attn.heads, attn.dim_head,
+                                           ff.fc1.out_features, z.shape[1]))
+
+    def _fused_forward(self, x, z):
+        for i in range(self.depth):
+            attn, ff = getattr(self, f"layers_{i}_attn"), getattr(self, f"layers_{i}_ff")
+            an, fn = getattr(self, f"layers_{i}_attn_norm"), getattr(self, f"layers_{i}_ff_norm")
+            k, v = dense(z[0], attn.to_kv, self.compute_dtype).chunk(2, dim=-1)
+            p = attn_kernels.LayerWeights(an.weight, an.bias, attn.to_q.weight,
+                                          attn.to_out.weight, attn.to_out.bias, fn.weight,
+                                          fn.bias, ff.fc1.weight, ff.fc1.bias, ff.fc2.weight,
+                                          ff.fc2.bias)
+            profiling.attn_fused_points(x.numel() // x.shape[-1])
+            x = attn_kernels.attn_layer(x, k, v, p, attn.dim_head ** -0.5)
+        return x
+
     def forward(self, x, z=None):
+        if self._fused(x, z):
+            return self._fused_forward(x, z)
         for i in range(self.depth):
             x = x + getattr(self, f"layers_{i}_attn")(getattr(self, f"layers_{i}_attn_norm")(x),
                                                       z)

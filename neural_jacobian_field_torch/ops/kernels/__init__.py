@@ -5,12 +5,13 @@ PyTorch version (same module, `*_plain`) for a CPU tensor, and counts its
 launches in a plain integer attribute `launches` (the K9 and K7 wrappers
 also those of their legacy kernel in `legacy_launches`). The differentiable entry
 points (`conv_s1`, `conv_s1_stats`, `pack_2x2_flat_train`, `fused_resnet_fc_train`,
-`fused_resnet_fc_train_tz`, `ops/pixel_gather.gather_bilinear_onehot`, and
+`fused_resnet_fc_train_tz`, `attn_layer`, `ops/pixel_gather.gather_bilinear_onehot`, and
 `ops/deterministic.gather_rows` over K1-bwd-small or K1-bwd-rows, and
 `upsample_bilinear` over K1-bwd-upsample) are autograd.Functions over these
 wrappers.
 """
 
+from .attn_layer import attn_layer_bwd, attn_layer_bwd_plain, attn_layer_fwd, attn_layer_fwd_plain
 from .conv_suite import (
     conv3x3_s1, conv3x3_s1_dgrad, conv3x3_s1_dgrad_plain, conv3x3_s1_plain, conv3x3_s1_stats,
     conv3x3_s1_stats_plain, conv3x3_s1_wgrad, conv3x3_s1_wgrad_plain, conv_s1, conv_s1_stats)
@@ -74,6 +75,13 @@ KERNELS = {
     "K1-bwd-small": (small_scatter, small_scatter_plain, _CSRC + "small_scatter.cu",
                      "none (XLA autodiff of outer_measure's one-hot take, "
                      "neural_jacobian_field_tpu/ops/losses.py:20)"),
+    # no Pallas site: the Jacobian transformer's layer, which JAX leaves to
+    # XLA (neural_jacobian_field_tpu/models/transformer.py), fused forward
+    # and backward
+    "JT-fwd": (attn_layer_fwd, attn_layer_fwd_plain, _CSRC + "attn_layer.cu",
+               "none (XLA, neural_jacobian_field_tpu/models/transformer.py)"),
+    "JT-bwd": (attn_layer_bwd, attn_layer_bwd_plain, _CSRC + "attn_layer.cu",
+               "none (XLA autodiff, neural_jacobian_field_tpu/models/transformer.py)"),
 }
 
 

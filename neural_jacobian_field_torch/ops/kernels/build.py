@@ -65,6 +65,9 @@ _SIGNATURES = {
     "njf_small_scatter": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "njf_upsample_bwd": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "njf_mark": (_P, _P),
+    "njf_jt_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
+    "njf_jt_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I,
+                   _P),
 }
 
 

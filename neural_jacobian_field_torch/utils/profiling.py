@@ -28,8 +28,10 @@ them (PyTorch counterpart of utils/profiling.py).
 - Counters per program (`counters()`): `captures` and `replays`, and what
   its body did in its last run (the run a capture bakes into every replay,
   or the last eager one): `composites`, the Jacobian composites
-  (`composite`) it formed, and `pixel_gathers`, the per-sample pyramid
-  lookups (`pixel_gathers`: points x levels) it made.
+  (`composite`) it formed, `pixel_gathers`, the per-sample pyramid
+  lookups (`pixel_gathers`: points x levels) it made, and
+  `attn_fused_points`, the points x layers its Jacobian transformer ran
+  through the fused layer (`attn_fused_points`).
 - `trace`: torch.profiler around a block, written as a Chrome trace with
   the layers of each traced program launch on the device's timeline;
   `device_idle_share`: the device's idle share as the profiler sees it.
@@ -123,6 +125,7 @@ class _Program:
     replays: int = 0
     composites: int = 0  # formed by its body in its last run
     pixel_gathers: int = 0  # per-sample pyramid lookups of its body's last run
+    attn_fused_points: int = 0  # points x layers of the fused transformer layer, last run
     run: Optional[_Run] = None  # the run whose marks the last run stamped
     stamped: bool = False  # a replay (or an eager run) has written them
     sequence: int = 0  # registry-wide order of the last run
@@ -303,7 +306,7 @@ def program(pid: int, device: torch.device, slots: Optional[torch.Tensor] = None
         yield
         return
     run = _Run(device, slots if slots is not None else mark_slots(device)) if ENABLED else None
-    _LOCAL.bodies.append({"composites": 0, "pixel_gathers": 0})
+    _LOCAL.bodies.append({"composites": 0, "pixel_gathers": 0, "attn_fused_points": 0})
     if run is not None:
         _LOCAL.runs.append(run)
         run.mark(())
@@ -312,6 +315,7 @@ def program(pid: int, device: torch.device, slots: Optional[torch.Tensor] = None
     finally:
         body = _LOCAL.bodies.pop()
         p.composites, p.pixel_gathers = body["composites"], body["pixel_gathers"]
+        p.attn_fused_points = body["attn_fused_points"]
         if run is not None:
             run.mark(())
             _LOCAL.runs.pop()
@@ -334,12 +338,21 @@ def pixel_gathers(n: int) -> None:
         _LOCAL.bodies[-1]["pixel_gathers"] += n
 
 
+def attn_fused_points(n: int) -> None:
+    """Count `n` points run through one fused Jacobian-transformer layer
+    (ops/kernels/attn_layer.py) by the program run open (outside any,
+    nothing)."""
+    if _LOCAL.bodies:
+        _LOCAL.bodies[-1]["attn_fused_points"] += n
+
+
 def counters() -> Dict[str, dict]:
-    """Captures, replays, composites and pixel gathers by program
-    ("<name>#<id>")."""
+    """Captures, replays, composites, pixel gathers and fused attention
+    points by program ("<name>#<id>")."""
     return {f"{p.name}#{p.pid}": {"captures": p.captures, "replays": p.replays,
                                   "composites": p.composites,
-                                  "pixel_gathers": p.pixel_gathers}
+                                  "pixel_gathers": p.pixel_gathers,
+                                  "attn_fused_points": p.attn_fused_points}
             for p in _REG.programs.values()}
 
 
@@ -515,7 +528,8 @@ def _summary(p: _Program) -> dict:
     steps = sorted(s for s in per_step if s >= 0)
     ms = {k: v / 1e6 for k, v in self_ns.items()}
     return {"program": p.name, "id": p.pid, "captures": p.captures, "replays": p.replays,
-            "composites": p.composites, "pixel_gathers": p.pixel_gathers, "call": p.call,
+            "composites": p.composites, "pixel_gathers": p.pixel_gathers,
+            "attn_fused_points": p.attn_fused_points, "call": p.call,
             "device_ms": (t[-1] - t[0]) / 1e6, "marks": len(t),
             "dropped": run.dropped, "steps": max(len(steps), 1), "self_ms": ms,
             "estimated_ms": estimated / 1e6,

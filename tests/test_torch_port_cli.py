@@ -324,12 +324,13 @@ def test_profiling_helpers_on_cpu(tmp_path):
 
 def test_cli_run_json_reports_program_counters(stage1):
     """run.json's `program_counters`: each program's captures, replays,
-    composites and per-sample pyramid lookups at the end of the run (the
-    train programs of a concat-layout encoder make none: one map, no
-    pyramid)."""
+    composites, per-sample pyramid lookups and fused transformer points at
+    the end of the run (the train programs of a concat-layout encoder make
+    no lookups: one map, no pyramid; its Jacobian MLP runs no transformer)."""
     out, state = stage1
     run = json.loads((out / "logs" / "run.json").read_text())
     trains = [c for k, c in run["program_counters"].items() if k.startswith("train")]
-    assert trains and all(set(c) == {"captures", "replays", "composites", "pixel_gathers"}
-                          for c in trains)
-    assert all(c["pixel_gathers"] == 0 and c["captures"] == 0 for c in trains)
+    assert trains and all(set(c) == {"captures", "replays", "composites", "pixel_gathers",
+                                     "attn_fused_points"} for c in trains)
+    assert all(c["pixel_gathers"] == 0 and c["attn_fused_points"] == 0 and c["captures"] == 0
+               for c in trains)

@@ -1356,7 +1356,8 @@ def test_captured_solve_on_the_composite_is_the_per_sample_solve(dev, monkeypatc
     assert float((got - want).norm()) <= 1e-4 * float(want.norm())
     (program,) = list(model.programs)
     assert profiling.counters()[f"solve#{program.pid}"] == {
-        "captures": 1, "replays": 3, "composites": 1, "pixel_gathers": 0}
+        "captures": 1, "replays": 3, "composites": 1, "pixel_gathers": 0,
+        "attn_fused_points": 0}
 
 
 # ------------------------------------------- the train steps as CUDA graphs
@@ -1582,7 +1583,8 @@ def test_second_capture_of_a_key_is_counted(dev):
     torch.cuda.synchronize()
     pid = [p.pid for p in model.programs][0]
     counts = [c for k, c in profiling.counters().items() if k == f"encode#{pid}"]
-    assert counts == [{"captures": 2, "replays": 3, "composites": 0, "pixel_gathers": 0}]
+    assert counts == [{"captures": 2, "replays": 3, "composites": 0, "pixel_gathers": 0,
+                       "attn_fused_points": 0}]
     assert len(profiling.host_spans("njf.program.capture")) == captures + 2
 
 
@@ -1616,3 +1618,140 @@ def test_one_rank_nccl_train_program_is_the_plain_step(dev, mode, tmp_path):
     assert len(out["plain"]) == len(out["mesh"])
     for i, (a, b) in enumerate(zip(out["plain"], out["mesh"])):
         assert torch.equal(a, b), i
+
+
+# ------------------------------------------------ the Jacobian transformer's layer
+
+
+def _jt_layer(dev, keys, hidden=64, seed=0):
+    """One bf16 transformer layer at model_allegro_transformer's widths with
+    seeded weights off their initial values, an index embedding z of `keys`
+    rows (requires grad) and its K, V through to_kv; the layer's weights as
+    attn_layer.LayerWeights."""
+    from neural_jacobian_field_torch.models.transformer import Transformer
+    from neural_jacobian_field_torch.ops.kernels import attn_layer as A
+
+    g = torch.Generator().manual_seed(seed)
+    m = Transformer(64, 1, 8, 64, hidden, selfatt=False, kv_dim=64,
+                    compute_dtype=torch.bfloat16)
+    m.init_weights(g)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    m = m.to(dev)
+    z = torch.randn((1, keys, 64), generator=g).to(dev).requires_grad_()
+    attn, ff = m.layers_0_attn, m.layers_0_ff
+    k, v = torch.nn.functional.linear(z[0].bfloat16(), attn.to_kv.weight.bfloat16()).chunk(2, -1)
+    p = A.LayerWeights(m.layers_0_attn_norm.weight, m.layers_0_attn_norm.bias, attn.to_q.weight,
+                       attn.to_out.weight, attn.to_out.bias, m.layers_0_ff_norm.weight,
+                       m.layers_0_ff_norm.bias, ff.fc1.weight, ff.fc1.bias, ff.fc2.weight,
+                       ff.fc2.bias)
+    return m, z, k, v, p
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("n,keys,hidden", [
+    (458752, 8, 64),   # the flow cell's step: 7 x 256 rays x 256 samples, allegro's 8 keys
+    (4096, 6, 64),     # model_toy_arm's 6 keys
+    (1000, 8, 48),     # a ragged tile (1000 = 15 x 64 + 40), fc1 / fc2 padded to 64
+    (777, 7, 64),      # an odd key count on a ragged tile (777 = 12 x 64 + 9)
+])
+def test_jt_layer_matches_plain_and_repeats(dev, n, keys, hidden):
+    """JT-fwd (serving and training: the same y) and JT-bwd against their
+    plain version run on the card on the same inputs: the layer's change to
+    its input (y - x), dx, every parameter's gradient, dK, dV and the index
+    embedding's gradient through to_kv. Both round the same values to bf16
+    at the same points and sum in float32 in other orders, so a rounding now
+    and then falls the other way (up to 2^-7 of a value): gradients measured
+    within 3.4e-3 of scale; tolerance 1e-2 of scale, for y - x as well. Two calls are bit for
+    bit the same (no atomics), and each wrapper counts one launch a call."""
+    from neural_jacobian_field_torch.ops.kernels import attn_layer as A
+
+    m, z, k, v, p = _jt_layer(dev, keys, hidden)
+    g = _gen(40)
+    x = torch.randn((n, 64), generator=g, device=dev)
+    dy = torch.randn((n, 64), generator=g, device=dev)
+    f0, b0 = K.attn_layer_fwd.launches, K.attn_layer_bwd.launches
+    with torch.no_grad():
+        y = K.attn_layer_fwd(x, k, v, p, 0.125)
+        y2, saved = K.attn_layer_fwd(x, k, v, p, 0.125, save=True)
+        got = K.attn_layer_bwd(x, dy, k, v, p, 0.125, saved=saved)
+        again = K.attn_layer_bwd(x, dy, k, v, p, 0.125, saved=saved)
+        want_y = K.attn_layer_fwd_plain(x, k, v, p, 0.125)
+        want = K.attn_layer_bwd_plain(x, dy, k, v, p, 0.125)
+    torch.cuda.synchronize()
+    assert (K.attn_layer_fwd.launches, K.attn_layer_bwd.launches) == (f0 + 2, b0 + 2)
+    flat = lambda r: [r[0], r[1], r[2], *r[3]]  # noqa: E731
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+    assert _rel(y - x, want_y - x) <= 1e-2
+    names = ["dx", "dK", "dV", *A.LayerWeights._fields]
+    for name, a, b in zip(names, flat(got), flat(want)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
+    dz = torch.autograd.grad((k, v), z, (got[1].bfloat16(), got[2].bfloat16()), retain_graph=True)
+    dz_want = torch.autograd.grad((k, v), z, (want[1].bfloat16(), want[2].bfloat16()))
+    assert _rel(dz[0], dz_want[0]) <= 1e-2
+
+
+def test_jt_step_launches_three_forward_three_backward(dev):
+    """The decoder's 3-layer transformer forward and backward through the
+    fused layer: 3 JT-fwd and 3 JT-bwd launches, outputs with a grad_fn,
+    finite gradients on the input, the index embedding and every layer
+    parameter, and the same as the per-op module to bf16's rounding
+    (2e-2 of scale: autograd rounds dP, dx1, da1, da2 to bf16 where the
+    kernels keep float32)."""
+    from neural_jacobian_field_torch.models.transformer import Transformer
+
+    m = Transformer(64, 3, 8, 64, 64, selfatt=False, kv_dim=64,
+                    compute_dtype=torch.bfloat16).to(dev)
+    m.init_weights(torch.Generator().manual_seed(3))
+    g = _gen(41)
+    x = torch.randn((2, 3000, 64), generator=g, device=dev).requires_grad_()
+    z = torch.randn((1, 8, 64), generator=g, device=dev).requires_grad_()
+    c = torch.randn((2, 3000, 64), generator=g, device=dev)
+    assert m._fused(x, z)
+    f0, b0 = K.attn_layer_fwd.launches, K.attn_layer_bwd.launches
+    y = m(x, z)
+    assert y.grad_fn is not None
+    (y * c).sum().backward()
+    torch.cuda.synchronize()
+    assert (K.attn_layer_fwd.launches - f0, K.attn_layer_bwd.launches - b0) == (3, 3)
+    got = [x.grad, z.grad] + [p.grad for p in m.parameters()]
+    assert all(t is not None and torch.isfinite(t).all() for t in got)
+    m.zero_grad()
+    x.grad = z.grad = None
+    m._fused = lambda *_: False
+    y_want = m(x, z)
+    (y_want * c).sum().backward()
+    want = [x.grad, z.grad] + [p.grad for p in m.parameters()]
+    assert _rel(y, y_want) <= 2e-2
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 2e-2
+
+
+def test_flow_program_counts_its_fused_transformer_points(dev):
+    """The benchmark cell allegro_transformer.stage2_flow's captured 6-step
+    program: `attn_fused_points` = 7 x 256 rays x 256 samples x 3 layers x 6
+    steps = 8,257,536, and each replay launches 18 JT-fwd and 18 JT-bwd."""
+    import sys
+    import time
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from portbench.harness import cells, context
+    from portbench.kinds import train_program as base
+
+    from neural_jacobian_field_torch.utils import profiling
+
+    cell = cells.resolve("allegro_transformer.stage2_flow")
+    ctx = context.RunContext(cell=cell, seed=2 ** 31 + 5, seconds=0.0, trace=False,
+                             device=dev, t0=time.perf_counter())
+    base.setup(ctx)
+    torch.cuda.synchronize()
+    counts = [c for name, c in profiling.counters().items() if name.startswith("train#")]
+    assert counts and all(c["attn_fused_points"] == 7 * 256 * 256 * 3 * 6 for c in counts)
+    assert 7 * 256 * 256 * 3 * 6 == 8257536

@@ -261,7 +261,7 @@ def test_captures_and_replays_are_counted():
     cache.run((torch.nn.Linear.forward, lin), (x,), lambda t: (lin(t),), name="lin")
     (name, counts), = profiling.counters().items()
     assert name.startswith("lin#") and counts == {"captures": 2, "replays": 4, "composites": 0,
-                                                   "pixel_gathers": 0}
+                                                   "pixel_gathers": 0, "attn_fused_points": 0}
     captures = profiling.host_spans("njf.program.capture")
     assert len(captures) == 2
     spans = profiling.host_spans()

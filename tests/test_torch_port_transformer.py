@@ -89,6 +89,56 @@ def test_transformer_modules_match_jax(kind):
         assert _rel(p.grad, grads[name].numpy()) <= TOL, name
 
 
+@pytest.mark.parametrize("keys", [6, 8])
+def test_fused_bf16_transformer_matches_jax(keys):
+    """The Jacobian decoder's bf16 transformer (dim 64, depth 3, 8 heads of
+    64, mlp 64), which the port runs through the fused layer
+    (ops/kernels/attn_layer.py; its plain version on the CPU), against the
+    JAX module at compute_dtype bf16 from the same weights: x [1, 256, 64]
+    float32, z [1, keys, 64] (the toy arm's 6 actions, allegro's 8).
+
+    Limits from bf16 rounding (unit 2^-8): the JAX module rounds each dense
+    product before adding its bias and rounds between GELU's steps, where
+    the port rounds once; over 3 layers these give a few roundings of each
+    branch, so the residual's change y - x is held to 2^-6 of its scale
+    (measured at most 8.6e-3, the per-op module's own reading). JAX also
+    rounds every gradient to bf16 along the chain where the fused backward
+    keeps float32, so the input, key and parameter gradients are held to
+    3e-2 (measured: dx at most 7.3e-3, dz 9.3e-3, the parameters 2.6e-2 at
+    fc1's bias of the first layer with 6 keys, a column sum of JAX's bf16
+    dh that the per-op module also reads 2.6e-2 from JAX)."""
+    from neural_jacobian_field_tpu.models import transformer as jt
+    from neural_jacobian_field_torch.models import transformer as tt
+
+    jmod = jt.Transformer(dim=64, depth=3, heads=8, dim_head=64, mlp_dim=64, selfatt=False,
+                          kv_dim=64, compute_dtype=jnp.bfloat16)
+    tmod = tt.Transformer(64, 3, 8, 64, 64, selfatt=False, kv_dim=64,
+                          compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(keys)
+    x = rng.normal(size=(1, 256, 64)).astype(np.float32)
+    z = rng.normal(size=(1, keys, 64)).astype(np.float32)
+    params = randomize_variables(jax.tree.map(np.asarray, dict(
+        jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(z)))))
+    want = jmod.apply(params, x, z)
+    assert want.dtype == jnp.float32
+    c = rng.normal(size=want.shape).astype(np.float32)
+    want_grads = jax.grad(lambda p, a, b: jnp.sum(jmod.apply(p, a, b) * c),
+                          argnums=(0, 1, 2))(params, x, z)
+
+    tmod.load_state_dict(from_jax_variables(params["params"]), strict=True)
+    tx, tz = torch.from_numpy(x).requires_grad_(), torch.from_numpy(z).requires_grad_()
+    assert tmod._fused(tx, tz)
+    got = tmod(tx, tz)
+    assert _rel(got.detach() - tx.detach(), np.asarray(want) - x) <= 2 ** -6
+    (got * torch.from_numpy(c)).sum().backward()
+    assert _rel(tx.grad, want_grads[1]) <= 3e-2
+    assert _rel(tz.grad, want_grads[2]) <= 3e-2
+    grads = from_jax_variables(jax.tree.map(np.asarray, want_grads[0]["params"]))
+    assert set(grads) == {n for n, _ in tmod.named_parameters()}
+    for name, p in tmod.named_parameters():
+        assert _rel(p.grad, grads[name].numpy()) <= 3e-2, name
+
+
 def test_layer_norm_is_flaxs_in_bf16():
     """The LayerNorm of a bf16 model: Flax's statistics in float32 and its
     epsilon 1e-6, one cast to bf16 (to bf16 rounding: one ulp)."""
